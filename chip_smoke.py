@@ -13,8 +13,15 @@ Phases:
   scale    the main path at size: Q1 and Q6 at SF 10, Q3 and Q5 at SF 1,
            through LocalRunner, with per-query wall time, peak memory and
            kernel launch counts; every kernel must have launched
-  profile  (only when asked for) the scale queries once more under
-           torch.profiler: device busy share and device time by kernel
+  dist     the distributed path: 4 in-process WorkerServers on the card
+           and a DcnRunner (stage DAG, partitioned joins, every exchange
+           partitioned on the card through K4). Q3 and Q5 at SF 0.01 ==
+           the card's LocalRunner == sqlite; then Q1 at SF 10, Q3 and Q5
+           at SF 1 (page_rows 2^20): one warm-up and 3 timed runs each,
+           rows == the single-process rows, and == again with K4 off
+  profile  (only when asked for) the scale and dist queries once more
+           under torch.profiler: device busy share and device time by
+           kernel
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -38,7 +45,7 @@ import torch
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound_ms column
 HBM_BYTES_PER_S = 3.35e12
 
-ALL_PHASES = ("build", "kernels", "check", "scale")
+ALL_PHASES = ("build", "kernels", "check", "scale", "dist")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -182,6 +189,32 @@ def check_probe(gen: torch.Generator, dev, build_rows: int,
         f"read; exact)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                 max_abs_err=0)
+
+
+def check_part_ids(gen: torch.Generator, dev) -> dict:
+    """K4 against its twin at the exchange's shapes: one 2^20-row page,
+    C key columns, 4 partitions (the dist phase's worker count)."""
+    from presto_tpu_torch.ops import cuda_part as CP
+
+    n, nparts = 1 << 20, 4
+    results = {}
+    for cols in (1, 2, 3):
+        enc = torch.randint(-(1 << 62), 1 << 62, (cols, n), generator=gen,
+                            dtype=torch.int64).to(dev)
+        err = max_abs_err(CP.part_ids_cuda(enc, nparts),
+                          CP.part_ids_plain(enc, nparts))
+        if err:
+            raise AssertionError(f"K4 C={cols}: kernel != plain "
+                                 f"(max err {err})")
+        ms = time_ms(lambda: CP.part_ids_cuda(enc, nparts))
+        plain_ms = time_ms(lambda: CP.part_ids_plain(enc, nparts))
+        bound = bytes_ms(cols * n * 8 + n * 4)
+        log(f"K4 part_ids n={n} C={cols} nparts={nparts}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"(exact; no single PyTorch call computes this function)")
+        results[cols] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                             bound_ms=bound, max_abs_err=0)
+    return results
 
 
 # ----------------------------------------------------- the sqlite oracle
@@ -331,7 +364,7 @@ def phase_check(dev) -> None:
 # -------------------------------------------------------------- the scale
 
 SCALE_RUNS = ((1, 10.0), (6, 10.0), (3, 1.0), (5, 1.0))
-KERNEL_NAMES = ("segsum", "probe_dim", "probe_radix")
+KERNEL_NAMES = ("segsum", "probe_dim", "probe_radix", "part_ids")
 # kernels each query's main path must launch
 REQUIRED = {1: ("segsum",), 6: ("segsum",), 3: ("probe_radix",),
             5: ("probe_dim", "probe_radix")}
@@ -405,23 +438,154 @@ def phase_scale(dev) -> dict:
     return launches_total
 
 
-def phase_profile(dev) -> None:
-    """Where the time goes: each scale query once more under
+# ------------------------------------------------------ the distributed path
+
+N_WORKERS = 4
+DIST_SCALE = ((1, 10.0), (3, 1.0), (5, 1.0))
+# kernels each distributed query must launch (K4 wherever an exchange
+# repartitions: Q1's 4 groups gather)
+DIST_REQUIRED = {1: ("segsum",), 3: ("part_ids",), 5: ("part_ids",)}
+
+
+def _catalog(sf: float) -> str:
+    return "tpch_sf" + f"{sf:g}".replace(".", "_")
+
+
+class DistCluster:
+    """N_WORKERS in-process WorkerServers on the card sharing one
+    connector per scale, and coordinators over them."""
+
+    def __init__(self, dev, scales):
+        from presto_tpu_torch.connectors.tpch import TpchConnector
+        from presto_tpu_torch.server.worker import WorkerServer
+
+        self.dev = dev
+        self.catalogs = {_catalog(sf): TpchConnector(sf, device=dev)
+                         for sf in scales}
+        self.workers = [WorkerServer(self.catalogs, node_id=f"w{i}",
+                                     device=dev)
+                        for i in range(N_WORKERS)]
+        for w in self.workers:
+            w.start()
+
+    def coordinator(self, sf: float, page_rows: int, kernels: str = "true"):
+        from presto_tpu_torch.dist.dcn import DcnRunner
+
+        name = _catalog(sf)
+        return DcnRunner({name: self.catalogs[name]},
+                         [w.uri for w in self.workers],
+                         default_catalog=name, device=self.dev,
+                         session_props={
+                             "page_rows": page_rows,
+                             "join_distribution_type": "partitioned",
+                             "device_exchange_enabled": "true",
+                             "pallas_join_enabled": kernels})
+
+    def local(self, sf: float, page_rows: int):
+        from presto_tpu_torch.runner import LocalRunner
+
+        name = _catalog(sf)
+        return LocalRunner({name: self.catalogs[name]}, name,
+                           session={"page_rows": page_rows},
+                           device=self.dev)
+
+    def stop(self) -> None:
+        for w in self.workers:
+            w.stop()
+
+
+def _dist_run(coord, sql):
+    ex = coord.runner.executor
+    pages0, rows0 = ex.spooled_exchange_pages, ex.spooled_exchange_rows
+    t0 = time.perf_counter()
+    rows = coord.execute(sql)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if coord.last_distribution != "stage-dag":
+        raise AssertionError("the stage DAG did not engage")
+    return rows, wall, (ex.spooled_exchange_pages - pages0,
+                        ex.spooled_exchange_rows - rows0)
+
+
+def phase_dist(dev, cluster: "DistCluster") -> dict:
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+
+    # SF 0.01: card DcnRunner == card LocalRunner == sqlite
+    db = load_sqlite(TpchConnector(0.01, device="cpu"))
+    coord = cluster.coordinator(0.01, 1 << 13)
+    single = cluster.local(0.01, 1 << 13)
+    for q in (3, 5):
+        got, _, _ = _dist_run(coord, ENGINE_SQL[q])
+        want = single.execute(ENGINE_SQL[q]).rows
+        if got != want:
+            raise AssertionError(f"dist Q{q} SF 0.01: rows != single "
+                                 f"process\n dist {got[:3]}\n local "
+                                 f"{want[:3]}")
+        oracle_sql, modes = ORACLE_SQL[q]
+        compare_oracle(q, got, db.execute(oracle_sql).fetchall(), modes)
+        log(f"dist: Q{q} SF 0.01: {len(got)} rows, DcnRunner on the card "
+            f"== LocalRunner == sqlite")
+
+    page_rows = 1 << 20
+    launches_total = {k: 0 for k in KERNEL_NAMES}
+    per_query = {}
+    cuda.reset_counts()  # counts cover the main-path runs below only
+    for q, sf in DIST_SCALE:
+        coord = cluster.coordinator(sf, page_rows)
+        before = dict(cuda.launches)
+        torch.cuda.reset_peak_memory_stats()
+        rows, _, _ = _dist_run(coord, ENGINE_SQL[q])  # warm-up
+        walls, spooled = [], None
+        for _ in range(TIMED_RUNS):
+            rows, wall, spooled = _dist_run(coord, ENGINE_SQL[q])
+            walls.append(wall)
+        counts = {k: cuda.launches.get(k, 0) - before.get(k, 0)
+                  for k in KERNEL_NAMES}
+        peak = torch.cuda.max_memory_allocated()
+        runs = 1 + TIMED_RUNS
+        for k in DIST_REQUIRED[q]:
+            if counts[k] <= 0:
+                raise AssertionError(f"dist Q{q}: kernel {k} never "
+                                     f"launched")
+        for k in KERNEL_NAMES:
+            launches_total[k] += counts[k]
+        # outside the counted runs: the single-process rows and K4 off
+        want = cluster.local(sf, page_rows).execute(ENGINE_SQL[q]).rows
+        off, off_wall, _ = _dist_run(
+            cluster.coordinator(sf, page_rows, kernels="false"),
+            ENGINE_SQL[q])
+        if rows != want or off != want:
+            raise AssertionError(
+                f"dist Q{q} SF {sf:g}: rows differ (K4 on == single "
+                f"{rows == want}, K4 off == single {off == want})")
+        log(f"dist: Q{q} SF {sf:g} x{N_WORKERS} workers: rows {len(rows)} "
+            f"(== single process, == with K4 off), wall s "
+            f"{[round(w, 4) for w in walls]} (median "
+            f"{statistics.median(walls):.4f}; K4 off {off_wall:.4f}), "
+            f"peak alloc {peak / 2**30:.3f} GiB, spooled pages "
+            f"{spooled[0]}, rows through the exchanges {spooled[1]}, "
+            f"launches per run { {k: v // runs for k, v in counts.items()} }")
+        per_query[q] = dict(sf=sf, wall_s=walls, rows=len(rows),
+                            peak_bytes=peak, spooled_pages=spooled[0],
+                            exchange_rows=spooled[1], launches=counts,
+                            k4_off_wall_s=off_wall)
+    log("dist: " + json.dumps({"per_query": per_query}))
+    return launches_total
+
+
+def phase_profile(dev, cluster: "DistCluster") -> None:
+    """Where the time goes: each scale and dist query once more under
     torch.profiler — the device's busy share of the wall time, the
     number of device kernels, and device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from presto_tpu_torch.connectors.tpch import TpchConnector
-    from presto_tpu_torch.runner import LocalRunner
-
-    runners = {}
-    for q, sf in SCALE_RUNS:
-        if sf not in runners:
-            runners[sf] = LocalRunner(
-                {"tpch": TpchConnector(sf, device=dev)},
-                session={"page_rows": 1 << 20}, device=dev)
-        runner = runners[sf]
+    runs = [("local", q, sf, cluster.local(sf, 1 << 20))
+            for q, sf in SCALE_RUNS]
+    runs += [("dist", q, sf, cluster.coordinator(sf, 1 << 20))
+             for q, sf in DIST_SCALE]
+    for path, q, sf, runner in runs:
         runner.execute(ENGINE_SQL[q])  # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -440,7 +604,8 @@ def phase_profile(dev) -> None:
                 e.time_range.elapsed_us()
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log(f"profile: Q{q} SF {sf:g}: wall {wall_us / 1e3:.2f} ms, device "
+        log(f"profile: {path} Q{q} SF {sf:g}: wall {wall_us / 1e3:.2f} "
+            f"ms, device "
             f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
             f"{n_kernels} device kernels; top: " + "; ".join(
                 f"{name[:60]} {us / 1e3:.2f} ms" for name, us in top))
@@ -477,23 +642,39 @@ def main() -> int:
         check_probe(gen, dev, 2048)  # the largest dim layout: 32 tiles
         measured["probe_dim"] = dim_t1
         measured["probe_radix"] = check_probe(gen, dev, 1 << 20)
+        measured["part_ids"] = check_part_ids(gen, dev)[1]  # one key
     if "check" in phases:
         phase_check(dev)
+    # launches: the sum over the main paths that ran (the single-process
+    # scale runs and the distributed runs), each counted from 0
     launches = {k: None for k in KERNEL_NAMES}
     if "scale" in phases:
         launches = phase_scale(dev)
-    if "profile" in phases:
-        phase_profile(dev)
+    cluster = None
+    try:
+        if phases & {"dist", "profile"}:
+            cluster = DistCluster(dev, (0.01, 1.0, 10.0))
+        if "dist" in phases:
+            dist = phase_dist(dev, cluster)
+            launches = {k: (launches[k] or 0) + dist[k]
+                        for k in KERNEL_NAMES}
+        if "profile" in phases:
+            phase_profile(dev, cluster)
+    finally:
+        if cluster is not None:
+            cluster.stop()
 
     replaces = {
         "segsum": "presto_tpu/ops/pallas_agg.py:71",
         "probe_dim": "presto_tpu/ops/pallas_join.py:262",
         "probe_radix": "presto_tpu/ops/pallas_join.py:371",
+        "part_ids": "presto_tpu/dist/spool.py:243",
     }
     source = {
         "segsum": "presto_tpu_torch/csrc/segsum.cu",
         "probe_dim": "presto_tpu_torch/csrc/hash_probe.cu",
         "probe_radix": "presto_tpu_torch/csrc/hash_probe.cu",
+        "part_ids": "presto_tpu_torch/csrc/part_ids.cu",
     }
     kernels = []
     for name in KERNEL_NAMES:

@@ -11,9 +11,11 @@ Every C entry point launches on the caller's current stream, allocates
 nothing and returns cudaGetLastError(); ``call`` raises if that is not
 0. There is no fallback: a failed build or launch raises.
 
-``launches`` counts kernel launches by kernel name (a wrapper adds one
-exactly where it launches); ``plain_calls`` counts calls that took the
-plain PyTorch version because their tensors lay on the CPU.
+``launches`` counts kernel launches by kernel name (a wrapper calls
+``count(launches, name)`` exactly where it launches); ``plain_calls``
+counts calls that took the plain PyTorch version because their tensors
+lay on the CPU. Worker tasks launch from several threads at once, so
+the counts move under a lock.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ LIBRARIES = {
         # out_start, out_count, stream
         "presto_hash_probe": [_I, _P, _I64, _P, _I, _I, _I, _P, _P, _P],
     }),
+    "part_ids": ("part_ids.cu", {
+        # device, enc, cols, n, nparts, out, stream
+        "presto_part_ids": [_I, _P, _I, _I64, _I, _P, _P],
+    }),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -57,11 +63,19 @@ plain_calls: collections.Counter = collections.Counter()
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count(counter: collections.Counter, name: str) -> None:
+    """Add one to ``counter[name]`` (``launches`` or ``plain_calls``)."""
+    with _count_lock:
+        counter[name] += 1
 
 
 def reset_counts() -> None:
-    launches.clear()
-    plain_calls.clear()
+    with _count_lock:
+        launches.clear()
+        plain_calls.clear()
 
 
 def nvcc_path() -> str:

@@ -1,2 +1,3 @@
-"""Distribution helpers the single-process slice needs (the planner's
-cardinality estimate). The distributed executor is a later slice."""
+"""The stage-DAG distributed path (port of presto_tpu/dist): exchange
+insertion and fragmentation, plan and page serde, the spooled-exchange
+data plane, the stage scheduler and the DCN coordinator."""

@@ -1,0 +1,382 @@
+"""Page wire format for the DCN (inter-process) boundary.
+
+Port of presto_tpu/dist/serde.py, wire format v3, in its default
+("full") codec mode: for the same page the blobs are byte-identical to
+the reference's. Reference: presto-main execution/buffer/PagesSerde.java
++ SerializedPage, fetched by operator/HttpPageBufferClient.java.
+
+    offset 0   b"PTP"      magic
+    offset 3   b"3"        version byte
+    offset 4   flags       bit0: header JSON is zlib-compressed
+    offset 5   <ii>        header length, payload length
+    offset 13  header      JSON {capacity, blocks: [{type, dtypes,
+                           nwords, has_nulls, dictionary?}], live?}
+    13+hlen    payload     one frame per array, in header order:
+                           data words, then nulls (if has_nulls) per
+                           block, then the page validity mask
+
+When the header carries "live" < capacity, every frame stores only the
+first `live` elements (the prefix through the LAST valid row); the
+decoder zero/False-fills the dead tail.
+
+Frame = codec byte | <q> stored length | stored bytes; `base | 0x80`
+marks stored bytes that are additionally zlib-compressed. Base codecs:
+0 RAW, 1 RLE (one element of a bit-identical constant run), 2/3/4
+INT8/16/32 narrowest-int downcast, 5 BOOLPACK, 6/7/8 DELTA8/16/32
+(first element + consecutive modular differences, narrowest width).
+The codec is chosen per array by a deterministic size probe, so a
+re-fetched page serializes byte-identically. Every frame length is
+validated on decode: a truncated or corrupt blob raises PageWireError.
+
+Tensors leave the device here (each array's ``.cpu()``); a decoded
+page holds CPU tensors, which the consuming executor stages onto its
+device.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+import zlib
+from typing import List
+
+import numpy as np
+import torch
+
+from presto_tpu_torch import types as T
+from presto_tpu_torch.page import Block, Dictionary, Page
+
+_MAGIC = b"PTP"
+_VERSION = b"3"
+_FLAG_HDR_ZLIB = 0x01
+
+_RAW = 0
+_RLE = 1
+_INT8 = 2
+_INT16 = 3
+_INT32 = 4
+_BOOLPACK = 5
+_DELTA8 = 6
+_DELTA16 = 7
+_DELTA32 = 8
+_ZLIB_FLAG = 0x80
+_DOWNCAST_SIZE = {_INT8: 1, _INT16: 2, _INT32: 4}
+_DELTA_SIZE = {_DELTA8: 1, _DELTA16: 2, _DELTA32: 4}
+
+_ZLIB_LEVEL = 6
+# don't probe zlib below this: the deflate header cannot win on tiny
+# frames
+_ZLIB_MIN_BYTES = 64
+
+
+class PageWireError(ValueError):
+    """A page blob failed structural validation (bad magic/version,
+    truncated frame, length/dtype mismatch, corrupt compressed data)."""
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _arrays_of(block: Block) -> List[np.ndarray]:
+    datas = block.data if isinstance(block.data, tuple) else (block.data,)
+    return [_np(d) for d in datas]
+
+
+def _dic_value_to_json(v):
+    """Type-preserving dictionary-value encoding (strings, python
+    ints/floats/bools, bytes, None, nested tuples)."""
+    if v is None or isinstance(v, (str, bool)):
+        return v
+    if isinstance(v, (bytes, bytearray)):
+        return {"b": bytes(v).hex()}
+    if isinstance(v, (int, float)):
+        return {"n": v}
+    if isinstance(v, (tuple, list)):
+        return {"t": [_dic_value_to_json(x) for x in v]}
+    return str(v)
+
+
+def _dic_value_from_json(v):
+    if v is None or isinstance(v, (str, bool)):
+        return v
+    if isinstance(v, dict):
+        if "b" in v:
+            return bytes.fromhex(v["b"])
+        if "n" in v:
+            return v["n"]
+        if "t" in v:
+            return tuple(_dic_value_from_json(x) for x in v["t"])
+    return v
+
+
+# ------------------------------------------------------------ encode
+def _is_constant(arr: np.ndarray) -> bool:
+    """Bit-identical constant run? Tested on BYTES: NaN payloads
+    collapse, mixed +0.0/-0.0 do not."""
+    if arr.size <= 1:
+        return False
+    first = arr[:1].tobytes()
+    if arr[-1:].tobytes() != first:
+        return False
+    return arr.tobytes() == first * arr.size
+
+
+def _downcast(arr: np.ndarray):
+    """(codec, narrow_array) when min/max fit a strictly narrower
+    integer width, else None."""
+    kind = arr.dtype.kind
+    if kind not in "iu" or arr.dtype.itemsize <= 1 or arr.size == 0:
+        return None
+    lo = int(arr.min())
+    hi = int(arr.max())
+    for codec in (_INT8, _INT16, _INT32):
+        size = _DOWNCAST_SIZE[codec]
+        if size >= arr.dtype.itemsize:
+            return None
+        info = np.iinfo(f"{kind}{size}")
+        if info.min <= lo and hi <= info.max:
+            return codec, arr.astype(f"<{kind}{size}")
+    return None
+
+
+def _delta(arr: np.ndarray):
+    """(codec, narrow_diff_array) when the consecutive differences,
+    taken modulo 2^width, fit a strictly narrower signed width."""
+    if arr.dtype.kind not in "iu" or arr.dtype.itemsize <= 1 or arr.size < 2:
+        return None
+    w = arr.dtype.itemsize
+    ud = np.diff(arr.view(f"<u{w}"))
+    sd = ud.view(f"<i{w}")
+    lo = int(sd.min())
+    hi = int(sd.max())
+    for codec in (_DELTA8, _DELTA16, _DELTA32):
+        size = _DELTA_SIZE[codec]
+        if size >= w:
+            return None
+        info = np.iinfo(f"i{size}")
+        if info.min <= lo and hi <= info.max:
+            return codec, sd.astype(f"<i{size}")
+    return None
+
+
+def _encode_array(arr: np.ndarray, out: bytearray) -> None:
+    """Append one frame (codec byte | <q len> | bytes) for `arr`."""
+    arr = np.ascontiguousarray(arr)
+    raw = arr.tobytes()
+    if _is_constant(arr):
+        one = raw[: arr.dtype.itemsize]
+        out.append(_RLE)
+        out.extend(struct.pack("<q", len(one)))
+        out.extend(one)
+        return
+    codec, base = _RAW, raw
+    if arr.dtype.kind == "b":
+        packed = np.packbits(arr.view(np.uint8)).tobytes()
+        if len(packed) < len(raw):
+            codec, base = _BOOLPACK, packed
+    else:
+        # smallest stored size wins, plain downcast preferred on ties
+        down = _downcast(arr)
+        if down is not None:
+            codec, base = down[0], down[1].tobytes()
+        delta = _delta(arr)
+        if delta is not None:
+            dbase = raw[: arr.dtype.itemsize] + delta[1].tobytes()
+            if len(dbase) < len(base):
+                codec, base = delta[0], dbase
+    if len(base) >= _ZLIB_MIN_BYTES:
+        comp = zlib.compress(base, _ZLIB_LEVEL)
+        if len(comp) < len(base):
+            out.append(codec | _ZLIB_FLAG)
+            out.extend(struct.pack("<q", len(comp)))
+            out.extend(comp)
+            return
+    out.append(codec)
+    out.extend(struct.pack("<q", len(base)))
+    out.extend(base)
+
+
+def serialize_page(page: Page) -> bytes:
+    """One Page -> bytes (the SerializedPage analog)."""
+    cap = int(page.capacity)
+    valid_np = np.ascontiguousarray(_np(page.valid))
+    header = {"capacity": cap, "blocks": []}
+    payload = bytearray()
+
+    # live-prefix truncation: rows past the LAST valid row are dead in
+    # every consumer (masked by `valid`), so ship only the prefix
+    live = cap
+    if valid_np.size == cap:
+        live = (int(cap - np.argmax(valid_np[::-1]))
+                if valid_np.any() else 0)
+        if live < cap:
+            header["live"] = live
+
+    def _enc(a: np.ndarray) -> None:
+        _encode_array(a[:live] if live < a.shape[0] else a, payload)
+
+    for blk in page.blocks:
+        arrays = _arrays_of(blk)
+        header["blocks"].append({
+            "type": blk.type.display(),
+            "dtypes": [a.dtype.str for a in arrays],
+            "nwords": len(arrays),
+            "has_nulls": blk.nulls is not None,
+            "dictionary": (
+                [_dic_value_to_json(v) for v in blk.dictionary.values]
+                if blk.dictionary is not None else None
+            ),
+        })
+        for a in arrays:
+            _enc(a)
+        if blk.nulls is not None:
+            _enc(_np(blk.nulls))
+    _enc(valid_np)
+
+    hdr = json.dumps(header).encode()
+    flags = 0
+    if len(hdr) >= 256:
+        chdr = zlib.compress(hdr, _ZLIB_LEVEL)
+        if len(chdr) < len(hdr):
+            hdr, flags = chdr, _FLAG_HDR_ZLIB
+    return (_MAGIC + _VERSION + bytes([flags])
+            + struct.pack("<ii", len(hdr), len(payload))
+            + hdr + bytes(payload))
+
+
+# ------------------------------------------------------------ decode
+def _fail(msg: str):
+    raise PageWireError(f"page blob: {msg}")
+
+
+def _decode_frame(payload: bytes, pos: int, dtype: np.dtype, n: int):
+    """One frame at payload[pos:] as an n-element array of dtype;
+    returns (array, next position)."""
+    if pos + 9 > len(payload):
+        _fail(f"truncated frame at payload offset {pos}")
+    codec = payload[pos]
+    (ln,) = struct.unpack_from("<q", payload, pos + 1)
+    pos += 9
+    if ln < 0 or pos + ln > len(payload):
+        _fail(f"frame length {ln} at offset {pos} overruns the "
+              f"{len(payload)}-byte payload")
+    data = payload[pos:pos + ln]
+    pos += ln
+    base = codec & ~_ZLIB_FLAG
+    if codec & _ZLIB_FLAG:
+        try:
+            data = zlib.decompress(data)
+        except zlib.error as e:
+            _fail(f"corrupt compressed frame (codec {base}): {e}")
+    if base == _RAW:
+        if len(data) != n * dtype.itemsize:
+            _fail(f"raw frame holds {len(data)} bytes, expected "
+                  f"{n} x {dtype.itemsize} ({dtype})")
+        return np.frombuffer(data, dtype=dtype).copy(), pos
+    if base == _RLE:
+        if len(data) != dtype.itemsize:
+            _fail(f"rle frame holds {len(data)} bytes, expected one "
+                  f"{dtype.itemsize}-byte element ({dtype})")
+        # broadcast+copy fills by BIT PATTERN (NaN payloads survive)
+        one = np.frombuffer(data, dtype=dtype)
+        return np.broadcast_to(one, (n,)).copy(), pos
+    if base in _DOWNCAST_SIZE:
+        size = _DOWNCAST_SIZE[base]
+        if dtype.kind not in "iu" or size >= dtype.itemsize:
+            _fail(f"int{size * 8} downcast frame for non-widening "
+                  f"dtype {dtype}")
+        if len(data) != n * size:
+            _fail(f"int{size * 8} frame holds {len(data)} bytes, "
+                  f"expected {n} x {size}")
+        narrow = np.frombuffer(data, dtype=f"<{dtype.kind}{size}")
+        return narrow.astype(dtype), pos
+    if base in _DELTA_SIZE:
+        size = _DELTA_SIZE[base]
+        w = dtype.itemsize
+        if dtype.kind not in "iu" or size >= w:
+            _fail(f"delta{size * 8} frame for non-widening dtype {dtype}")
+        want = w + max(n - 1, 0) * size
+        if len(data) != want:
+            _fail(f"delta{size * 8} frame holds {len(data)} bytes, "
+                  f"expected {want} for {n} rows of {dtype}")
+        if n == 0:
+            return np.empty(0, dtype=dtype), pos
+        first = np.frombuffer(data, dtype=f"<u{w}", count=1)
+        sd = np.frombuffer(data, dtype=f"<i{size}", offset=w)
+        out = np.empty(n, dtype=f"<u{w}")
+        out[0] = first[0]
+        if n > 1:
+            # sign-extend the narrow deltas, then wraparound prefix-sum
+            np.cumsum(sd.astype(f"<u{w}"), out=out[1:])
+            out[1:] += first[0]
+        return out.view(dtype), pos
+    if base == _BOOLPACK:
+        if dtype.kind != "b":
+            _fail(f"boolpack frame for non-bool dtype {dtype}")
+        if len(data) != (n + 7) // 8:
+            _fail(f"boolpack frame holds {len(data)} bytes, expected "
+                  f"{(n + 7) // 8} for {n} rows")
+        bits = np.unpackbits(np.frombuffer(data, dtype=np.uint8), count=n)
+        return bits.astype(np.bool_), pos
+    _fail(f"unknown codec byte {codec:#x}")
+
+
+def deserialize_page(buf: bytes) -> Page:
+    """bytes -> a Page of CPU tensors."""
+    if len(buf) < 13 or buf[:3] != _MAGIC:
+        _fail("bad magic (not a presto-tpu page)")
+    if buf[3:4] != _VERSION:
+        _fail(f"unsupported wire-format version {buf[3:4]!r} "
+              f"(this build speaks {_VERSION!r})")
+    flags = buf[4]
+    hlen, blen = struct.unpack("<ii", buf[5:13])
+    if hlen < 0 or blen < 0 or 13 + hlen + blen > len(buf):
+        _fail(f"header/payload lengths ({hlen}, {blen}) overrun the "
+              f"{len(buf)}-byte blob")
+    hdr = buf[13:13 + hlen]
+    if flags & _FLAG_HDR_ZLIB:
+        try:
+            hdr = zlib.decompress(hdr)
+        except zlib.error as e:
+            _fail(f"corrupt compressed header: {e}")
+    try:
+        header = json.loads(hdr.decode())
+    except (ValueError, UnicodeDecodeError) as e:
+        _fail(f"corrupt header JSON: {e}")
+    payload = buf[13 + hlen:13 + hlen + blen]
+    try:
+        cap = int(header["capacity"])
+        live = int(header.get("live", cap))
+        block_headers = header["blocks"]
+    except (KeyError, TypeError, ValueError) as e:
+        _fail(f"malformed header: {e}")
+    if not 0 <= live <= cap:
+        _fail(f"live prefix {live} outside page capacity {cap}")
+    pos = 0
+
+    def take(dtype: np.dtype) -> torch.Tensor:
+        nonlocal pos
+        a, pos = _decode_frame(payload, pos, dtype, live)
+        if live < cap:
+            # zero/False-fill the dead tail dropped by the live prefix
+            full = np.zeros(cap, dtype=a.dtype)
+            full[:live] = a
+            a = full
+        return torch.from_numpy(a)
+
+    blocks = []
+    for bh in block_headers:
+        arrays = [take(np.dtype(d)) for d in bh["dtypes"]]
+        nulls = take(np.dtype(np.bool_)) if bh["has_nulls"] else None
+        dic = (Dictionary([_dic_value_from_json(v)
+                           for v in bh["dictionary"]])
+               if bh["dictionary"] is not None else None)
+        data = tuple(arrays) if bh["nwords"] > 1 else arrays[0]
+        blocks.append(Block(data=data, type=T.parse_type(bh["type"]),
+                            nulls=nulls, dictionary=dic))
+    valid = take(np.dtype(np.bool_))
+    if pos != len(payload):
+        _fail(f"{len(payload) - pos} trailing payload bytes after the "
+              f"last frame")
+    return Page(blocks=tuple(blocks), valid=valid)

@@ -11,6 +11,13 @@ kernels of ops/cuda_agg.py (K1) and ops/cuda_join.py (K2/K3) engage the
 way presto_tpu engages its Pallas kernels under
 ``pallas_join_enabled=force`` (``kernels=True``, the default).
 
+The stage-DAG distributed path adds the executor's DCN half: the
+``remote_sources`` registry that RemoteSource leaves read (a worker
+task's spooled-exchange inputs, or the coordinator's drain of the final
+stages), ``stream_fragment`` (a shipped fragment's pages through an
+emit callback under the same overflow ladder, for the worker's spooled
+emit), the exchange-tier switches and the exchange counters.
+
 Left for later slices (ROADMAP): fused pipelines and split batching,
 late materialization, the memory governor, spill and partitioned
 joins/aggregations, the generated join, semi/anti/cross joins, windows,
@@ -27,7 +34,8 @@ operator chains.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+import time
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -51,6 +59,19 @@ from presto_tpu_torch.page import Block, Dictionary, Page
 _next_pow2 = SH.bucket
 
 _MAX_ATTEMPTS = 6
+
+
+class QueryDeadlineExceeded(RuntimeError):
+    """The query ran past query_max_run_time (raised at page
+    boundaries and in the DCN fetch/status loops)."""
+
+
+def check_deadline(deadline: Optional[float], where: str) -> None:
+    """Raise QueryDeadlineExceeded once time.monotonic() passes
+    ``deadline`` (None = no deadline)."""
+    if deadline is not None and time.monotonic() > deadline:
+        raise QueryDeadlineExceeded(
+            f"query exceeded query_max_run_time {where}")
 
 
 def _row_bytes(types) -> int:
@@ -174,6 +195,22 @@ class Executor:
         self._pending_overflow: List[torch.Tensor] = []
         self._capacity_boost = 1
         self.capacity_boost_retries = 0
+        # DCN ingest registry: RemoteSource.key -> callable yielding the
+        # edge's pages (a worker task's spool sources, or the
+        # coordinator's drain of the final stages)
+        self.remote_sources: Dict[str, Callable[[], Iterator[Page]]] = {}
+        # device_exchange_enabled: "true" | "false" | "auto" (= on a
+        # CUDA executor)
+        self.device_exchange = "auto"
+        # wall-clock deadline (time.monotonic) from query_max_run_time
+        self.query_deadline: Optional[float] = None
+        # exchange counters (reference: exec/counters.py rows of the
+        # same names)
+        self.spooled_exchange_pages = 0
+        self.spooled_exchange_rows = 0
+        self.mesh_local_exchanges = 0
+        self.stages_scheduled = 0
+        self.release_skips = 0
 
     # --------------------------------------------------------------- types
     def output_types(self, node: P.PhysicalNode) -> List[T.SqlType]:
@@ -211,6 +248,8 @@ class Executor:
         if isinstance(node, P.HashJoin):
             return self.output_types(node.left) + self.output_types(
                 node.right)
+        if isinstance(node, P.RemoteSource):
+            return list(node.types)
         raise NotImplementedError(
             f"plan node not ported to presto_tpu_torch yet: "
             f"{type(node).__name__}"
@@ -267,6 +306,23 @@ class Executor:
             # single-device execution: an exchange is a pass-through
             yield from self.pages(node.source)
             return
+        if isinstance(node, P.RemoteSource):
+            # DCN ingest (reference: ExchangeOperator): the registered
+            # supplier yields spooled Pages (already on the card when a
+            # same-process producer hands them over) or deserialized
+            # CPU pages, staged onto this executor's device. An edge
+            # delivers one small page per producer page and partition,
+            # so pages coalesce up to page_rows slots (no host sync)
+            buf, slots = [], 0
+            for page in self.remote_sources[node.key]():
+                buf.append(page.to(self.device))
+                slots += page.capacity
+                if slots >= self.page_rows:
+                    yield concat_all(buf)
+                    buf, slots = [], 0
+            if buf:
+                yield concat_all(buf)
+            return
         raise NotImplementedError(
             f"plan node not ported to presto_tpu_torch yet: "
             f"{type(node).__name__}"
@@ -280,21 +336,10 @@ class Executor:
         re-runs with boosted capacities (the query-scope analog of the
         reference engine's per-operator retry)."""
         names = list(node.names) if isinstance(node, P.Output) else None
-        self._capacity_boost = 1
-        self.capacity_boost_retries = 0
-        for _ in range(_MAX_ATTEMPTS):
-            self._pending_overflow = []
-            out_pages = list(self.pages(node))
-            if not self._overflow_flagged():
-                rows: List[tuple] = []
-                for page in out_pages:
-                    rows.extend(page.to_pylist())
-                return names, rows
-            self._capacity_boost = SH.next_boost(self._capacity_boost)
-            self.capacity_boost_retries += 1
-        raise RuntimeError(
-            f"capacity overflow persisted after {_MAX_ATTEMPTS} attempts"
-        )
+        rows: List[tuple] = []
+        for page in self.stream_fragment(node, lambda page: page):
+            rows.extend(page.to_pylist())
+        return names, rows
 
     def _overflow_flagged(self) -> bool:
         """OR-reduce the attempt's deferred overflow flags — the ONE
@@ -303,6 +348,59 @@ class Executor:
             return False
         return bool(torch.stack(
             [f.reshape(()) for f in self._pending_overflow]).any())
+
+    def stream_fragment(self, node: P.PhysicalNode, emit,
+                        cancelled=lambda: False,
+                        on_attempt=None) -> List:
+        """Stream a plan's pages through ``emit`` under the query-scope
+        overflow ladder that execute() runs too — the worker task
+        runtime spools results instead of materializing rows. Returns
+        the emit() results of the last (overflow-free) attempt; a
+        truncated page set never escapes because results publish only
+        per completed attempt. ``on_attempt`` runs at the
+        start of EVERY attempt, so a driver whose emit writes to a
+        spool resets it there and a boosted retry never double-
+        publishes."""
+        self._capacity_boost = 1
+        self.capacity_boost_retries = 0
+        for _ in range(_MAX_ATTEMPTS):
+            self._pending_overflow = []
+            if on_attempt is not None:
+                on_attempt()
+            out: List = []
+            for page in self.pages(node):
+                if cancelled():
+                    return out
+                check_deadline(self.query_deadline, "in execution")
+                out.append(emit(page))
+            if not self._overflow_flagged():
+                return out
+            self._capacity_boost = SH.next_boost(self._capacity_boost)
+            self.capacity_boost_retries += 1
+        raise RuntimeError(
+            f"capacity overflow persisted after {_MAX_ATTEMPTS} attempts")
+
+    # ---------------------------------------------------------- exchange
+    def _device_exchange_on(self) -> bool:
+        """device_exchange_enabled: spooled-exchange pages partition on
+        the device and spool as device Pages (dist/spool.
+        device_partition_pages); auto = on a CUDA executor — the
+        reference's "auto = on the accelerator"."""
+        mode = self.device_exchange
+        if mode in ("true", "false"):
+            return mode == "true"
+        return self.device.type == "cuda"
+
+    def _pallas_exchange_on(self) -> bool:
+        """K4, the partition-id kernel, behind pallas_join_enabled (the
+        kernels switch): its hash is not splitmix64-compatible, and the
+        session reaches every task payload, so every producer of one
+        exchange resolves it alike."""
+        return self.kernels
+
+    def count_mesh_local(self) -> None:
+        """One exchange edge task served from a same-process spool."""
+        self.mesh_local_exchanges += 1
 
     # --------------------------------------------------------- aggregation
     def _agg_in_types(self, node: P.Aggregation) -> List[Optional[T.SqlType]]:
@@ -315,6 +413,8 @@ class Executor:
         src = node.source
         while isinstance(src, P.Exchange):
             src = src.source
+        if isinstance(src, P.RemoteSource) and src.origin is not None:
+            src = src.origin
         if not (isinstance(src, P.Aggregation) and src.step == "partial"):
             raise TypeError(
                 "final-step aggregation must consume a partial-step one")

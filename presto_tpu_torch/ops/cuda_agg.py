@@ -61,7 +61,7 @@ def segsum_cuda(ids: torch.Tensor, values: Optional[torch.Tensor],
     cuda.call("segsum", "presto_segsum_i64", dev, ids.data_ptr(),
               values.data_ptr() if values is not None else None,
               ids.shape[0], num_groups, out.data_ptr())
-    cuda.launches[KERNEL] += 1
+    cuda.count(cuda.launches, KERNEL)
     return out
 
 
@@ -74,7 +74,7 @@ def segsum(ids: torch.Tensor, values: Optional[torch.Tensor],
                            None if values is None
                            else values.to(torch.int64).contiguous(),
                            num_groups)
-    cuda.plain_calls[KERNEL] += 1
+    cuda.count(cuda.plain_calls, KERNEL)
     return segsum_plain(ids, values, num_groups)
 
 

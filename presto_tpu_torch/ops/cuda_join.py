@@ -245,7 +245,7 @@ def probe_cuda(probe_hash: torch.Tensor, packed: torch.Tensor, layout,
     cuda.call("hash_probe", "presto_hash_probe", dev, probe_hash.data_ptr(),
               n, packed.data_ptr(), int(kind == "dim"), param, max_probes,
               start.data_ptr(), cnt.data_ptr())
-    cuda.launches[KERNELS[kind]] += 1
+    cuda.count(cuda.launches, KERNELS[kind])
     return start, cnt
 
 
@@ -254,7 +254,7 @@ def probe_index(probe_hash: torch.Tensor, packed: torch.Tensor, layout):
     equal-hash valid build rows ((-1, 0) when none)."""
     if probe_hash.is_cuda:
         return probe_cuda(probe_hash.contiguous(), packed, layout)
-    cuda.plain_calls[KERNELS[layout[0]]] += 1
+    cuda.count(cuda.plain_calls, KERNELS[layout[0]])
     return probe_plain(probe_hash, packed, layout)
 
 

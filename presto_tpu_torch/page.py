@@ -182,6 +182,23 @@ class Page:
             blocks=tuple(self.blocks[c] for c in channels), valid=self.valid
         )
 
+    def to(self, device) -> "Page":
+        """The page with every tensor on ``device`` (itself if there)."""
+        device = torch.device(device)
+        here = self.valid.device
+        if here.type == device.type and device.index in (None, here.index):
+            return self
+
+        def mv(t):
+            return None if t is None else t.to(device)
+
+        blocks = tuple(
+            Block(data=(tuple(mv(d) for d in b.data)
+                        if isinstance(b.data, tuple) else mv(b.data)),
+                  type=b.type, nulls=mv(b.nulls), dictionary=b.dictionary)
+            for b in self.blocks)
+        return Page(blocks=blocks, valid=mv(self.valid))
+
     # ---------------------------------------------------------------- host IO
     @staticmethod
     def from_arrays(

@@ -2,15 +2,18 @@
 process, on one device.
 
 Port of presto_tpu/runner.py for SELECT statements. Session properties
-come as a plain dict; the slice honours:
+come as a plain dict, validated through the port's property registry
+(session.py); a property that asks for a plane the port lacks raises
+NotImplementedError. The runner honours:
 
   - ``page_rows``: target rows per generated page (split granularity);
   - ``pallas_join_enabled``: "true" (default) engages the CUDA
-    kernels (K1 aggregation, K2/K3 join probes) at the reference's
-    Pallas dispatch points, "false" keeps every aggregate and join on
-    the torch segment-op and sort-join paths;
-  - ``generated_join_enabled``: only false — the build-free generated
-    join is a later slice.
+    kernels (K1 aggregation, K2/K3 join probes, K4 exchange partition
+    ids) at the reference's Pallas dispatch points, "false" keeps every
+    aggregate, join and exchange on the torch segment-op, sort-join and
+    splitmix64 paths;
+  - ``device_exchange_enabled``, ``query_max_run_time`` and the
+    distribution knobs the stage-DAG path reads (dist/dcn.py).
 
 Reference: presto-main testing/LocalQueryRunner.java.
 """
@@ -18,19 +21,16 @@ Reference: presto-main testing/LocalQueryRunner.java.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec.executor import Executor
 from presto_tpu_torch.exec.prune import prune_plan
+from presto_tpu_torch.session import Session
 from presto_tpu_torch.sql import ast_nodes as N
 from presto_tpu_torch.sql.parser import parse
 from presto_tpu_torch.sql.planner import Planner
-
-_KERNEL_MODES = {"true": True, "false": False}
-
-# rows per generated page when the session does not set page_rows
-DEFAULT_PAGE_ROWS = 1 << 18
 
 
 @dataclasses.dataclass
@@ -49,23 +49,37 @@ class LocalRunner:
                  device=None):
         self.catalogs = dict(catalogs)
         self.default_catalog = default_catalog
-        self.session = dict(session or {})
-        if str(self.session.get("generated_join_enabled",
-                                "false")).lower() == "true":
-            raise NotImplementedError(
-                "generated_join_enabled=true: the build-free generated "
-                "join is not ported to presto_tpu_torch yet (ROADMAP "
-                "queue 1, slice A2)")
-        mode = str(self.session.get("pallas_join_enabled", "true")).lower()
-        if mode not in _KERNEL_MODES:
-            raise ValueError(f"pallas_join_enabled must be one of "
-                             f"{sorted(_KERNEL_MODES)}, got {mode!r}")
-        self.executor = Executor(
-            self.catalogs,
-            page_rows=int(self.session.get("page_rows", DEFAULT_PAGE_ROWS)),
-            device=device,
-            kernels=_KERNEL_MODES[mode],
-        )
+        self.session = Session(default_catalog, session)
+        self.session.check_ported()
+        self.executor = Executor(self.catalogs, device=device)
+        self.apply_session()
+
+    def apply_session(self) -> None:
+        """Push the session's executor knobs onto the executor; anchors
+        the query deadline (query_max_run_time) at the call."""
+        s, ex = self.session, self.executor
+        ex.page_rows = int(s.get("page_rows"))
+        ex.kernels = s.get("pallas_join_enabled") == "true"
+        ex.device_exchange = s.get("device_exchange_enabled")
+        ms = int(s.get("query_max_run_time"))
+        ex.query_deadline = (time.monotonic() + ms / 1000.0) if ms > 0 \
+            else None
+
+    def session_dist_options(self) -> Dict:
+        """fragment_dag's distribution knobs from the session: the
+        join_distribution_type override, else the broadcast row
+        threshold (the reference's row-count fallback; its stats-driven
+        byte share needs the memory governor, not ported)."""
+        jd = self.session.get("join_distribution_type")
+        if jd == "broadcast":
+            rows = 1 << 62
+        elif jd == "partitioned":
+            rows = 0
+        else:
+            rows = int(self.session.get("broadcast_join_rows"))
+        return {"broadcast_rows": rows,
+                "gather_capacity": int(self.session.get(
+                    "agg_gather_capacity"))}
 
     def _planner(self) -> Planner:
         def scalar_exec(node):
@@ -91,6 +105,8 @@ class LocalRunner:
 
     def execute(self, sql: str) -> QueryResult:
         out = self._plan_query(parse(sql))
+        self.apply_session()
         names, rows = self.executor.execute(out)
         types = [str(t) for t in self.executor.output_types(out)]
         return QueryResult(list(names or []), rows, column_types=types)
+

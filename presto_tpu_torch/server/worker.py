@@ -1,0 +1,612 @@
+"""Worker: the /v1/task control plane + the spooled-exchange data plane.
+
+Port of presto_tpu/server/worker.py for the stage-DAG path (reference:
+presto-main server/TaskResource.java — task create/status/cancel —,
+execution/SqlTaskManager.java — task registry + execution — and
+execution/buffer/OutputBuffer consumed by HttpPageBufferClient with
+at-least-once + token-dedupe semantics).
+
+A task carries a SERIALIZED physical-plan fragment (dist/plan_serde.py)
+plus either a split assignment (a leaf fragment scans its round-robin
+share of ``splitTable``) or ``sources`` (RemoteSource suppliers reading
+upstream tasks' spools), or both. Its output is partitioned by
+hash(``outputKeys``) % ``outputPartitions`` and SPOOLED (_TaskSpool):
+
+  - the device tier (``device_exchange_enabled``, on by default on the
+    card) partitions on the device (dist/spool.device_partition_pages)
+    and spools the partition Pages themselves; wire bytes serialize
+    lazily, only when an HTTP fetch asks for them;
+  - the host tier partitions a host copy and spools serialized blobs.
+
+Both tiers share one resident-byte budget per task
+(``spool_exchange_bytes``): past it, pages serialize into disk-tier
+PageStore files. A spool is published only after the fragment's
+attempt completes overflow-free, and is freed on DELETE and on task
+expiry.
+
+Routes: ``POST /v1/task`` (create), ``GET /v1/task/{id}`` (status),
+``GET /v1/task/{id}/results/{token}?part=p&max=N`` (token-indexed
+long-poll fetch of one partition, consecutive frames packed up to N
+bytes), ``DELETE /v1/task/{id}/spool/{p}`` (ack one partition) and
+``DELETE /v1/task/{id}`` (release the task).
+
+Threads and the card: each task runs in its own thread and HTTP handler
+threads serve fetches; every tensor op stays on the default stream, so
+a spooled Page handed to a consumer in another thread (the mesh-local
+read, dist/spool.local_source_pages) is ordered after the work that
+produced it.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List, Optional
+
+import torch
+
+from presto_tpu_torch import resolve_device
+from presto_tpu_torch.connectors.split_filter import SplitFilterConnector
+from presto_tpu_torch.exec import plan as P
+from presto_tpu_torch.exec import shapes as SH
+from presto_tpu_torch.exec.pagestore import PageStore
+from presto_tpu_torch.page import Page
+
+
+def page_bytes(page) -> int:
+    """Static device footprint of a page (every tensor's bytes)."""
+    total = page.valid.numel() * page.valid.element_size()
+    for b in page.blocks:
+        for t in (b.data if isinstance(b.data, tuple) else (b.data,)):
+            total += t.numel() * t.element_size()
+        if b.nulls is not None:
+            total += b.nulls.numel()
+    return total
+
+
+def _trimmed(page, rows: int):
+    """A device partition page (nparts > 1: its rows are a dense
+    prefix) cut to the ladder bucket of its row count, as a copy. With
+    empty pages skipped as well, the spool then holds
+    no empty pages and no landing-capacity padding: every exchange
+    multiplies the page count by its partition count, so untrimmed
+    landing pages compound through a chain of repartitioned joins. The
+    host tier's pages have the same shape (take_rows_host)."""
+    cap = min(SH.bucket(rows), page.capacity)
+    if cap == page.capacity:
+        return page
+    idx = torch.arange(cap, device=page.device)
+    return Page(blocks=tuple(b.take(idx) for b in page.blocks),
+                valid=page.valid[:cap].clone())
+
+
+class _PartitionSpool:
+    """One partition's spooled output: host-tier PageStore blobs while
+    the task's resident budget lasts, a disk-tier PageStore past it,
+    and — on the device tier — lazy entries holding the partition Page
+    itself. Entries are (store, index) for blobs and ("page", Page) for
+    lazy ones."""
+
+    def __init__(self, spill_dir: Optional[str] = None):
+        self._host = PageStore(tier="host")
+        self._disk: Optional[PageStore] = None
+        self._spill_dir = spill_dir
+        self.entries: List = []
+        self.released = False
+        # exact rows published into this partition
+        self.stat_rows = 0
+
+    def put(self, blob: bytes, to_disk: bool, rows: int = 0) -> None:
+        if to_disk:
+            if self._disk is None:
+                self._disk = PageStore(tier="disk",
+                                       spill_dir=self._spill_dir)
+            store = self._disk
+        else:
+            store = self._host
+        store.put_bytes(blob)
+        self.entries.append((store, store.page_count - 1))
+        self.stat_rows += int(rows)
+
+    def put_page(self, page, rows: int = 0) -> None:
+        """Spool one partition Page WITHOUT serializing (device tier)."""
+        self.entries.append(("page", page))
+        self.stat_rows += int(rows)
+
+    @property
+    def count(self) -> int:
+        return len(self.entries)
+
+    def close(self) -> None:
+        self._host.close()
+        if self._disk is not None:
+            self._disk.close()
+        self.entries = []  # drops lazy Page refs -> frees device memory
+        self.released = True
+
+
+class _TaskSpool:
+    """A task's partitioned output spool: P token-indexed partition
+    buffers sharing one resident-byte budget (spool_exchange_bytes;
+    0 = unbounded) — pages past it go to the disk tier."""
+
+    def __init__(self, nparts: int, host_budget: int,
+                 spill_dir: Optional[str] = None):
+        self.parts = [_PartitionSpool(spill_dir)
+                      for _ in range(max(nparts, 1))]
+        self.host_budget = host_budget
+        self.host_bytes = 0
+
+    def _over_budget(self, nbytes: int) -> bool:
+        return self.host_budget > 0 and \
+            self.host_bytes + nbytes > self.host_budget
+
+    def put(self, p: int, blob: bytes, rows: int = 0) -> None:
+        to_disk = self._over_budget(len(blob))
+        if not to_disk:
+            self.host_bytes += len(blob)
+        self.parts[p].put(blob, to_disk, rows=rows)
+
+    def put_page(self, p: int, page, rows: int = 0) -> None:
+        """Device tier: spool the partition Page itself, unless the
+        resident budget is spent — then it serializes now and rides the
+        blob tiers (to disk)."""
+        est = page_bytes(page)
+        if self._over_budget(est):
+            from presto_tpu_torch.dist import spool as SPOOL
+
+            self.put(p, SPOOL.spool_blob(page), rows=rows)
+            return
+        self.host_bytes += est
+        self.parts[p].put_page(page, rows=rows)
+
+    @property
+    def page_count(self) -> int:
+        return sum(p.count for p in self.parts)
+
+    def release(self, p: int) -> bool:
+        if 0 <= p < len(self.parts):
+            self.parts[p].close()
+            return True
+        return False
+
+    def close(self) -> None:
+        for p in self.parts:
+            p.close()
+
+
+# --------------------------------------------------------------------
+# Same-process placement registry: uri -> TaskRuntime for every worker
+# served from THIS process. The mesh-local exchange path (dist/spool.
+# local_source_pages, the scheduler's root drain) looks placements up
+# here and takes spooled Pages directly; a placement missing from it
+# falls back to HTTP.
+_runtimes_lock = threading.Lock()
+_LOCAL_RUNTIMES: Dict[str, "TaskRuntime"] = {}
+
+
+def register_local_runtime(uri: str, rt: "TaskRuntime") -> None:
+    with _runtimes_lock:
+        _LOCAL_RUNTIMES[uri] = rt
+
+
+def unregister_local_runtime(uri: str) -> None:
+    with _runtimes_lock:
+        _LOCAL_RUNTIMES.pop(uri, None)
+
+
+def local_runtime(uri: str) -> Optional["TaskRuntime"]:
+    with _runtimes_lock:
+        return _LOCAL_RUNTIMES.get(uri)
+
+
+class _Task:
+    """One task's lifecycle flags and spool, shared between its
+    execution thread and the fetch/status/cancel handlers under
+    ``lock``."""
+
+    def __init__(self, task_id: str):
+        self.task_id = task_id
+        self.spool: Optional[_TaskSpool] = None
+        self.done = False
+        self.error: Optional[str] = None
+        self.cancelled = False
+        self.lock = threading.Lock()
+
+    def part_count(self, part: int) -> int:
+        if self.spool is None or part >= len(self.spool.parts):
+            return 0
+        return self.spool.parts[part].count
+
+    def part_released(self, part: int) -> bool:
+        return (self.spool is not None
+                and 0 <= part < len(self.spool.parts)
+                and self.spool.parts[part].released)
+
+    def free(self) -> None:
+        if self.spool is not None:
+            self.spool.close()
+
+
+def largest_table(node: P.PhysicalNode, catalogs) -> Optional[str]:
+    """The table to split across tasks: the scanned table with the most
+    rows under this subtree (SOURCE_DISTRIBUTION pick)."""
+    tables = []
+
+    def scans(n):
+        if isinstance(n, P.TableScan):
+            tables.append((n.catalog, n.table))
+        for ch in n.children():
+            scans(ch)
+
+    scans(node)
+    if not tables:
+        return None
+    return max(tables,
+               key=lambda ct: catalogs[ct[0]].row_count(ct[1]))[1]
+
+
+# ---------------------------------------------------------------------
+# Task-plane routing. A response is (status, headers_list, content_type,
+# body_bytes); None means "not a task-plane path".
+
+_JSON_CT = "application/json"
+_PAGES_CT = "application/x-presto-pages"
+_RELEASED = "spool partition {} released (already acked)"
+
+
+def _jresp(obj, status=200, headers=()):
+    return (status, list(headers), _JSON_CT, json.dumps(obj).encode())
+
+
+def write_task_response(handler, resp) -> None:
+    status, headers, ctype, body = resp
+    handler.send_response(status)
+    handler.send_header("Content-Type", ctype)
+    if status != 204:
+        handler.send_header("Content-Length", str(len(body)))
+    for k, v in headers:
+        handler.send_header(k, v)
+    handler.end_headers()
+    if status != 204 and body:
+        handler.wfile.write(body)
+
+
+def route_task_post(app, path: str, body: bytes):
+    if not path.startswith("/v1/task"):
+        return None
+    task = app.create_task(json.loads(body))
+    return _jresp({"taskId": task.task_id, "state": "RUNNING"})
+
+
+def _entry_blob(entry) -> bytes:
+    """Wire bytes of one spool entry: lazy Pages serialize here, outside
+    the task lock (a device->host copy + serialize under it would stall
+    every other consumer)."""
+    if entry[0] == "page":
+        from presto_tpu_torch.dist import spool as SPOOL
+
+        return SPOOL.spool_blob(entry[1])
+    store, i = entry
+    return store.blob_at(i)
+
+
+def _results(task: _Task, part: int, token: int, max_bytes: int):
+    """GET .../results/{token}?part=p&max=N: bounded long-poll until the
+    page at `token` exists or the task finishes, then the frames from
+    `token` on, packed up to max_bytes (at least one)."""
+    from presto_tpu_torch.dist import spool as SPOOL
+
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        entry = None
+        with task.lock:
+            if task.error:
+                # X-Task-Error marks a DETERMINISTIC task failure:
+                # consumers surface the message instead of retrying
+                return _jresp({"error": task.error}, 500,
+                              headers=(("X-Task-Error", "1"),))
+            if task.part_released(part):
+                return _jresp({"error": _RELEASED.format(part)}, 410)
+            if token < task.part_count(part):
+                entry = task.spool.parts[part].entries[token]
+            elif task.done:
+                return (204, [("X-Done", "1")], _JSON_CT, b"")
+        if entry is None:
+            time.sleep(0.02)
+            continue
+        frames: List[bytes] = []
+        total = 0
+        while entry is not None:
+            try:
+                blob = _entry_blob(entry)
+            except (OSError, IndexError):
+                if not frames:  # raced a concurrent release
+                    return _jresp({"error": _RELEASED.format(part)}, 410)
+                break
+            frames.append(blob)
+            total += 8 + len(blob)
+            entry = None
+            if total >= max_bytes:
+                break
+            nxt = token + len(frames)
+            with task.lock:
+                if not (task.error or task.part_released(part)) and \
+                        nxt < task.part_count(part):
+                    entry = task.spool.parts[part].entries[nxt]
+        return (200, [("X-Next-Token", str(token + len(frames))),
+                      ("X-Done", "0"), ("X-Frames", str(len(frames)))],
+                _PAGES_CT, SPOOL.pack_frames(frames))
+    return (204, [("X-Done", "0")], _JSON_CT, b"")
+
+
+def route_task_get(app, path: str, query: str):
+    from urllib.parse import parse_qs
+
+    parts = [p for p in path.split("/") if p]
+    if len(parts) == 5 and parts[:2] == ["v1", "task"] \
+            and parts[3] == "results":
+        task = app.get_task(parts[2])
+        if task is None:
+            return _jresp({"error": "no such task"}, 404)
+        qs = parse_qs(query or "")
+        return _results(task, int(qs.get("part", ["0"])[0]),
+                        int(parts[4]), int(qs.get("max", ["0"])[0]))
+    if len(parts) == 3 and parts[:2] == ["v1", "task"]:
+        task = app.get_task(parts[2])
+        if task is None:
+            return _jresp({"error": "no such task"}, 404)
+        with task.lock:
+            spool = task.spool
+            body = {
+                "taskId": task.task_id,
+                "state": ("FAILED" if task.error else
+                          "FINISHED" if task.done else "RUNNING"),
+                "spooledPages": spool.page_count if spool else 0,
+                "spoolRows": ([p.stat_rows for p in spool.parts]
+                              if spool else []),
+                "error": task.error,
+            }
+        return _jresp(body)
+    return None
+
+
+def route_task_delete(app, path: str):
+    parts = [p for p in path.split("/") if p]
+    # /v1/task/{id}/spool/{part}: ack (release) one consumed partition
+    if len(parts) == 5 and parts[:2] == ["v1", "task"] \
+            and parts[3] == "spool":
+        task = app.get_task(parts[2])
+        if task is None:
+            return _jresp({"error": "no such task"}, 404)
+        with task.lock:
+            ok = task.spool is not None and task.spool.release(
+                int(parts[4]))
+        if ok:
+            return _jresp({"taskId": task.task_id,
+                           "partition": int(parts[4]),
+                           "state": "RELEASED"})
+        return _jresp({"error": "no such spool partition"}, 404)
+    if len(parts) == 3 and parts[:2] == ["v1", "task"]:
+        task = app.pop_task(parts[2])
+        if task is not None:
+            with task.lock:
+                task.cancelled = True
+                task.free()
+            return _jresp({"taskId": task.task_id, "state": "CANCELED"})
+    return None
+
+
+class _WorkerHandler(BaseHTTPRequestHandler):
+    server_version = "presto-tpu-torch-worker/0.1"
+    # HTTP/1.1 so the pooled clients (dist/connpool.py) keep connections
+    # alive; every response sends Content-Length (204s ship no body)
+    protocol_version = "HTTP/1.1"
+    timeout = 120
+
+    def log_message(self, fmt, *args):  # noqa: A003
+        pass
+
+    @property
+    def app(self) -> "TaskRuntime":
+        return self.server.app  # type: ignore[attr-defined]
+
+    def _write(self, resp) -> None:
+        write_task_response(self, resp if resp is not None
+                            else _jresp({"error": "not found"}, 404))
+
+    def do_POST(self):
+        n = int(self.headers.get("Content-Length", "0"))
+        body = self.rfile.read(n) or b"{}"
+        self._write(route_task_post(self.app, self.path, body))
+
+    def do_GET(self):
+        from urllib.parse import urlsplit
+
+        split = urlsplit(self.path)
+        self._write(route_task_get(self.app, split.path, split.query))
+
+    def do_DELETE(self):
+        self._write(route_task_delete(self.app, self.path))
+
+
+class TaskRuntime:
+    """A process's task runtime (SqlTaskManager analog): task registry,
+    fragment execution, spooled output buffers — no HTTP server of its
+    own. ``device=None`` runs tasks on the card."""
+
+    # finished tasks kept before the oldest expire (reference:
+    # SqlTaskManager task expiry); the scheduler releases its tasks
+    # explicitly at query end, so expiry only bounds leaks
+    MAX_RETAINED_SPOOLED = 256
+
+    def __init__(self, catalogs, *, node_id: str = "w0",
+                 default_catalog: Optional[str] = None,
+                 page_rows: int = 1 << 16, device=None):
+        self.catalogs = catalogs
+        self.node_id = node_id
+        self.default_catalog = default_catalog or next(iter(catalogs))
+        self.page_rows = page_rows
+        self.device = resolve_device(device)
+        self.tasks: Dict[str, _Task] = {}
+        self._tasks_lock = threading.Lock()
+
+    def get_task(self, task_id: str) -> Optional[_Task]:
+        with self._tasks_lock:
+            return self.tasks.get(task_id)
+
+    def pop_task(self, task_id: str) -> Optional[_Task]:
+        with self._tasks_lock:
+            return self.tasks.pop(task_id, None)
+
+    def task_count(self) -> int:
+        with self._tasks_lock:
+            return len(self.tasks)
+
+    def free_all(self) -> None:
+        """Release every task's spool (shutdown)."""
+        with self._tasks_lock:
+            doomed = list(self.tasks.values())
+            self.tasks.clear()
+        for t in doomed:
+            with t.lock:
+                t.cancelled = True
+                t.free()
+
+    def create_task(self, req: Dict) -> _Task:
+        doomed: List[_Task] = []
+        with self._tasks_lock:
+            finished = [tid for tid, t in self.tasks.items() if t.done]
+            while len(finished) > self.MAX_RETAINED_SPOOLED:
+                old = self.tasks.pop(finished.pop(0), None)
+                if old is not None:
+                    doomed.append(old)
+            task = _Task(req.get("taskId") or f"t{len(self.tasks)}")
+            self.tasks[task.task_id] = task
+        for old in doomed:  # frees outside the registry lock
+            with old.lock:
+                old.free()
+        threading.Thread(target=self._run_task, args=(task, req),
+                         daemon=True).start()
+        return task
+
+    def _run_task(self, task: _Task, req: Dict) -> None:
+        from presto_tpu_torch.dist import plan_serde, serde
+        from presto_tpu_torch.dist import spool as SPOOL
+        from presto_tpu_torch.runner import LocalRunner
+
+        try:
+            index, count = int(req["splitIndex"]), int(req["splitCount"])
+            sources = req.get("sources") or {}
+            if req.get("splitTable"):
+                catalogs = {
+                    name: SplitFilterConnector(conn, req["splitTable"],
+                                               index, count)
+                    for name, conn in self.catalogs.items()
+                }
+            elif sources:
+                # non-leaf fragment: inputs arrive through the sources
+                catalogs = dict(self.catalogs)
+            else:
+                # unsplit leaf execution would have every task scan the
+                # full table: refuse loudly
+                raise ValueError(
+                    "task payload carries neither a split assignment "
+                    "(splitTable) nor spooled-exchange sources — "
+                    "refusing to run the fragment unsplit")
+            session = {"page_rows": self.page_rows,
+                       **(req.get("session") or {})}
+            runner = LocalRunner(catalogs, self.default_catalog,
+                                 session=session, device=self.device)
+            fragment = plan_serde.loads(req["fragment"])
+            ex = runner.executor
+            backoff = int(runner.session.get("retry_backoff_ms")) / 1000.0
+            for key, spec in sources.items():
+                ex.remote_sources[key] = (
+                    lambda spec=spec: SPOOL.iter_source_pages(
+                        spec, retries=3, backoff_s=backoff,
+                        deadline=ex.query_deadline,
+                        on_local=ex.count_mesh_local))
+            nparts = max(int(req.get("outputPartitions") or 1), 1)
+            out_keys = tuple(req.get("outputKeys") or ())
+            budget = int(runner.session.get("spool_exchange_bytes"))
+            state = {"spool": None}
+
+            def on_attempt() -> None:
+                # a boosted retry starts from an empty spool
+                if state["spool"] is not None:
+                    state["spool"].close()
+                state["spool"] = _TaskSpool(nparts, budget)
+
+            if ex._device_exchange_on():
+                def emit(page) -> int:
+                    pp, counts = SPOOL.device_partition_pages(
+                        ex, page, out_keys, nparts, with_counts=True)
+                    for p, part_page in pp:
+                        rows = int(counts[p])
+                        if rows and nparts > 1:
+                            part_page = _trimmed(part_page, rows)
+                        if rows:
+                            state["spool"].put_page(p, part_page,
+                                                    rows=rows)
+                    return len(pp)
+            else:
+                def emit(page) -> int:
+                    pp = SPOOL.partition_host_page(page.to("cpu"),
+                                                   out_keys, nparts)
+                    for p, part_page in pp:
+                        state["spool"].put(
+                            p, serde.serialize_page(part_page),
+                            rows=int(part_page.valid.sum()))
+                    return len(pp)
+
+            ex.stream_fragment(fragment, emit,
+                               cancelled=lambda: task.cancelled,
+                               on_attempt=on_attempt)
+            with task.lock:
+                if task.cancelled:
+                    state["spool"].close()  # released while running
+                else:
+                    task.spool = state["spool"]
+                task.done = True
+        except Exception as e:  # noqa: BLE001 - a task failure reaches
+            # the coordinator as FAILED status / X-Task-Error, never as
+            # a hung task
+            with task.lock:
+                task.error = repr(e)[:400]
+                task.done = True
+
+
+class WorkerServer(TaskRuntime):
+    """One task runtime behind its own HTTP server on 127.0.0.1."""
+
+    def __init__(self, catalogs, *, port: int = 0, node_id: str = "w0",
+                 default_catalog: Optional[str] = None,
+                 page_rows: int = 1 << 16, device=None):
+        super().__init__(catalogs, node_id=node_id,
+                         default_catalog=default_catalog,
+                         page_rows=page_rows, device=device)
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
+                                          _WorkerHandler)
+        self._httpd.daemon_threads = True
+        self._httpd.app = self  # type: ignore[attr-defined]
+        self.port = self._httpd.server_address[1]
+        self.uri = f"http://127.0.0.1:{self.port}"
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> int:
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        register_local_runtime(self.uri, self)
+        return self.port
+
+    def stop(self) -> None:
+        # unregister FIRST: a stopped worker must look remote-and-dead
+        # to local consumers, never serve stale spools
+        unregister_local_runtime(self.uri)
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self.free_all()

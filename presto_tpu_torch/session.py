@@ -1,0 +1,270 @@
+"""Typed session properties.
+
+Port of presto_tpu/session.py (reference: presto-main
+SystemSessionProperties.java + Session.java) for the properties the
+port reads: the single-process runner's and the stage-DAG distributed
+path's. Names, types and validators are the reference's; defaults are
+the reference's except where the port runs a different mode by design:
+
+  - ``pallas_join_enabled`` defaults to "true" (the reference's forced
+    mode): the CUDA kernels engage on the card and their plain twins on
+    the CPU, so the distributed path routes exchanges through K4;
+  - ``generated_join_enabled`` defaults to false;
+  - ``stage_scheduler`` defaults to "true": the stage DAG is the only
+    distributed plane ported;
+  - ``mesh_exchange_mode``, ``adaptive_execution`` default to "false".
+
+A plane that is not ported defaults to off, and asking for it raises
+NotImplementedError naming its ROADMAP item (``check_ported``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class PropertyMetadata:
+    """Reference: spi/session/PropertyMetadata.java."""
+
+    name: str
+    description: str
+    type: type  # bool | int | str
+    default: Any
+    validate: Optional[Callable[[Any], bool]] = None
+
+
+def _parse_value(prop: PropertyMetadata, value: Any) -> Any:
+    if prop.type is str:
+        # tri-state and enum properties: accept python bools and any
+        # casing ("SET SESSION x = TRUE" arrives as a string either way)
+        if isinstance(value, bool):
+            return "true" if value else "false"
+        value = str(value).strip()
+        return value.lower() if prop.validate is not None else value
+    if isinstance(value, str) and prop.type is bool:
+        low = value.strip().lower()
+        if low in ("true", "1", "on"):
+            return True
+        if low in ("false", "0", "off"):
+            return False
+        raise ValueError(f"{prop.name}: expected boolean, got {value!r}")
+    if isinstance(value, str) and prop.type is int:
+        return int(value)
+    if not isinstance(value, prop.type):
+        try:
+            return prop.type(value)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"{prop.name}: expected {prop.type.__name__}, "
+                f"got {value!r}")
+    return value
+
+
+def _tristate(v) -> bool:
+    return v in ("auto", "true", "false")
+
+
+SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
+    p.name: p
+    for p in [
+        PropertyMetadata(
+            "join_distribution_type",
+            "auto | broadcast | partitioned (reference: "
+            "join_distribution_type)",
+            str, "auto",
+            validate=lambda v: v in ("auto", "broadcast", "partitioned"),
+        ),
+        PropertyMetadata(
+            "broadcast_join_rows",
+            "build sides up to this many estimated rows replicate to "
+            "every task instead of repartitioning (join_distribution_"
+            "type=auto)",
+            int, 1 << 21,
+        ),
+        PropertyMetadata(
+            "agg_gather_capacity",
+            "grouped aggregations up to this capacity gather partial "
+            "states to one stream; larger ones repartition by group key",
+            int, 1 << 17,
+        ),
+        PropertyMetadata(
+            "page_rows",
+            "target rows per page (split granularity)",
+            int, 1 << 18,
+        ),
+        PropertyMetadata(
+            "hash_partition_count",
+            "devices used for repartitioned stages (0 = whole mesh); "
+            "only 0 is ported (the mesh plane is not)",
+            int, 0,
+        ),
+        PropertyMetadata(
+            "pallas_join_enabled",
+            "true engages the CUDA kernels (K1 aggregation, K2/K3 join "
+            "probes, K4 exchange partition ids) at the reference's "
+            "Pallas dispatch points; false keeps every aggregate, join "
+            "and exchange on the plain torch paths. Session-"
+            "distributed, so every producer of one exchange routes "
+            "rows the same way",
+            str, "true",
+            validate=lambda v: v in ("true", "false"),
+        ),
+        PropertyMetadata(
+            "mesh_exchange_mode",
+            "lower a repartition exchange to an in-program collective; "
+            "not ported (false = always the spooled plane)",
+            str, "false",
+            validate=_tristate,
+        ),
+        PropertyMetadata(
+            "generated_join_enabled",
+            "the build-free generated join; not ported (false)",
+            bool, False,
+        ),
+        PropertyMetadata(
+            "task_retry_attempts",
+            "re-dispatches of a lost DCN task; the port runs the "
+            "reference's task_retry_attempts=0 model whatever the "
+            "value: the first task failure fails the query",
+            int, 2,
+        ),
+        PropertyMetadata(
+            "retry_backoff_ms",
+            "base delay for the exponential-backoff-with-jitter ladder "
+            "between DCN fetch retries (reference: "
+            "HttpPageBufferClient backoff)",
+            int, 100,
+        ),
+        PropertyMetadata(
+            "query_max_run_time",
+            "wall-clock deadline in milliseconds for a query "
+            "(0 = unlimited; reference: query.max-run-time), enforced "
+            "at executor page boundaries and in the DCN fetch and "
+            "status loops",
+            int, 0,
+        ),
+        PropertyMetadata(
+            "stage_scheduler",
+            "general fragment-DAG scheduling for DCN queries "
+            "(dist/scheduler.py); true is the only ported mode (the "
+            "legacy agg/union/hash-fanout cuts are not ported)",
+            str, "true",
+            validate=_tristate,
+        ),
+        PropertyMetadata(
+            "speculation_enabled",
+            "straggler speculation; not ported (false)",
+            bool, False,
+        ),
+        PropertyMetadata(
+            "spool_exchange_bytes",
+            "per-task resident-byte budget for spooled-exchange "
+            "partitions on a worker: pages past it serialize and spill "
+            "to disk-tier PageStore files (0 = never spill). On the "
+            "device tier the same budget bounds device-RESIDENT spool "
+            "bytes",
+            int, 1 << 30,
+        ),
+        PropertyMetadata(
+            "device_exchange_enabled",
+            "partition spooled-exchange pages ON DEVICE "
+            "(dist/spool.device_partition_pages) and spool device "
+            "Pages that serialize lazily; auto = on when the executor "
+            "runs on a CUDA device, off on the CPU",
+            str, "auto",
+            validate=_tristate,
+        ),
+        PropertyMetadata(
+            "adaptive_execution",
+            "runtime re-planning at stage boundaries; not ported "
+            "(false)",
+            str, "false",
+            validate=_tristate,
+        ),
+        PropertyMetadata(
+            "result_cache_remote_probe",
+            "the fleet cache probe before leaf dispatch; not ported "
+            "(false)",
+            bool, False,
+        ),
+        PropertyMetadata(
+            "checkpoint_dir",
+            "coordinator query-state journal directory; not ported "
+            "(empty = off)",
+            str, "",
+        ),
+    ]
+}
+
+# property -> (predicate over its value that asks for a plane the port
+# lacks, what to say). ROADMAP queue 1 lists each plane.
+_NOT_PORTED = {
+    "generated_join_enabled": (
+        lambda v: v is True,
+        "generated_join_enabled=true: the build-free generated join is "
+        "not ported to presto_tpu_torch yet (ROADMAP queue 1, slice A2)"),
+    "mesh_exchange_mode": (
+        lambda v: v != "false",
+        "mesh_exchange_mode: the ICI mesh exchange plane is not ported "
+        "(ROADMAP queue 1: torch.distributed over 4 cards)"),
+    "adaptive_execution": (
+        lambda v: v != "false",
+        "adaptive_execution: runtime re-planning is not ported "
+        "(ROADMAP queue 1)"),
+    "speculation_enabled": (
+        lambda v: v is True,
+        "speculation_enabled: straggler speculation is not ported "
+        "(ROADMAP queue 1)"),
+    "result_cache_remote_probe": (
+        lambda v: v is True,
+        "result_cache_remote_probe: the fleet cache probe is not "
+        "ported (ROADMAP queue 1)"),
+    "checkpoint_dir": (
+        lambda v: v != "",
+        "checkpoint_dir: coordinator checkpointing is not ported "
+        "(ROADMAP queue 1)"),
+    "stage_scheduler": (
+        lambda v: v != "true",
+        "stage_scheduler: only the stage-DAG plane (true) is ported; "
+        "the legacy agg/union/hash-fanout cuts are not (ROADMAP queue "
+        "1)"),
+    "hash_partition_count": (
+        lambda v: v != 0,
+        "hash_partition_count: the mesh plane it sizes is not ported "
+        "(ROADMAP queue 1)"),
+}
+
+
+class Session:
+    """Reference: Session.java — catalog + property overrides."""
+
+    def __init__(self, catalog: Optional[str] = None,
+                 properties: Optional[Dict[str, Any]] = None):
+        self.catalog = catalog
+        self._values: Dict[str, Any] = {}
+        for k, v in (properties or {}).items():
+            self.set(k, v)
+
+    def set(self, name: str, value: Any) -> None:
+        prop = SYSTEM_SESSION_PROPERTIES.get(name)
+        if prop is None:
+            raise KeyError(f"unknown session property: {name}")
+        parsed = _parse_value(prop, value)
+        if prop.validate and not prop.validate(parsed):
+            raise ValueError(f"invalid value for {name}: {value!r}")
+        self._values[name] = parsed
+
+    def get(self, name: str) -> Any:
+        prop = SYSTEM_SESSION_PROPERTIES.get(name)
+        if prop is None:
+            raise KeyError(f"unknown session property: {name}")
+        return self._values.get(name, prop.default)
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError if a property asks for a plane the
+        port does not have."""
+        for name, (asks, why) in _NOT_PORTED.items():
+            if asks(self.get(name)):
+                raise NotImplementedError(why)

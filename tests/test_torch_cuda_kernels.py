@@ -85,3 +85,46 @@ def test_queries_on_the_card_equal_the_cpu(dev):
         assert gpu.execute(QUERIES[q]).rows == cpu.execute(QUERIES[q]).rows
     for name in ("segsum", "probe_dim", "probe_radix"):
         assert cuda.launches[name] > 0, name
+
+
+@pytest.mark.parametrize("cols,nparts", [(1, 4), (2, 4), (3, 7)])
+def test_part_ids_kernel_equals_plain(dev, cols, nparts):
+    from presto_tpu_torch.ops import cuda_part as CP
+
+    gen = torch.Generator().manual_seed(cols * 100 + nparts)
+    enc = torch.randint(-(1 << 62), 1 << 62, (cols, 100_003),
+                        generator=gen, dtype=torch.int64)
+    got = CP.part_ids_cuda(enc.to(dev), nparts)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), CP.part_ids_plain(enc, nparts))
+
+
+def test_distributed_q3_family_on_the_card_equals_the_cpu(dev):
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.dist.dcn import DcnRunner
+    from presto_tpu_torch.runner import LocalRunner
+    from presto_tpu_torch.server.worker import WorkerServer
+
+    sql = ("select o_orderkey, count(*) c from lineitem "
+           "join orders on l_orderkey = o_orderkey "
+           "where o_orderkey < 1000 group by o_orderkey "
+           "order by o_orderkey")
+    workers = [WorkerServer({"tpch": TpchConnector(0.01, device=dev)},
+                            node_id=f"w{i}", device=dev) for i in range(2)]
+    try:
+        for w in workers:
+            w.start()
+        coord = DcnRunner({"tpch": TpchConnector(0.01, device=dev)},
+                          [w.uri for w in workers], device=dev,
+                          session_props={"join_distribution_type":
+                                         "partitioned"})
+        cuda.reset_counts()
+        rows = coord.execute(sql)
+        assert cuda.launches["part_ids"] > 0
+        cpu = LocalRunner({"tpch": TpchConnector(0.01, device="cpu")},
+                          device="cpu")
+        assert rows == cpu.execute(sql).rows
+    finally:
+        for w in workers:
+            w.stop()
