@@ -2,12 +2,18 @@
 
     python3 chip_smoke.py                 # every phase (needs one card)
     python3 chip_smoke.py --phases build,kernels   # a quick kernel check
+    python3 chip_smoke.py --phases build,kernels,profile   # kernel times
 
 Phases:
   build    compile the CUDA kernels from presto_tpu_torch/csrc (first use)
   kernels  each kernel against its plain PyTorch version on the card, at
-           the shapes the main path gives it (exact), with timings, the
+           the shapes the main path gives it (exact), with its device time
+           per launch (ms: 60 back-to-back launches between two CUDA
+           events, inputs rotated over more than twice the 50 MB L2, the
+           stream held by a sleep kernel while the host enqueues them),
+           the time of one wrapper call (call_ms: host plus device), the
            bound the card's memory rate sets, and a library yardstick
+           timed the same way as the kernel
   check    TPC-H Q1, Q3, Q5, Q6 at SF 0.01 on the card == the same queries
            on the CPU == a sqlite3 oracle loaded from the port's own pages
   scale    the main path at size: Q1 and Q6 at SF 10, Q3 and Q5 at SF 1,
@@ -20,8 +26,11 @@ Phases:
            at SF 1 (page_rows 2^20): one warm-up and 3 timed runs each,
            rows == the single-process rows, and == again with K4 off
   profile  (only when asked for) the scale and dist queries once more
-           under torch.profiler: device busy share and device time by
-           kernel
+           under torch.profiler: device busy share, device time by kernel,
+           and each of the port's kernels' device time per launch
+  parent   (only when asked for, with --parent DIR, an unpacked checkout
+           of the parent commit) the parent's K1 and K2/K3 kernels built
+           from DIR and timed beside this tree's on the same inputs
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -32,8 +41,10 @@ presto_tpu_torch, torch, numpy and the standard library.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import datetime
 import json
+import os
 import sqlite3
 import statistics
 import subprocess
@@ -50,6 +61,12 @@ ALL_PHASES = ("build", "kernels", "check", "scale", "dist")
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
 
+# kernel timing: back-to-back launches per event pair, event pairs per
+# reading, and the bytes of rotated inputs (twice the H100's 50 MB L2)
+DEVICE_REPS = 60
+DEVICE_ROUNDS = 3
+ROTATE_BYTES = 100 * 10**6
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -63,8 +80,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events."""
+def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median time of ONE call, by CUDA events around it: the host's
+    wrapper (checks, allocation, the ctypes launch) plus the device's
+    work. On a host-bound path this is what a call costs."""
     for _ in range(warmup):
         fn()
     times = []
@@ -76,6 +95,47 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def rotated(*tensors: torch.Tensor) -> list:
+    """Copies of one launch's input ``tensors``, enough that together
+    they hold more than ROTATE_BYTES: launches that rotate over them
+    read their inputs from device memory, not from L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = ROTATE_BYTES // nbytes + 1
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(copies - 1)]
+
+
+def device_ms(launch, sets, reps: int = DEVICE_REPS,
+              rounds: int = DEVICE_ROUNDS) -> float:
+    """Device time per launch: ``launch(s)`` REPS times back to back over
+    the rotated input ``sets`` between two CUDA events, divided by REPS;
+    the median of ROUNDS such runs. A sleep kernel holds the stream while
+    the host enqueues the launches, so the card runs them without waiting
+    for the host between two launches."""
+    for s in sets:  # warm-up, and every set touched once
+        launch(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(reps):
+        launch(sets[r % len(sets)])
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # hold the stream for twice the measured enqueue time (clock64
+        # cycles at up to 2 GHz)
+        torch.cuda._sleep(int(2 * enqueue_s * 2e9) + 1_000_000)
+        start.record()
+        for r in range(reps):
+            launch(sets[r % len(sets)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -95,52 +155,82 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 # ------------------------------------------------------------------ kernels
 
 
+def segsum_inputs(gen: torch.Generator, dev, groups: int, live: int,
+                  n: int = 1 << 20):
+    """K1's inputs at the main path's shape: int64 group ids over ``live``
+    groups of a capacity-``groups`` state page, a row mask with a tenth
+    of the rows invalid, int64 values."""
+    ids = torch.randint(0, live, (n,), generator=gen, dtype=torch.int64)
+    mask = torch.rand(n, generator=gen) >= 0.1
+    vals = torch.randint(-(1 << 40), 1 << 40, (n,), generator=gen,
+                         dtype=torch.int64)
+    return ids.to(dev), mask.to(dev), vals.to(dev)
+
+
+def segsum_err(ids, vals, mask, groups: int, counts: bool = True) -> int:
+    """Largest difference of the kernel's (sums, counts) from the twin's
+    on the same inputs."""
+    from presto_tpu_torch.ops import cuda_agg as CA
+
+    got = CA.segsum_cuda(ids, vals, mask, groups, counts)
+    want = CA.segsum_plain(ids, vals, mask, groups, counts)
+    return max(max_abs_err(g, w) for g, w in zip(got, want)
+               if w is not None)
+
+
 def check_segsum(gen: torch.Generator, dev) -> dict:
     from presto_tpu_torch.ops import cuda_agg as CA
 
     n = 1 << 20
     results = {}
-    # Q6's shape: one group (every row on one shared-memory address);
-    # Q1's: 6 flag groups in a capacity-8 state page; and the largest
-    # capacity the kernel takes. A tenth of the rows carry the drop id
-    # (== capacity), as invalid rows do on the main path.
-    for groups, live in ((1, 1), (8, 6), (4096, 4096)):
-        ids = torch.randint(0, live, (n,), generator=gen,
-                            dtype=torch.int32)
-        ids[torch.rand(n, generator=gen) < 0.1] = groups
-        ids = ids.to(dev)
-        vals = torch.randint(-(1 << 40), 1 << 40, (n,), generator=gen,
-                             dtype=torch.int64).to(dev)
-        # group ids sorted, as the sorted grouping path delivers them
-        ids_sorted = torch.sort(ids).values
-        for label, i, v in (("random", ids, vals),
-                            ("sorted", ids_sorted, vals),
-                            ("count", ids, None)):
-            got = CA.segsum_cuda(i, v, groups)
-            want = CA.segsum_plain(i, v, groups)
-            err = max_abs_err(got, want)
+    # Q6's shape: one group (every row on one address); Q1's: 6 flag
+    # groups in a capacity-8 state page; Q5's: 25 nations in a page of 32;
+    # and the largest capacity the kernel takes (the shared tier)
+    for groups, live in ((1, 1), (8, 6), (32, 25), (4096, 4096)):
+        ids, mask, vals = segsum_inputs(gen, dev, groups, live, n)
+        # ids sorted, as the sorted grouping path delivers them; int32
+        # ids; no mask; rows one off 16-byte alignment (the scalar loads)
+        cases = {"random": (ids, vals, mask, True),
+                 "sum only": (ids, vals, mask, False),
+                 "count only": (ids, None, mask, True),
+                 "sorted": (torch.sort(ids).values, vals, mask, True),
+                 "int32 ids": (ids.to(torch.int32), vals, mask, True),
+                 "no mask": (ids, vals, None, True),
+                 "unaligned": (ids[1:], vals[1:], mask[1:], True)}
+        if groups == 1:
+            cases["no ids"] = (None, vals, mask, True)
+        # wrap-around: every row near +2^62, all in group 0
+        cases["wrap"] = (torch.zeros_like(ids),
+                         torch.full_like(vals, (1 << 62) + 12345), None,
+                         True)
+        for label, (i, v, m, c) in cases.items():
+            err = segsum_err(i, v, m, groups, c)
             if err:
                 raise AssertionError(f"K1 G={groups} {label}: kernel != "
                                      f"plain (max err {err})")
-        # wrap-around: every row near +2^63 into one group
-        big = torch.full((n,), (1 << 62) + 12345, dtype=torch.int64,
-                         device=dev)
-        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
-        if not torch.equal(CA.segsum_cuda(zeros, big, groups),
-                           CA.segsum_plain(zeros, big, groups)):
-            raise AssertionError(f"K1 G={groups}: wrap-around sum differs")
-        idx64 = torch.where((ids >= 0) & (ids < groups), ids.to(torch.int64),
-                            groups)
+        ms = device_ms(lambda s: CA.segsum_cuda(s[0], s[1], s[2], groups),
+                       rotated(ids, vals, mask))
+        sum_ms = device_ms(
+            lambda s: CA.segsum_cuda(s[0], s[1], s[2], groups, False),
+            rotated(ids, vals, mask))
+        cms = call_ms(lambda: CA.segsum_cuda(ids, vals, mask, groups))
+        plain_ms = call_ms(lambda: CA.segsum_plain(ids, vals, mask, groups))
+        # the library call: index_add_ of the values over ids with the
+        # mask and the range already folded in (the sums alone)
+        idx64 = torch.where(mask & (ids >= 0) & (ids < groups), ids, groups)
         out = torch.zeros(groups + 1, dtype=torch.int64, device=dev)
-        ms = time_ms(lambda: CA.segsum_cuda(ids, vals, groups))
-        plain_ms = time_ms(lambda: CA.segsum_plain(ids, vals, groups))
-        lib_ms = time_ms(lambda: out.index_add_(0, idx64, vals))
-        bound = bytes_ms(n * (4 + 8) + groups * 8)
-        log(f"K1 segsum n={n} G={groups}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-            f"{bound:.4f} ms (exact)")
-        results[groups] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound, max_abs_err=0)
+        lib_ms = device_ms(lambda s: out.index_add_(0, s[0], s[1]),
+                           rotated(idx64, vals))
+        # each input byte read once (8 B id, 1 B mask, 8 B value), each
+        # output written once (a sum and a count per group)
+        bound = bytes_ms(n * (8 + 1 + 8) + groups * 16)
+        log(f"K1 segsum n={n} G={groups}: kernel {ms:.4f} ms (sums alone "
+            f"{sum_ms:.4f} ms; call {cms:.4f} ms), plain {plain_ms:.4f} "
+            f"ms, index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms (exact "
+            f"in {len(cases)} cases)")
+        results[groups] = dict(ms=ms, call_ms=cms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bound,
+                               max_abs_err=0)
     return results
 
 
@@ -162,33 +252,46 @@ def check_probe(gen: torch.Generator, dev, build_rows: int,
     pkeys = torch.randint(0, 4 * build_rows, (n_probe,), generator=gen,
                           dtype=torch.int64).to(dev)
     phash = H.xxhash64_u64(pkeys)
+    # the page as it comes, and one row off 16-byte alignment with a
+    # ragged tail (the kernel's scalar loads and stores)
+    for label, ph in (("aligned", phash), ("unaligned", phash[1:-2])):
+        got = CJ.probe_cuda(ph, packed, layout)
+        want = CJ.probe_plain(ph, packed, layout)
+        err = max(max_abs_err(got[0], want[0]),
+                  max_abs_err(got[1], want[1]))
+        if err:
+            raise AssertionError(f"probe {layout} {label}: kernel != plain")
     got = CJ.probe_cuda(phash, packed, layout)
-    want = CJ.probe_plain(phash, packed, layout)
-    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    if err:
-        raise AssertionError(f"probe {layout}: kernel != plain")
     hits = int((got[1] > 0).sum())
     # the sort join's range finder on the same build, as the yardstick
     sorted_h = u64.order(torch.where(bvalid, bhash, u64.POISON)[perm])
-    ph = u64.order(phash)
-    ms = time_ms(lambda: CJ.probe_cuda(phash, packed, layout))
-    plain_ms = time_ms(lambda: CJ.probe_plain(phash, packed, layout),
+    # the table is built once per join and probed page after page: only
+    # the probe hashes rotate
+    sets = rotated(phash)
+    ms = device_ms(lambda s: CJ.probe_cuda(s[0], packed, layout), sets)
+    cms = call_ms(lambda: CJ.probe_cuda(phash, packed, layout))
+    plain_ms = call_ms(lambda: CJ.probe_plain(phash, packed, layout),
                        reps=5)
-    lib_ms = time_ms(lambda: (torch.searchsorted(sorted_h, ph, side="left"),
-                              torch.searchsorted(sorted_h, ph,
-                                                 side="right")))
-    # distinct table entries this run's probes read: the data-dependent
-    # table traffic of the bound
-    visited: list = []
+    lib_ms = device_ms(
+        lambda s: (torch.searchsorted(sorted_h, s[0], side="left"),
+                   torch.searchsorted(sorted_h, s[0], side="right")),
+        [(u64.order(s[0]),) for s in sets])
+    # distinct table slots this run's probes read, 8 B keys on every
+    # step and 8 B payloads on hits: the data-dependent table traffic of
+    # the bound
+    visited: dict = {}
     CJ.probe_plain(phash, packed, layout, visited=visited)
-    touched = int(torch.unique(torch.cat(visited)).numel())
-    bound = bytes_ms(n_probe * (8 + 4 + 4) + touched * 16)
+    touched = {part: int(torch.unique(torch.cat(idx)).numel())
+               for part, idx in visited.items()}
+    bound = bytes_ms(n_probe * (8 + 4 + 4) + touched["keys"] * 8
+                     + touched["payload"] * 8)
     log(f"probe {layout} build={build_rows} n={n_probe}: hits {hits}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, searchsorted x2 "
-        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({touched} table entries "
+        f"kernel {ms:.4f} ms (call {cms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"searchsorted x2 {lib_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({touched['keys']} key and {touched['payload']} payload slots "
         f"read; exact)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                max_abs_err=0)
+    return dict(ms=ms, call_ms=cms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, max_abs_err=0)
 
 
 def check_part_ids(gen: torch.Generator, dev) -> dict:
@@ -206,15 +309,168 @@ def check_part_ids(gen: torch.Generator, dev) -> dict:
         if err:
             raise AssertionError(f"K4 C={cols}: kernel != plain "
                                  f"(max err {err})")
-        ms = time_ms(lambda: CP.part_ids_cuda(enc, nparts))
-        plain_ms = time_ms(lambda: CP.part_ids_plain(enc, nparts))
+        ms = device_ms(lambda s: CP.part_ids_cuda(s[0], nparts),
+                       rotated(enc))
+        cms = call_ms(lambda: CP.part_ids_cuda(enc, nparts))
+        plain_ms = call_ms(lambda: CP.part_ids_plain(enc, nparts))
         bound = bytes_ms(cols * n * 8 + n * 4)
         log(f"K4 part_ids n={n} C={cols} nparts={nparts}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-            f"(exact; no single PyTorch call computes this function)")
-        results[cols] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                             bound_ms=bound, max_abs_err=0)
+            f"{ms:.4f} ms (call {cms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms (exact; no single PyTorch call computes "
+            f"this function)")
+        results[cols] = dict(ms=ms, call_ms=cms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound, max_abs_err=0)
     return results
+
+
+# ------------------------------------------------- the parent's kernels
+
+_CP, _CI64, _CI = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# the parent's K1 and K2/K3 C entry points: source, symbol, argtypes
+PARENT_KERNELS = {
+    # device, int32 ids, values|NULL, n, groups, out, stream
+    "segsum": ("segsum.cu", "presto_segsum_i64",
+               [_CI, _CP, _CP, _CI64, _CI, _CP, _CP]),
+    # device, hashes, n, [slots, 4] table, dim_layout, layout_param,
+    # max_probes, out_start, out_count, stream
+    "hash_probe": ("hash_probe.cu", "presto_hash_probe",
+                   [_CI, _CP, _CI64, _CP, _CI, _CI, _CI, _CP, _CP, _CP]),
+}
+
+
+def build_parent(parent: str) -> dict:
+    """The parent commit's K1 and K2/K3 sources (``parent`` is an unpacked
+    checkout of it), built with this tree's nvcc flags and loaded with
+    ctypes under their own C signatures."""
+    from presto_tpu_torch import cuda
+
+    csrc = os.path.join(parent, "presto_tpu_torch", "csrc")
+    out_dir = os.path.join(parent, "_parent_build")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for lib, (src, _, _) in PARENT_KERNELS.items():
+        so = os.path.join(out_dir, f"lib{lib}.so")
+        procs[lib] = (so, subprocess.Popen(
+            [cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-o", so,
+             os.path.join(csrc, src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for lib, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's {lib}:\n{out}")
+        _, sym, argtypes = PARENT_KERNELS[lib]
+        fn = getattr(ctypes.CDLL(so), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[lib] = fn
+    return fns
+
+
+def _parent_launch(fn, *args) -> None:
+    err = fn(0, *args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's kernel failed: cudaError {err}")
+
+
+def phase_parent(dev, gen: torch.Generator, parent: str) -> dict:
+    """The parent's K1 and K2/K3 designs against this tree's, in device
+    ms per launch on the same rotated inputs in this call, at the main
+    path's shapes; results held equal. K1 is timed three ways: the
+    parent's kernel alone (on ids already folded and cast), and the whole
+    device work of one aggregate state on each side: a SUM with its
+    count (the parent: where, int32 cast, a count launch and a sum
+    launch, each with its memset; this tree: one call) and a SUM whose
+    counts are known (the dense path's, Q1: where, cast, one launch)."""
+    from presto_tpu_torch.ops import cuda_agg as CA
+    from presto_tpu_torch.ops import cuda_join as CJ
+    from presto_tpu_torch.ops import hashing as H
+
+    fns = build_parent(parent)
+    n = 1 << 20
+    report = {}
+    # Q6's, Q1's and Q5's shapes, the largest capacity with random ids
+    # and with the sorted ids of the sorted grouping path
+    for groups, live, order in ((1, 1, "random"), (8, 6, "random"),
+                                (32, 25, "random"), (4096, 4096, "random"),
+                                (4096, 4096, "sorted")):
+        ids, mask, vals = segsum_inputs(gen, dev, groups, live, n)
+        if order == "sorted":
+            ids = torch.sort(ids).values
+
+        def parent_state(s, counts=True):
+            cids = torch.where(s[2], s[0], groups).to(torch.int32)
+            outs = []
+            for v in ((None, s[1]) if counts else (s[1],)):
+                out = torch.empty(groups, dtype=torch.int64, device=dev)
+                _parent_launch(fns["segsum"], cids.data_ptr(),
+                               None if v is None else v.data_ptr(), n,
+                               groups, out.data_ptr())
+                outs.append(out)
+            return outs
+
+        want_c, want_s = parent_state((ids, vals, mask))
+        got_s, got_c = CA.segsum_cuda(ids, vals, mask, groups)
+        if not (torch.equal(got_s, want_s) and torch.equal(got_c, want_c)):
+            raise AssertionError(f"K1 G={groups}: this tree's kernel != the "
+                                 f"parent's")
+        sets = rotated(ids, vals, mask)
+        c32 = torch.where(mask, ids, groups).to(torch.int32)
+        out = torch.empty(groups, dtype=torch.int64, device=dev)
+        row = {
+            "parent_kernel": device_ms(
+                lambda s: _parent_launch(fns["segsum"], s[0].data_ptr(),
+                                         s[1].data_ptr(), n, groups,
+                                         out.data_ptr()),
+                rotated(c32, vals)),
+            "parent_state_sum_count": device_ms(parent_state, sets),
+            "parent_state_sum": device_ms(
+                lambda s: parent_state(s, counts=False), sets),
+            "kernel_sum_count": device_ms(
+                lambda s: CA.segsum_cuda(s[0], s[1], s[2], groups), sets),
+            "kernel_sum": device_ms(
+                lambda s: CA.segsum_cuda(s[0], s[1], s[2], groups, False),
+                sets),
+        }
+        log(f"parent: K1 G={groups} {order}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in row.items()) + " (equal results)")
+        report[f"segsum G={groups} {order}"] = row
+    for build_rows in (64, 2048, 1 << 18, 1 << 20):
+        layout = CJ.plan_layout(build_rows)
+        keys = torch.randint(0, 4 * build_rows, (build_rows,), generator=gen,
+                             dtype=torch.int64).to(dev)
+        bvalid = torch.rand(build_rows, generator=gen).to(dev) < 0.9
+        tables, _, _ = CJ.build_index(H.xxhash64_u64(keys), bvalid, layout)
+        old_table = torch.stack(tables, dim=1).contiguous()
+        packed = CJ.pack_tables(tables)
+        phash = H.xxhash64_u64(torch.randint(
+            0, 4 * build_rows, (n,), generator=gen,
+            dtype=torch.int64).to(dev))
+        kind, spec = layout
+        param = spec if kind == "dim" else CJ._log2b(spec[0])
+
+        def parent_probe(s):
+            start = torch.empty(n, dtype=torch.int32, device=dev)
+            cnt = torch.empty(n, dtype=torch.int32, device=dev)
+            _parent_launch(fns["hash_probe"], s[0].data_ptr(), n,
+                           old_table.data_ptr(), int(kind == "dim"), param,
+                           CJ.MAX_PROBES, start.data_ptr(), cnt.data_ptr())
+            return start, cnt
+
+        want = parent_probe((phash,))
+        got = CJ.probe_cuda(phash, packed, layout)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"probe {layout}: this tree's kernel != the "
+                                 f"parent's")
+        sets = rotated(phash)
+        row = {"parent_kernel": device_ms(parent_probe, sets),
+               "kernel": device_ms(
+                   lambda s: CJ.probe_cuda(s[0], packed, layout), sets)}
+        log(f"parent: probe {layout} build={build_rows}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in row.items()) + " (equal results)")
+        report[f"probe {kind} build={build_rows}"] = row
+    log("parent: " + json.dumps(report))
+    return report
 
 
 # ----------------------------------------------------- the sqlite oracle
@@ -365,6 +621,9 @@ def phase_check(dev) -> None:
 
 SCALE_RUNS = ((1, 10.0), (6, 10.0), (3, 1.0), (5, 1.0))
 KERNEL_NAMES = ("segsum", "probe_dim", "probe_radix", "part_ids")
+# a substring of each kernel's device symbol(s) in a profile
+KERNEL_SYMBOLS = {"segsum": "segsum_", "probe_dim": "probe_dim_",
+                  "probe_radix": "probe_radix_", "part_ids": "part_ids_"}
 # kernels each query's main path must launch
 REQUIRED = {1: ("segsum",), 6: ("segsum",), 3: ("probe_radix",),
             5: ("probe_dim", "probe_radix")}
@@ -595,6 +854,7 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name: dict = {}
+        calls: dict = {}
         n_kernels = 0
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
@@ -602,6 +862,7 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
             n_kernels += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
+            calls[e.name] = calls.get(e.name, 0) + 1
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         log(f"profile: {path} Q{q} SF {sf:g}: wall {wall_us / 1e3:.2f} "
@@ -609,11 +870,24 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
             f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
             f"{n_kernels} device kernels; top: " + "; ".join(
                 f"{name[:60]} {us / 1e3:.2f} ms" for name, us in top))
+        # the port's kernels as the profiler sees them on the path: device
+        # time per launch, to cross-check the kernels phase's events
+        for kernel, symbol in KERNEL_SYMBOLS.items():
+            names = [nm for nm in by_name if symbol in nm]
+            count = sum(calls[nm] for nm in names)
+            if count:
+                us = sum(by_name[nm] for nm in names)
+                log(f"profile: {path} Q{q} SF {sf:g}: {kernel} {count} "
+                    f"launches, {us / 1e3:.3f} ms, "
+                    f"{us / 1e3 / count:.4f} ms per launch")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
+    ap.add_argument("--parent", default=None,
+                    help="an unpacked checkout of the parent commit, for "
+                    "the parent phase")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -643,6 +917,8 @@ def main() -> int:
         measured["probe_dim"] = dim_t1
         measured["probe_radix"] = check_probe(gen, dev, 1 << 20)
         measured["part_ids"] = check_part_ids(gen, dev)[1]  # one key
+    if "parent" in phases:
+        phase_parent(dev, gen, args.parent)
     if "check" in phases:
         phase_check(dev)
     # launches: the sum over the main paths that ran (the single-process
@@ -685,6 +961,7 @@ def main() -> int:
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": "bytes", "library_ms": m.get("library_ms"),
+            "call_ms": m.get("call_ms"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -28,7 +28,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -44,13 +44,16 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # library -> (source, {C symbol: argtypes})
 LIBRARIES = {
     "segsum": ("segsum.cu", {
-        # device, ids, values|NULL, n, groups, out, stream
-        "presto_segsum_i64": [_I, _P, _P, _I64, _I, _P, _P],
+        # device, ids|NULL, ids_bytes, mask|NULL, values|NULL, n, groups,
+        # with_sum, with_count, out, scratch|NULL, scratch_blocks, stream
+        "presto_segsum_i64": [_I, _P, _I, _P, _P, _I64, _I, _I, _I, _P, _P,
+                              _I, _P],
     }),
     "hash_probe": ("hash_probe.cu", {
-        # device, hashes, n, table, dim_layout, layout_param, max_probes,
-        # out_start, out_count, stream
-        "presto_hash_probe": [_I, _P, _I64, _P, _I, _I, _I, _P, _P, _P],
+        # device, hashes, n, keys, payload, dim_layout, layout_param,
+        # max_probes, out_start, out_count, stream
+        "presto_hash_probe": [_I, _P, _I64, _P, _P, _I, _I, _I, _P, _P,
+                              _P],
     }),
     "part_ids": ("part_ids.cu", {
         # device, enc, cols, n, nparts, out, stream
@@ -62,6 +65,9 @@ launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# C symbol -> its resolved ctypes function, filled once when its library
+# loads: a launch reads it without the load lock and without getattr
+_functions: Dict[str, Callable[..., int]] = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -140,6 +146,7 @@ def library(lib: str) -> ctypes.CDLL:
                 fn = getattr(handle, sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _functions[sym] = fn
             _loaded[lib] = handle
         return handle
 
@@ -147,10 +154,15 @@ def library(lib: str) -> ctypes.CDLL:
 def call(lib: str, sym: str, device: torch.device, *args) -> None:
     """Launch ``sym`` of ``lib`` on ``device``'s current stream; raises
     if the launch reports an error."""
+    fn = _functions.get(sym)
+    if fn is None:
+        library(lib)
+        fn = _functions[sym]
     dev = device.index if device.index is not None else \
         torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(library(lib), sym)(dev, *args, stream)
+    # the raw cudaStream_t of the current stream, without building a
+    # torch.cuda.Stream object per launch
+    err = fn(dev, *args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {sym} failed to launch: "
                            f"cudaError {err}")

@@ -9,13 +9,18 @@ other kind and shape back to it, exactly as ``supported()`` routes them
 in the reference. ``global_aggregate`` is the same dispatch for
 ungrouped aggregates (one group).
 
-On a CUDA tensor the wrapper launches csrc/segsum.cu (or raises); on a
-CPU tensor it runs the plain version, an int64 ``index_add_``. Both
-wrap modulo 2^64, so they agree bit for bit.
+The kernel's function takes the group ids as they are (int64 or int32;
+none for the ungrouped aggregate) and a row mask, and returns per-group
+sums and counts of the contributing rows from one pass, so each
+aggregate state is one kernel call. On a CUDA tensor the wrapper
+launches csrc/segsum.cu (or raises); on a CPU tensor it runs the plain
+version, an int64 ``index_add_``. Both wrap modulo 2^64, so they agree
+bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -23,10 +28,14 @@ import torch
 from presto_tpu_torch import cuda
 from presto_tpu_torch.ops import agg as A
 
-# group capacity ceiling: the shared-memory accumulator is 8 B x G
+# group capacity ceiling: the kernel's shared accumulators are 12 B x G
 MAX_GROUPS = A.MATMUL_AGG_MAX_GROUPS
 
 KERNEL = "segsum"
+
+# above this many groups the kernel's shared-memory tier stores per-block
+# partials in a scratch (csrc/segsum.cu, kAtomicFlushGroups)
+ATOMIC_FLUSH_GROUPS = 64
 
 # kinds the kernel computes; everything else falls back to ops/agg
 # (float SUM keeps its own accumulation order, MIN/MAX/ANY are
@@ -34,60 +43,124 @@ KERNEL = "segsum"
 SUPPORTED_KINDS = (A.SUM, A.COUNT, A.COUNT_STAR, A.BOOL_OR, A.BOOL_AND)
 
 
-def segsum_plain(ids: torch.Tensor, values: Optional[torch.Tensor],
-                 num_groups: int) -> torch.Tensor:
-    """The plain version: int64[G] sums of ``values`` (counts when None)
-    over ids in [0, G)."""
-    keep = (ids >= 0) & (ids < num_groups)
-    idx = torch.where(keep, ids.to(torch.int64), num_groups)
-    src = (torch.ones_like(idx) if values is None
-           else values.to(torch.int64))
-    out = torch.zeros(num_groups + 1, dtype=torch.int64, device=ids.device)
-    return out.index_add_(0, idx, src)[:num_groups]
+def _rows(ids, values, mask) -> torch.Tensor:
+    """The first given input (ids, mask or values): its length and device
+    are the call's."""
+    for t in (ids, mask, values):
+        if t is not None:
+            return t
+    raise ValueError("segsum needs ids, a mask or values")
 
 
-def segsum_cuda(ids: torch.Tensor, values: Optional[torch.Tensor],
-                num_groups: int) -> torch.Tensor:
-    """The kernel: same function as segsum_plain, on the card."""
-    dev = ids.device
-    cuda.check_tensor(ids, "ids", torch.int32, dev)
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def segsum_plain(ids: Optional[torch.Tensor],
+                 values: Optional[torch.Tensor],
+                 mask: Optional[torch.Tensor], num_groups: int,
+                 counts: bool = True):
+    """The plain version: (int64[G] sums of ``values`` or None when no
+    values are given, int64[G] counts or None when ``counts`` is False)
+    over the rows whose ``mask`` is set (all when None) and whose id lies
+    in [0, G) (group 0 for every row when ``ids`` is None)."""
+    ref = _rows(ids, values, mask)
+    dev = ref.device
+    keep = (torch.ones(ref.shape[0], dtype=torch.bool, device=dev)
+            if mask is None else mask.to(torch.bool))
+    if ids is None:
+        idx = torch.where(keep, 0, num_groups)
+    else:
+        keep = keep & (ids >= 0) & (ids < num_groups)
+        idx = torch.where(keep, ids.to(torch.int64), num_groups)
+
+    def total(src):
+        out = torch.zeros(num_groups + 1, dtype=torch.int64, device=dev)
+        return out.index_add_(0, idx, src)[:num_groups]
+
+    sums = None if values is None else total(values.to(torch.int64))
+    cnts = total(torch.ones_like(idx)) if counts else None
+    return sums, cnts
+
+
+def segsum_cuda(ids: Optional[torch.Tensor], values: Optional[torch.Tensor],
+                mask: Optional[torch.Tensor], num_groups: int,
+                counts: bool = True):
+    """The kernel: same function as segsum_plain, on the card, from one
+    pass over the rows (one memset and one kernel)."""
+    ref = _rows(ids, values, mask)
+    dev, n = ref.device, ref.shape[0]
+    if ids is not None:
+        cuda.check_tensor(ids, "ids", ids.dtype, dev)
+        if ids.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"ids has dtype {ids.dtype}, expected int32 "
+                            f"or int64")
+    elif num_groups != 1:
+        raise ValueError("ids may be None only for one group")
+    if mask is not None:
+        cuda.check_tensor(mask, "mask", torch.bool, dev)
     if values is not None:
         cuda.check_tensor(values, "values", torch.int64, dev)
-        if values.shape != ids.shape:
-            raise ValueError("values and ids differ in length")
+    for name, t in (("ids", ids), ("mask", mask), ("values", values)):
+        if t is not None and t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
     if not 1 <= num_groups <= MAX_GROUPS:
         raise ValueError(f"num_groups {num_groups} outside [1, {MAX_GROUPS}]")
-    out = torch.empty(num_groups, dtype=torch.int64, device=dev)
-    cuda.call("segsum", "presto_segsum_i64", dev, ids.data_ptr(),
-              values.data_ptr() if values is not None else None,
-              ids.shape[0], num_groups, out.data_ptr())
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows: the kernel takes fewer than 2^31")
+    with_sum = values is not None
+    if not (with_sum or counts):
+        raise ValueError("segsum_cuda computes nothing without values or "
+                         "counts")
+    out = torch.empty((int(with_sum) + int(counts)) * num_groups,
+                      dtype=torch.int64, device=dev)
+    scratch, blocks = None, 0
+    if num_groups > ATOMIC_FLUSH_GROUPS:  # a sum and count per block, group
+        blocks = _sm_count(dev)
+        scratch = torch.empty(blocks * num_groups * 12, dtype=torch.uint8,
+                              device=dev)
+    cuda.call("segsum", "presto_segsum_i64", dev,
+              None if ids is None else ids.data_ptr(),
+              0 if ids is None else ids.element_size(),
+              None if mask is None else mask.data_ptr(),
+              None if values is None else values.data_ptr(),
+              n, num_groups, int(with_sum), int(counts), out.data_ptr(),
+              None if scratch is None else scratch.data_ptr(), blocks)
     cuda.count(cuda.launches, KERNEL)
-    return out
+    return (out[:num_groups] if with_sum else None,
+            out[-num_groups:] if counts else None)
 
 
-def segsum(ids: torch.Tensor, values: Optional[torch.Tensor],
-           num_groups: int) -> torch.Tensor:
-    """Dispatch on where the tensors lie: the kernel on the card, the
-    plain version on the CPU."""
-    if ids.is_cuda:
-        return segsum_cuda(ids.to(torch.int32).contiguous(),
-                           None if values is None
-                           else values.to(torch.int64).contiguous(),
-                           num_groups)
+def segsum(ids: Optional[torch.Tensor], values: Optional[torch.Tensor],
+           mask: Optional[torch.Tensor], num_groups: int,
+           counts: bool = True):
+    """Per-group (sums, counts) of the contributing rows; dispatch on
+    where the tensors lie: the kernel on the card, the plain version on
+    the CPU."""
+    if _rows(ids, values, mask).is_cuda:
+        if ids is not None and ids.dtype not in (torch.int32, torch.int64):
+            ids = ids.to(torch.int64)
+        return segsum_cuda(
+            None if ids is None else ids.contiguous(),
+            None if values is None
+            else values.to(torch.int64).contiguous(),
+            None if mask is None else mask.contiguous(),
+            num_groups, counts)
     cuda.count(cuda.plain_calls, KERNEL)
-    return segsum_plain(ids, values, num_groups)
+    return segsum_plain(ids, values, mask, num_groups, counts)
 
 
 def segmented_sum_i64(values: torch.Tensor, ids: torch.Tensor,
                       num_groups: int) -> torch.Tensor:
     """Exact int64 per-group sum of ``values`` (any integer dtype); rows
     with id outside [0, num_groups) contribute 0."""
-    return segsum(ids, values, num_groups)
+    return segsum(ids, values, None, num_groups, counts=False)[0]
 
 
 def segmented_count(ids: torch.Tensor, num_groups: int) -> torch.Tensor:
     """int64 per-group row count (ids outside [0, num_groups) drop)."""
-    return segsum(ids, None, num_groups)
+    return segsum(ids, None, None, num_groups)[1]
 
 
 def supported(kind: str, num_groups: int, data) -> bool:
@@ -109,14 +182,25 @@ def _bool_result(kind, trues, ncontrib, empty):
     return (trues == ncontrib) & ~empty, empty
 
 
-def _valid_counts(groups: A.GroupbyResult, out_capacity: int):
-    """Valid rows per group, counted once per grouping (or taken from
-    the dense path, which counted them already) and shared by every
-    state whose input has no nulls."""
-    if groups.valid_counts is None:
-        ids = torch.where(groups.row_valid, groups.group_ids, out_capacity)
-        groups.valid_counts = segmented_count(ids, out_capacity)
-    return groups.valid_counts
+def _sums_and_counts(groups: A.GroupbyResult, out_capacity: int,
+                     values: Optional[torch.Tensor],
+                     nulls: Optional[torch.Tensor]):
+    """Per-group sums of ``values`` (None: no sums) and counts of the
+    contributing rows (valid and not null), from one kernel pass. Valid
+    rows per group are counted once per grouping (or taken from the dense
+    path, which counted them already) and shared by every state whose
+    input has no nulls."""
+    if nulls is None:
+        known = groups.valid_counts
+        if values is None and known is not None:
+            return None, known
+        sums, counts = segsum(groups.group_ids, values, groups.row_valid,
+                              out_capacity, counts=known is None)
+        if known is None:
+            groups.valid_counts = counts
+        return sums, groups.valid_counts
+    return segsum(groups.group_ids, values, groups.row_valid & ~nulls,
+                  out_capacity)
 
 
 def aggregate(
@@ -128,26 +212,19 @@ def aggregate(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Drop-in for ops/agg.aggregate: same SQL semantics (SUM over zero
     non-null inputs is NULL, COUNT is 0), same (values[out_capacity],
-    null_mask) shape, group totals from the kernel."""
+    null_mask) shape, group totals from the kernel: one pass per state."""
     if not supported(kind, out_capacity, data):
         return A.aggregate(groups, kind, out_capacity, data, nulls)
-    if kind == A.COUNT_STAR:
-        return _valid_counts(groups, out_capacity), None
-    contributing = groups.row_valid
-    if nulls is not None:
-        contributing = contributing & ~nulls
-    cids = torch.where(contributing, groups.group_ids, out_capacity)
-    ncontrib = (_valid_counts(groups, out_capacity) if nulls is None
-                else segmented_count(cids, out_capacity))
-    empty = ncontrib == 0
-    if kind == A.COUNT:
-        return ncontrib, None
+    if kind in (A.COUNT_STAR, A.COUNT):
+        return _sums_and_counts(groups, out_capacity, None,
+                                None if kind == A.COUNT_STAR else nulls
+                                )[1], None
     if kind == A.SUM:
-        totals = segmented_sum_i64(data, cids, out_capacity)
-        return totals.to(data.dtype), empty
-    trues = segmented_count(
-        torch.where(data.to(torch.bool), cids, out_capacity), out_capacity)
-    return _bool_result(kind, trues, ncontrib, empty)
+        totals, ncontrib = _sums_and_counts(groups, out_capacity, data, nulls)
+        return totals.to(data.dtype), ncontrib == 0
+    trues, ncontrib = _sums_and_counts(
+        groups, out_capacity, data.to(torch.bool).to(torch.int64), nulls)
+    return _bool_result(kind, trues, ncontrib, ncontrib == 0)
 
 
 def global_aggregate(
@@ -157,22 +234,18 @@ def global_aggregate(
     nulls: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ops/agg.global_aggregate: the ungrouped aggregate as
-    one group (id 0; non-contributing rows get id 1 and drop)."""
+    one group (no ids), one kernel pass per state."""
     if not supported(kind, 1, data):
         return A.global_aggregate(kind, valid, data, nulls)
     false = torch.zeros((), dtype=torch.bool, device=valid.device)
-    if kind == A.COUNT_STAR:
-        return segmented_count((~valid).to(torch.int32), 1)[0], false
     contributing = valid
-    if nulls is not None:
-        contributing = contributing & ~nulls
-    ids = (~contributing).to(torch.int32)
-    n = segmented_count(ids, 1)[0]
-    empty = n == 0
-    if kind == A.COUNT:
-        return n, false
+    if nulls is not None and kind != A.COUNT_STAR:
+        contributing = valid & ~nulls
+    if kind in (A.COUNT_STAR, A.COUNT):
+        return segsum(None, None, contributing, 1)[1][0], false
+    values = data if kind == A.SUM else data.to(torch.bool).to(torch.int64)
+    sums, counts = segsum(None, values, contributing, 1)
+    empty = counts[0] == 0
     if kind == A.SUM:
-        return segmented_sum_i64(data, ids, 1)[0].to(data.dtype), empty
-    trues = segmented_count(
-        torch.where(data.to(torch.bool), ids, 1), 1)[0]
-    return _bool_result(kind, trues, n, empty)
+        return sums[0].to(data.dtype), empty
+    return _bool_result(kind, sums[0], counts[0], empty)

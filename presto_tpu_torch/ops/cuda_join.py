@@ -16,13 +16,16 @@ same tables, ``perm`` and overflow flag as the reference, flat for both
 layouts (the TPU's 8x sublane replication of dim tables has no use
 here).
 
-The probe is csrc/hash_probe.cu on a CUDA tensor (or raises) and a
-vectorized lock-step loop of gathers on a CPU tensor. Launches count per
-layout, so a run shows that each TPU kernel's counterpart ran.
+The probe reads the tables as ``pack_tables`` splits them once per build:
+a 64-bit key per slot (the slot's hash, EMPTY_KEY where empty) and a
+(start, count) payload read only on a hit. It is csrc/hash_probe.cu on a
+CUDA tensor (or raises) and a vectorized lock-step loop of gathers on a
+CPU tensor. Launches count per layout, so a run shows that each TPU
+kernel's counterpart ran.
 
-u64 handling: hashes are int64 bit-views (ops/u64.py); tables are int32
-(lo, hi, start, count); fmix32 runs in int64 masked to 32 bits, torch
-lacking uint32 shifts.
+u64 handling: hashes are int64 bit-views (ops/u64.py); the built tables
+are int32 (lo, hi, start, count) as in the reference; fmix32 runs in
+int64 masked to 32 bits, torch lacking uint32 shifts.
 """
 
 from __future__ import annotations
@@ -53,6 +56,10 @@ MAX_PROBES = _MAX_ITERS + 1
 _CHECK_EVERY = 8
 
 KERNELS = {"dim": "probe_dim", "radix": "probe_radix"}
+
+# the key of an empty slot in the probe's key array: the poison hash,
+# which build_index never stores
+EMPTY_KEY = u64.POISON
 
 
 def _split64(keys: torch.Tensor):
@@ -189,24 +196,33 @@ def build_index(bhash: torch.Tensor, bvalid: torch.Tensor, layout):
     return tables, perm, overflow | poison_conflict
 
 
-def pack_tables(tables) -> torch.Tensor:
-    """The four flat tables as one [slots, 4] int32 tensor (lo, hi,
-    start, count), so a probe step is one 16-byte load."""
-    return torch.stack(tables, dim=1).contiguous()
+def pack_tables(tables):
+    """The four flat tables as the probe reads them: (keys, payload).
+    ``keys`` is int64 [slots], each slot's 64-bit hash (the (lo, hi)
+    words) or EMPTY_KEY where the slot is empty; ``payload`` is int32
+    [slots, 2], the slot's (start, count). A probe step reads a key and,
+    on a hit only, the payload. EMPTY_KEY is the poison hash, which
+    build_index never stores."""
+    lo, hi, start, count = tables
+    keys = (hi.to(torch.int64) << 32) | u64.u32(lo)
+    keys = torch.where(count > 0, keys, EMPTY_KEY)
+    return keys, torch.stack((start, count), dim=1).contiguous()
 
 
 # ------------------------------------------------------------ probe
 
 
-def probe_plain(probe_hash: torch.Tensor, packed: torch.Tensor, layout,
-                max_probes: int = MAX_PROBES, visited: Optional[list] = None):
+def probe_plain(probe_hash: torch.Tensor, packed, layout,
+                max_probes: int = MAX_PROBES,
+                visited: Optional[dict] = None):
     """The plain version: a vectorized lock-step probe loop of gathers.
-    A ``visited`` list receives, per step, the table slots the live
-    probes read (for counting the table traffic of a run)."""
+    A ``visited`` dict receives, per step, the key slots the live probes
+    read (under "keys") and the payload slots their hits read (under
+    "payload"), for counting the table traffic of a run."""
+    keys, payload = packed
     n = probe_hash.shape[0]
     dev = probe_hash.device
-    lo, hi = _split64(probe_hash)
-    h32 = _mix32(lo, hi)
+    h32 = _mix32(*_split64(probe_hash))
     base, width = _span(h32, layout)
     slot = h32 & (width - 1)
     start = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -216,40 +232,46 @@ def probe_plain(probe_hash: torch.Tensor, packed: torch.Tensor, layout,
         if i % _CHECK_EVERY == 0 and not bool(live.any()):
             break
         idx = base + slot
+        k = keys[idx]
+        empty = k == EMPTY_KEY
+        hit = live & ~empty & (k == probe_hash)
+        e = payload[torch.where(hit, idx, 0)]
         if visited is not None:
-            visited.append(idx[live])
-        e = packed[idx]
-        occupied = e[:, 3] > 0
-        hit = live & occupied & (e[:, 0] == lo) & (e[:, 1] == hi)
-        start = torch.where(hit, e[:, 2], start)
-        cnt = torch.where(hit, e[:, 3], cnt)
-        live = live & ~(hit | ~occupied)
+            visited.setdefault("keys", []).append(idx[live])
+            visited.setdefault("payload", []).append(idx[hit])
+        start = torch.where(hit, e[:, 0], start)
+        cnt = torch.where(hit, e[:, 1], cnt)
+        live = live & ~(hit | empty)
         slot = torch.where(live, (slot + 1) & (width - 1), slot)
     return start, cnt
 
 
-def probe_cuda(probe_hash: torch.Tensor, packed: torch.Tensor, layout,
+def probe_cuda(probe_hash: torch.Tensor, packed, layout,
                max_probes: int = MAX_PROBES):
     """The kernel: same function as probe_plain, on the card."""
+    keys, payload = packed
     dev = probe_hash.device
     cuda.check_tensor(probe_hash, "probe_hash", torch.int64, dev)
-    cuda.check_tensor(packed, "table", torch.int32, dev, ndim=2)
+    cuda.check_tensor(keys, "keys", torch.int64, dev)
+    cuda.check_tensor(payload, "payload", torch.int32, dev, ndim=2)
     kind, spec = layout
-    if packed.shape != (_table_slots(layout), 4):
-        raise ValueError(f"table shape {tuple(packed.shape)} does not fit "
-                         f"layout {layout}")
+    slots = _table_slots(layout)
+    if keys.shape != (slots,) or payload.shape != (slots, 2):
+        raise ValueError(f"table shapes {tuple(keys.shape)}, "
+                         f"{tuple(payload.shape)} do not fit layout "
+                         f"{layout}")
     param = spec if kind == "dim" else _log2b(spec[0])
     n = probe_hash.shape[0]
     start = torch.empty(n, dtype=torch.int32, device=dev)
     cnt = torch.empty(n, dtype=torch.int32, device=dev)
     cuda.call("hash_probe", "presto_hash_probe", dev, probe_hash.data_ptr(),
-              n, packed.data_ptr(), int(kind == "dim"), param, max_probes,
-              start.data_ptr(), cnt.data_ptr())
+              n, keys.data_ptr(), payload.data_ptr(), int(kind == "dim"),
+              param, max_probes, start.data_ptr(), cnt.data_ptr())
     cuda.count(cuda.launches, KERNELS[kind])
     return start, cnt
 
 
-def probe_index(probe_hash: torch.Tensor, packed: torch.Tensor, layout):
+def probe_index(probe_hash: torch.Tensor, packed, layout):
     """Per probe row, the hash-sorted build segment (start, count) of
     equal-hash valid build rows ((-1, 0) when none)."""
     if probe_hash.is_cuda:

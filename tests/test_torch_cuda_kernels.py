@@ -24,20 +24,40 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("groups", [1, 6, 4096])
+@pytest.mark.parametrize("groups", [1, 2, 3, 6, 8, 9, 100, 4096])
 def test_segsum_kernel_equals_plain(dev, groups):
+    # every tier: 1, 2, 4 and 8 register slots, the shared tier above 8;
+    # int64, int32 and sorted ids, with and without a mask, sums and
+    # counts together and apart, and inputs off 16-byte alignment
     from presto_tpu_torch.ops import cuda_agg as CA
 
     gen = torch.Generator().manual_seed(groups)
     n = 100_003
     ids = torch.randint(-2, groups + 2, (n,), generator=gen,
-                        dtype=torch.int32).to(dev)
+                        dtype=torch.int64)
     vals = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
-                         dtype=torch.int64).to(dev)
-    for v in (vals, None):
-        got = CA.segsum_cuda(ids, v, groups)
-        torch.cuda.synchronize()
-        assert torch.equal(got, CA.segsum_plain(ids, v, groups))
+                         dtype=torch.int64)
+    mask = torch.rand(n, generator=gen) < 0.8
+    id_cases = [ids, ids.to(torch.int32), torch.sort(ids).values, ids[1:]]
+    if groups == 1:
+        id_cases.append(None)
+    for i in id_cases:
+        rows = n if i is None else i.shape[0]
+        v, m = vals[n - rows:], mask[n - rows:]
+        for mm in (None, m):
+            for vv, counts in ((v, True), (v, False), (None, True)):
+                if i is None and mm is None and vv is None:
+                    continue  # no input gives the rows' number
+                got = CA.segsum_cuda(
+                    None if i is None else i.to(dev), vv if vv is None
+                    else vv.to(dev), None if mm is None else mm.to(dev),
+                    groups, counts)
+                torch.cuda.synchronize()
+                want = CA.segsum_plain(i, vv, mm, groups, counts)
+                for g, w in zip(got, want):
+                    assert (g is None) == (w is None)
+                    if w is not None:
+                        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("build_rows", [5, 2048, 2049, 1 << 16])
@@ -54,12 +74,14 @@ def test_probe_kernel_equals_plain(dev, build_rows):
     assert not bool(ovf)
     packed = CJ.pack_tables(tables)
     probe = H.xxhash64_u64(torch.randint(
-        0, 4 * build_rows, (50_000,), generator=gen,
+        0, 4 * build_rows, (100_003,), generator=gen,
         dtype=torch.int64).to(dev))
-    got = CJ.probe_cuda(probe, packed, layout)
-    torch.cuda.synchronize()
-    want = CJ.probe_plain(probe, packed, layout)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # a ragged length, and a view one row off 16-byte alignment
+    for ph in (probe, probe[1:]):
+        got = CJ.probe_cuda(ph, packed, layout)
+        torch.cuda.synchronize()
+        want = CJ.probe_plain(ph, packed, layout)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_queries_on_the_card_equal_the_cpu(dev):

@@ -169,6 +169,56 @@ def test_mix32_and_split_match_reference():
         np.asarray(RPJ._mix32(rlo, rhi)).astype(np.int64))
 
 
+@pytest.mark.parametrize("nb", [25, 2049])
+def test_packed_keys_are_the_slot_hashes(nb):
+    # the probe's table: per slot its 64-bit hash (EMPTY_KEY where
+    # empty) and its (start, count), from the reference-equal tables
+    rng = np.random.default_rng(nb + 1)
+    bhash = rng.integers(0, 2**64 - 1, size=nb, dtype=np.uint64)
+    bvalid = rng.random(nb) < 0.9
+    layout = CJ.plan_layout(nb)
+    tabs, _, ovf = CJ.build_index(_t(bhash), torch.from_numpy(bvalid),
+                                  layout)
+    assert not bool(ovf)
+    keys, payload = CJ.pack_tables(tabs)
+    lo, hi, start, count = (t.numpy() for t in tabs)
+    full = count > 0
+    words = (hi.astype(np.int64) << 32) | (lo.astype(np.int64) & 0xFFFFFFFF)
+    np.testing.assert_array_equal(keys.numpy()[full], words[full])
+    assert np.all(keys.numpy()[~full] == CJ.EMPTY_KEY)
+    np.testing.assert_array_equal(np.sort(keys.numpy()[full].view(np.uint64)),
+                                  np.unique(bhash[bvalid]))
+    np.testing.assert_array_equal(payload.numpy(), np.stack([start, count],
+                                                            axis=1))
+
+
+@pytest.mark.parametrize("layout", [("dim", 1), ("radix", (1, 64))])
+def test_probe_of_the_empty_key_misses(layout):
+    # a probe hash equal to EMPTY_KEY (the poison hash) meets only empty
+    # slots' keys: a miss, as in the reference
+    bhash = np.array([3, 5, 7], dtype=np.uint64) * GOLDEN
+    bvalid = np.ones(3, bool)
+    phash = np.concatenate([[MAXH], bhash[1:2], [MAXH],
+                            np.array([4], np.uint64) * GOLDEN])
+    start, cnt, _ = _check_build_and_probe(bhash, bvalid, phash, layout)
+    assert list(cnt) == [0, 1, 0, 0] and start[0] == -1
+
+
+def test_visited_reads_a_key_per_step_and_a_payload_per_hit():
+    rng = np.random.default_rng(12)
+    nb = 500
+    bhash = rng.choice(400, size=nb).astype(np.uint64) * GOLDEN
+    layout = CJ.plan_layout(nb)
+    tabs, _, _ = CJ.build_index(_t(bhash), torch.ones(nb, dtype=torch.bool),
+                                layout)
+    phash = _t(rng.choice(800, size=3000).astype(np.uint64) * GOLDEN)
+    visited = {}
+    start, cnt = CJ.probe_plain(phash, CJ.pack_tables(tabs), layout,
+                                visited=visited)
+    assert sum(len(v) for v in visited["payload"]) == int((cnt > 0).sum())
+    assert sum(len(v) for v in visited["keys"]) >= phash.shape[0]
+
+
 def test_plain_probe_dispatch_counts_per_layout():
     cuda.reset_counts()
     CJ.join_unique(_t(np.arange(10, dtype=np.uint64)),

@@ -86,6 +86,80 @@ def test_group_counts(groups):
     np.testing.assert_array_equal(cgot, cwant)
 
 
+def _mask(kind, rng, n):
+    if kind == "none":
+        return None
+    if kind == "all_out":
+        return np.zeros(n, dtype=bool)
+    return rng.random(n) < 0.7
+
+
+def _reference_pass(vals, ids, mask, groups):
+    """The reference's (sum, count) per group, fed the ``cids`` that
+    pallas_agg.aggregate forms from the mask and the ids."""
+    contributing = np.ones(len(vals), bool) if mask is None else mask
+    cids = jnp.where(jnp.asarray(contributing), jnp.asarray(ids),
+                     groups).astype(jnp.int32)
+    return (np.asarray(RPA.segmented_sum_i64(jnp.asarray(vals), cids, groups,
+                                             interpret=True)),
+            np.asarray(RPA.segmented_count(cids, groups, interpret=True)))
+
+
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("mask", ["none", "random", "all_out"])
+@pytest.mark.parametrize("id_dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("groups", [1, 8, 4096])
+def test_one_pass_sums_and_counts_match_reference(groups, id_dtype, mask,
+                                                  order):
+    # the kernel's signature: raw ids (int64 or int32, some outside
+    # [0, G)), a row mask, values over the whole int64 range (every sum
+    # wraps), sums and counts from one call
+    rng = np.random.default_rng(groups + 10 * (id_dtype == np.int32))
+    n = 1500
+    ids = rng.integers(-3, groups + 3, n).astype(id_dtype)
+    if order == "sorted":
+        ids = np.sort(ids)
+    vals = rng.integers(-2**63, 2**63, n, dtype=np.int64)
+    m = _mask(mask, rng, n)
+    sums, counts = CA.segsum(torch.from_numpy(ids), torch.from_numpy(vals),
+                             None if m is None else torch.from_numpy(m),
+                             groups)
+    want_sums, want_counts = _reference_pass(vals, ids, m, groups)
+    np.testing.assert_array_equal(sums.numpy(), want_sums)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    keep = np.ones(n, bool) if m is None else m
+    np.testing.assert_array_equal(
+        sums.numpy(), _oracle_sum(vals[keep], ids[keep], groups))
+    if mask == "all_out":
+        assert not sums.numpy().any() and not counts.numpy().any()
+    # counts alone, and sums alone, are the same function's halves
+    only_counts = CA.segsum(torch.from_numpy(ids), None,
+                            None if m is None else torch.from_numpy(m),
+                            groups)
+    assert only_counts[0] is None
+    np.testing.assert_array_equal(only_counts[1].numpy(), want_counts)
+    only_sums = CA.segsum(torch.from_numpy(ids), torch.from_numpy(vals),
+                          None if m is None else torch.from_numpy(m),
+                          groups, counts=False)
+    assert only_sums[1] is None
+    np.testing.assert_array_equal(only_sums[0].numpy(), want_sums)
+
+
+@pytest.mark.parametrize("mask", ["none", "random", "all_out"])
+def test_ungrouped_pass_matches_reference(mask):
+    # no ids: every contributing row in group 0 (the global aggregate)
+    rng = np.random.default_rng(77)
+    n = 900
+    vals = rng.integers(-2**63, 2**63, n, dtype=np.int64)
+    m = _mask(mask, rng, n)
+    sums, counts = CA.segsum(None, torch.from_numpy(vals),
+                             None if m is None else torch.from_numpy(m), 1)
+    want_sums, want_counts = _reference_pass(vals, np.zeros(n, np.int64), m,
+                                             1)
+    np.testing.assert_array_equal(sums.numpy(), want_sums)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+
+
 def test_plain_path_counts_dispatches_not_launches():
     cuda.reset_counts()
     CA.segmented_count(torch.zeros(10, dtype=torch.int32), 2)
@@ -194,6 +268,53 @@ def test_states_without_nulls_share_one_group_count(path, dispatches):
     assert cuda.plain_calls["segsum"] == dispatches
 
 
+@pytest.mark.parametrize("path", ["dense", "sorted"])
+def test_states_with_nulls_take_one_dispatch_each(path):
+    # the sum and the count of the contributing rows come from one pass:
+    # COUNT, SUM and BOOL_OR over a column with nulls, one call each
+    rng = np.random.default_rng(43)
+    ref, port, cap = _groups_pair(path, rng)
+    n = ref.row_valid.shape[0]
+    ints = rng.integers(-(1 << 45), 1 << 45, n)
+    bools = rng.random(n) < 0.5
+    nulls = rng.random(n) < 0.3
+    gv = np.asarray(port.group_valid)
+    cuda.reset_counts()
+    for kind, data in ((A.COUNT, ints), (A.SUM, ints), (A.BOOL_OR, bools)):
+        got = CA.aggregate(port, kind, cap, torch.from_numpy(data),
+                           torch.from_numpy(nulls))
+        want = RPA.aggregate(ref, kind, cap, jnp.asarray(data),
+                             jnp.asarray(nulls), interpret=True)
+        w_null = (np.zeros(cap, bool) if want[1] is None
+                  else np.asarray(want[1]))
+        g_null = np.zeros(cap, bool) if got[1] is None else got[1].numpy()
+        np.testing.assert_array_equal(g_null[gv], w_null[gv])
+        live = gv & ~w_null
+        np.testing.assert_array_equal(got[0].numpy()[live],
+                                      np.asarray(want[0])[live])
+    assert cuda.plain_calls["segsum"] == 3
+
+
+def test_a_sum_shares_its_valid_counts_with_later_states():
+    # a SUM without nulls on the sorted path counts the valid rows in its
+    # own pass, and COUNT(*) and COUNT after it reuse them
+    rng = np.random.default_rng(47)
+    ref, port, cap = _groups_pair("sorted", rng)
+    n = ref.row_valid.shape[0]
+    data = rng.integers(-(1 << 45), 1 << 45, n)
+    gv = np.asarray(port.group_valid)
+    cuda.reset_counts()
+    for kind in (A.SUM, A.SUM, A.COUNT_STAR, A.COUNT):
+        with_data = kind != A.COUNT_STAR
+        got = CA.aggregate(port, kind, cap,
+                           torch.from_numpy(data) if with_data else None)
+        want = RA.aggregate(ref, kind, cap,
+                            jnp.asarray(data) if with_data else None)
+        np.testing.assert_array_equal(got[0].numpy()[gv],
+                                      np.asarray(want[0])[gv])
+    assert cuda.plain_calls["segsum"] == 2
+
+
 @pytest.mark.parametrize("kind", [A.SUM, A.COUNT, A.COUNT_STAR, A.BOOL_OR,
                                   A.BOOL_AND])
 @pytest.mark.parametrize("empty", [False, True])
@@ -212,6 +333,24 @@ def test_global_aggregate_matches_reference(kind, empty):
     assert bool(got[1]) == bool(want[1])
     if not bool(want[1]):
         assert int(got[0]) == int(want[0])
+
+
+@pytest.mark.parametrize("kind", [A.SUM, A.COUNT, A.COUNT_STAR, A.BOOL_OR])
+def test_global_states_take_one_dispatch(kind):
+    rng = np.random.default_rng(53)
+    n = 400
+    valid = rng.random(n) < 0.7
+    data = (rng.random(n) < 0.5 if kind == A.BOOL_OR
+            else rng.integers(-(1 << 60), 1 << 60, n))
+    nulls = rng.random(n) < 0.2
+    cuda.reset_counts()
+    got = CA.global_aggregate(kind, torch.from_numpy(valid),
+                              torch.from_numpy(data), torch.from_numpy(nulls))
+    want = RA.global_aggregate(kind, jnp.asarray(valid), jnp.asarray(data),
+                               jnp.asarray(nulls))
+    assert cuda.plain_calls["segsum"] == 1
+    assert bool(got[1]) == bool(want[1])
+    assert int(got[0]) == int(want[0])
 
 
 def test_unsupported_shapes_route_to_the_segment_ops():
