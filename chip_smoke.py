@@ -28,9 +28,6 @@ Phases:
   profile  (only when asked for) the scale and dist queries once more
            under torch.profiler: device busy share, device time by kernel,
            and each of the port's kernels' device time per launch
-  parent   (only when asked for, with --parent DIR, an unpacked checkout
-           of the parent commit) the parent's K1 and K2/K3 kernels built
-           from DIR and timed beside this tree's on the same inputs
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -41,10 +38,8 @@ presto_tpu_torch, torch, numpy and the standard library.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import datetime
 import json
-import os
 import sqlite3
 import statistics
 import subprocess
@@ -158,9 +153,13 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def segsum_inputs(gen: torch.Generator, dev, groups: int, live: int,
                   n: int = 1 << 20):
     """K1's inputs at the main path's shape: int64 group ids over ``live``
-    groups of a capacity-``groups`` state page, a row mask with a tenth
-    of the rows invalid, int64 values."""
+    groups of a capacity-``groups`` state page, with one row in 20 given
+    an id outside [0, G) (G or -1, rows that drop out), a row mask with a
+    tenth of the rows invalid, int64 values."""
     ids = torch.randint(0, live, (n,), generator=gen, dtype=torch.int64)
+    out = torch.rand(n, generator=gen) < 0.05
+    ids[out] = torch.where(torch.rand(n, generator=gen) < 0.5, groups,
+                           -1)[out]
     mask = torch.rand(n, generator=gen) >= 0.1
     vals = torch.randint(-(1 << 40), 1 << 40, (n,), generator=gen,
                          dtype=torch.int64)
@@ -321,156 +320,6 @@ def check_part_ids(gen: torch.Generator, dev) -> dict:
         results[cols] = dict(ms=ms, call_ms=cms, plain_ms=plain_ms,
                              library_ms=None, bound_ms=bound, max_abs_err=0)
     return results
-
-
-# ------------------------------------------------- the parent's kernels
-
-_CP, _CI64, _CI = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# the parent's K1 and K2/K3 C entry points: source, symbol, argtypes
-PARENT_KERNELS = {
-    # device, int32 ids, values|NULL, n, groups, out, stream
-    "segsum": ("segsum.cu", "presto_segsum_i64",
-               [_CI, _CP, _CP, _CI64, _CI, _CP, _CP]),
-    # device, hashes, n, [slots, 4] table, dim_layout, layout_param,
-    # max_probes, out_start, out_count, stream
-    "hash_probe": ("hash_probe.cu", "presto_hash_probe",
-                   [_CI, _CP, _CI64, _CP, _CI, _CI, _CI, _CP, _CP, _CP]),
-}
-
-
-def build_parent(parent: str) -> dict:
-    """The parent commit's K1 and K2/K3 sources (``parent`` is an unpacked
-    checkout of it), built with this tree's nvcc flags and loaded with
-    ctypes under their own C signatures."""
-    from presto_tpu_torch import cuda
-
-    csrc = os.path.join(parent, "presto_tpu_torch", "csrc")
-    out_dir = os.path.join(parent, "_parent_build")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for lib, (src, _, _) in PARENT_KERNELS.items():
-        so = os.path.join(out_dir, f"lib{lib}.so")
-        procs[lib] = (so, subprocess.Popen(
-            [cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-o", so,
-             os.path.join(csrc, src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for lib, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the parent's {lib}:\n{out}")
-        _, sym, argtypes = PARENT_KERNELS[lib]
-        fn = getattr(ctypes.CDLL(so), sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[lib] = fn
-    return fns
-
-
-def _parent_launch(fn, *args) -> None:
-    err = fn(0, *args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"the parent's kernel failed: cudaError {err}")
-
-
-def phase_parent(dev, gen: torch.Generator, parent: str) -> dict:
-    """The parent's K1 and K2/K3 designs against this tree's, in device
-    ms per launch on the same rotated inputs in this call, at the main
-    path's shapes; results held equal. K1 is timed three ways: the
-    parent's kernel alone (on ids already folded and cast), and the whole
-    device work of one aggregate state on each side: a SUM with its
-    count (the parent: where, int32 cast, a count launch and a sum
-    launch, each with its memset; this tree: one call) and a SUM whose
-    counts are known (the dense path's, Q1: where, cast, one launch)."""
-    from presto_tpu_torch.ops import cuda_agg as CA
-    from presto_tpu_torch.ops import cuda_join as CJ
-    from presto_tpu_torch.ops import hashing as H
-
-    fns = build_parent(parent)
-    n = 1 << 20
-    report = {}
-    # Q6's, Q1's and Q5's shapes, the largest capacity with random ids
-    # and with the sorted ids of the sorted grouping path
-    for groups, live, order in ((1, 1, "random"), (8, 6, "random"),
-                                (32, 25, "random"), (4096, 4096, "random"),
-                                (4096, 4096, "sorted")):
-        ids, mask, vals = segsum_inputs(gen, dev, groups, live, n)
-        if order == "sorted":
-            ids = torch.sort(ids).values
-
-        def parent_state(s, counts=True):
-            cids = torch.where(s[2], s[0], groups).to(torch.int32)
-            outs = []
-            for v in ((None, s[1]) if counts else (s[1],)):
-                out = torch.empty(groups, dtype=torch.int64, device=dev)
-                _parent_launch(fns["segsum"], cids.data_ptr(),
-                               None if v is None else v.data_ptr(), n,
-                               groups, out.data_ptr())
-                outs.append(out)
-            return outs
-
-        want_c, want_s = parent_state((ids, vals, mask))
-        got_s, got_c = CA.segsum_cuda(ids, vals, mask, groups)
-        if not (torch.equal(got_s, want_s) and torch.equal(got_c, want_c)):
-            raise AssertionError(f"K1 G={groups}: this tree's kernel != the "
-                                 f"parent's")
-        sets = rotated(ids, vals, mask)
-        c32 = torch.where(mask, ids, groups).to(torch.int32)
-        out = torch.empty(groups, dtype=torch.int64, device=dev)
-        row = {
-            "parent_kernel": device_ms(
-                lambda s: _parent_launch(fns["segsum"], s[0].data_ptr(),
-                                         s[1].data_ptr(), n, groups,
-                                         out.data_ptr()),
-                rotated(c32, vals)),
-            "parent_state_sum_count": device_ms(parent_state, sets),
-            "parent_state_sum": device_ms(
-                lambda s: parent_state(s, counts=False), sets),
-            "kernel_sum_count": device_ms(
-                lambda s: CA.segsum_cuda(s[0], s[1], s[2], groups), sets),
-            "kernel_sum": device_ms(
-                lambda s: CA.segsum_cuda(s[0], s[1], s[2], groups, False),
-                sets),
-        }
-        log(f"parent: K1 G={groups} {order}: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in row.items()) + " (equal results)")
-        report[f"segsum G={groups} {order}"] = row
-    for build_rows in (64, 2048, 1 << 18, 1 << 20):
-        layout = CJ.plan_layout(build_rows)
-        keys = torch.randint(0, 4 * build_rows, (build_rows,), generator=gen,
-                             dtype=torch.int64).to(dev)
-        bvalid = torch.rand(build_rows, generator=gen).to(dev) < 0.9
-        tables, _, _ = CJ.build_index(H.xxhash64_u64(keys), bvalid, layout)
-        old_table = torch.stack(tables, dim=1).contiguous()
-        packed = CJ.pack_tables(tables)
-        phash = H.xxhash64_u64(torch.randint(
-            0, 4 * build_rows, (n,), generator=gen,
-            dtype=torch.int64).to(dev))
-        kind, spec = layout
-        param = spec if kind == "dim" else CJ._log2b(spec[0])
-
-        def parent_probe(s):
-            start = torch.empty(n, dtype=torch.int32, device=dev)
-            cnt = torch.empty(n, dtype=torch.int32, device=dev)
-            _parent_launch(fns["hash_probe"], s[0].data_ptr(), n,
-                           old_table.data_ptr(), int(kind == "dim"), param,
-                           CJ.MAX_PROBES, start.data_ptr(), cnt.data_ptr())
-            return start, cnt
-
-        want = parent_probe((phash,))
-        got = CJ.probe_cuda(phash, packed, layout)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"probe {layout}: this tree's kernel != the "
-                                 f"parent's")
-        sets = rotated(phash)
-        row = {"parent_kernel": device_ms(parent_probe, sets),
-               "kernel": device_ms(
-                   lambda s: CJ.probe_cuda(s[0], packed, layout), sets)}
-        log(f"parent: probe {layout} build={build_rows}: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in row.items()) + " (equal results)")
-        report[f"probe {kind} build={build_rows}"] = row
-    log("parent: " + json.dumps(report))
-    return report
 
 
 # ----------------------------------------------------- the sqlite oracle
@@ -885,9 +734,6 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
-    ap.add_argument("--parent", default=None,
-                    help="an unpacked checkout of the parent commit, for "
-                    "the parent phase")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -917,8 +763,6 @@ def main() -> int:
         measured["probe_dim"] = dim_t1
         measured["probe_radix"] = check_probe(gen, dev, 1 << 20)
         measured["part_ids"] = check_part_ids(gen, dev)[1]  # one key
-    if "parent" in phases:
-        phase_parent(dev, gen, args.parent)
     if "check" in phases:
         phase_check(dev)
     # launches: the sum over the main paths that ran (the single-process

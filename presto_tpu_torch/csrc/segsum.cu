@@ -23,8 +23,8 @@
 // first version issued one shared-memory atomic per row, and at one or
 // a few groups (TPC-H Q6: 1, Q1: 6) every lane of a warp hit the same
 // few addresses and serialized. This one has two tiers:
-//  - G <= 8 (a template parameter, 1/2/4/8 slots): every thread keeps G
-//    sums and counts in registers (fully unrolled, so nothing spills)
+//  - G <= 8 (a template parameter: 1 slot, or 8 for G = 2..8): every
+//    thread keeps its sums and counts in registers (fully unrolled, so nothing spills)
 //    over a grid-stride loop, then the warp folds them with
 //    __shfl_down_sync on 64-bit words, the block folds its warps through
 //    shared memory, and one global atomic per block and group remains.
@@ -451,26 +451,34 @@ void launch_ids(const Args& a, bool ids64, int blocks_cap, cudaStream_t s) {
 
 }  // namespace
 
+// The bytes of scratch presto_segsum_i64 needs for `groups` on `device`:
+// above kAtomicFlushGroups a sum and a count per group for each block of
+// the first pass (one block per SM), else 0 (no scratch).
+extern "C" int presto_segsum_scratch_bytes(int device, int groups) {
+  if (groups <= kAtomicFlushGroups) return 0;
+  return sm_count(device) * groups * 12;
+}
+
 // ids: int32 or int64 [n] (ids_bytes 4 or 8), or NULL (ids_bytes 0): all
 // rows in group 0. mask: bool [n] or NULL. values: int64 [n] or NULL.
 // out: int64 [(with_sum + with_count) * groups], the sums first; with_sum
-// needs values. 1 <= groups <= 4096, 0 <= n < 2^31. groups > 64 needs a
-// scratch of scratch_blocks x groups x 12 bytes (8-byte aligned), which
-// caps the first pass's grid.
+// needs values. 1 <= groups <= 4096, 0 <= n < 2^31. scratch: 8-byte
+// aligned, of presto_segsum_scratch_bytes(device, groups) bytes, or NULL
+// where that is 0.
 extern "C" int presto_segsum_i64(int device, const void* ids, int ids_bytes,
                                  const void* mask, const void* values,
                                  long long n, int groups, int with_sum,
                                  int with_count, void* out, void* scratch,
-                                 int scratch_blocks, void* stream) {
+                                 void* stream) {
   const bool partials = groups > kAtomicFlushGroups;
   if (groups < 1 || groups > 4096 || n < 0 || n >= (1LL << 31) ||
       (!with_sum && !with_count) || (with_sum && values == nullptr) ||
       (ids != nullptr && ids_bytes != 4 && ids_bytes != 8) ||
-      (ids == nullptr && groups != 1) ||
-      (partials && (scratch == nullptr || scratch_blocks < 1)))
+      (ids == nullptr && groups != 1) || (partials && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count(device);
   cudaStream_t s = (cudaStream_t)stream;
   if (!partials || n == 0) {  // the second kernel writes every output
     const size_t words = (size_t)(with_sum ? 1 : 0) + (with_count ? 1 : 0);
@@ -492,23 +500,17 @@ extern "C" int presto_segsum_i64(int device, const void* ids, int ids_bytes,
   a.partials = partials;
   a.part_sum = partials ? static_cast<unsigned long long*>(scratch) : nullptr;
   a.part_count = partials ? reinterpret_cast<unsigned*>(
-                                a.part_sum + (size_t)scratch_blocks * groups)
+                                a.part_sum + (size_t)sms * groups)
                           : nullptr;
   const bool ids64 = ids != nullptr && ids_bytes == 8;
   const uintptr_t id_align = ids64 ? 15u : 7u;
   a.vec = ((uintptr_t)ids & id_align) == 0 && ((uintptr_t)mask & 1u) == 0 &&
           ((uintptr_t)values & 15u) == 0;
-  const int sms = sm_count(device);
   if (groups == 1)
     launch_ids<1>(a, ids64, sms, s);
-  else if (groups <= 2)
-    launch_ids<2>(a, ids64, sms, s);
-  else if (groups <= 4)
-    launch_ids<4>(a, ids64, sms, s);
   else if (groups <= 8)
     launch_ids<8>(a, ids64, sms, s);
   else
-    launch_ids<0>(a, ids64,
-                  partials && scratch_blocks < sms ? scratch_blocks : sms, s);
+    launch_ids<0>(a, ids64, sms, s);
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,10 @@ build in parallel: one nvcc per source, all started together. Nothing
 here runs at import time, so the CPU tests import every module without
 a CUDA toolkit.
 
-Every C entry point launches on the caller's current stream, allocates
-nothing and returns cudaGetLastError(); ``call`` raises if that is not
-0. There is no fallback: a failed build or launch raises.
+Every C entry point that launches does so on the caller's current
+stream, allocates nothing and returns cudaGetLastError(); ``call``
+raises if that is not 0. There is no fallback: a failed build or launch
+raises.
 
 ``launches`` counts kernel launches by kernel name (a wrapper calls
 ``count(launches, name)`` exactly where it launches); ``plain_calls``
@@ -45,9 +46,11 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 LIBRARIES = {
     "segsum": ("segsum.cu", {
         # device, ids|NULL, ids_bytes, mask|NULL, values|NULL, n, groups,
-        # with_sum, with_count, out, scratch|NULL, scratch_blocks, stream
+        # with_sum, with_count, out, scratch|NULL, stream
         "presto_segsum_i64": [_I, _P, _I, _P, _P, _I64, _I, _I, _I, _P, _P,
-                              _I, _P],
+                              _P],
+        # device, groups -> the bytes of scratch presto_segsum_i64 needs
+        "presto_segsum_scratch_bytes": [_I, _I],
     }),
     "hash_probe": ("hash_probe.cu", {
         # device, hashes, n, keys, payload, dim_layout, layout_param,
@@ -151,15 +154,26 @@ def library(lib: str) -> ctypes.CDLL:
         return handle
 
 
-def call(lib: str, sym: str, device: torch.device, *args) -> None:
-    """Launch ``sym`` of ``lib`` on ``device``'s current stream; raises
-    if the launch reports an error."""
+def function(lib: str, sym: str) -> Callable[..., int]:
+    """The ctypes function ``sym`` of ``lib``, loading it first if
+    needed."""
     fn = _functions.get(sym)
     if fn is None:
         library(lib)
         fn = _functions[sym]
-    dev = device.index if device.index is not None else \
+    return fn
+
+
+def device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
         torch.cuda.current_device()
+
+
+def call(lib: str, sym: str, device: torch.device, *args) -> None:
+    """Launch ``sym`` of ``lib`` on ``device``'s current stream; raises
+    if the launch reports an error."""
+    fn = function(lib, sym)
+    dev = device_index(device)
     # the raw cudaStream_t of the current stream, without building a
     # torch.cuda.Stream object per launch
     err = fn(dev, *args, torch._C._cuda_getCurrentRawStream(dev))

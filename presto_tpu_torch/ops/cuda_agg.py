@@ -33,10 +33,6 @@ MAX_GROUPS = A.MATMUL_AGG_MAX_GROUPS
 
 KERNEL = "segsum"
 
-# above this many groups the kernel's shared-memory tier stores per-block
-# partials in a scratch (csrc/segsum.cu, kAtomicFlushGroups)
-ATOMIC_FLUSH_GROUPS = 64
-
 # kinds the kernel computes; everything else falls back to ops/agg
 # (float SUM keeps its own accumulation order, MIN/MAX/ANY are
 # gather-shaped)
@@ -53,8 +49,11 @@ def _rows(ids, values, mask) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+def _scratch_bytes(device: int, num_groups: int) -> int:
+    """The scratch the kernel needs for its per-block partials (0: none);
+    csrc/segsum.cu decides when it keeps partials and how many."""
+    return cuda.function("segsum", "presto_segsum_scratch_bytes")(
+        device, num_groups)
 
 
 def segsum_plain(ids: Optional[torch.Tensor],
@@ -88,7 +87,9 @@ def segsum_cuda(ids: Optional[torch.Tensor], values: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor], num_groups: int,
                 counts: bool = True):
     """The kernel: same function as segsum_plain, on the card, from one
-    pass over the rows (one memset and one kernel)."""
+    pass over the rows. One call is one ``launches`` count: a memset and
+    one kernel, or two kernels above 64 groups (per-block partials, then
+    their sum)."""
     ref = _rows(ids, values, mask)
     dev, n = ref.device, ref.shape[0]
     if ids is not None:
@@ -115,18 +116,16 @@ def segsum_cuda(ids: Optional[torch.Tensor], values: Optional[torch.Tensor],
                          "counts")
     out = torch.empty((int(with_sum) + int(counts)) * num_groups,
                       dtype=torch.int64, device=dev)
-    scratch, blocks = None, 0
-    if num_groups > ATOMIC_FLUSH_GROUPS:  # a sum and count per block, group
-        blocks = _sm_count(dev)
-        scratch = torch.empty(blocks * num_groups * 12, dtype=torch.uint8,
-                              device=dev)
+    nbytes = _scratch_bytes(cuda.device_index(dev), num_groups)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
     cuda.call("segsum", "presto_segsum_i64", dev,
               None if ids is None else ids.data_ptr(),
               0 if ids is None else ids.element_size(),
               None if mask is None else mask.data_ptr(),
               None if values is None else values.data_ptr(),
               n, num_groups, int(with_sum), int(counts), out.data_ptr(),
-              None if scratch is None else scratch.data_ptr(), blocks)
+              None if scratch is None else scratch.data_ptr())
     cuda.count(cuda.launches, KERNEL)
     return (out[:num_groups] if with_sum else None,
             out[-num_groups:] if counts else None)
