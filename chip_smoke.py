@@ -16,18 +16,30 @@ Phases:
            timed the same way as the kernel
   check    TPC-H Q1, Q3, Q5, Q6 at SF 0.01 on the card == the same queries
            on the CPU == a sqlite3 oracle loaded from the port's own pages
-  scale    the main path at size: Q1 and Q6 at SF 10, Q3 and Q5 at SF 1,
-           through LocalRunner, with per-query wall time, peak memory and
-           kernel launch counts; every kernel must have launched
+           (generated join off: the joins hold the probe kernels)
+  fused    the reference's default TPC-H path (generated joins, fused
+           per-split programs as CUDA graphs, split batching): Q1, Q3,
+           Q5, Q6, Q17 at SF 0.01 under the default session on the card
+           == the CPU with fusion forced == sqlite, with the fusion
+           counters equal and > 0; the distributed path under the
+           default session == the single process; every captured
+           program replayed == its op-by-op run on the card
+  scale    the main path at size: Q1 and Q6 at SF 10, Q3, Q5 and Q17 at
+           SF 1, through LocalRunner, under the default session, with
+           the three fusion switches off, and op by op (SCALE_MODES):
+           per-query wall time, first-run graph captures, peak memory,
+           program launches and kernel launch counts (through graph
+           replays); every kernel of each session's path must launch
   dist     the distributed path: 4 in-process WorkerServers on the card
            and a DcnRunner (stage DAG, partitioned joins, every exchange
            partitioned on the card through K4). Q3 and Q5 at SF 0.01 ==
            the card's LocalRunner == sqlite; then Q1 at SF 10, Q3 and Q5
            at SF 1 (page_rows 2^20): one warm-up and 3 timed runs each,
            rows == the single-process rows, and == again with K4 off
-  profile  (only when asked for) the scale and dist queries once more
-           under torch.profiler: device busy share, device time by kernel,
-           and each of the port's kernels' device time per launch
+  profile  (only when asked for) the scale queries under each session
+           and the dist queries once more under torch.profiler: device
+           busy share, device kernels, graph replays, device time by
+           kernel, and each of the port's kernels' device time per launch
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -40,6 +52,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
+import math
 import sqlite3
 import statistics
 import subprocess
@@ -51,7 +64,7 @@ import torch
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound_ms column
 HBM_BYTES_PER_S = 3.35e12
 
-ALL_PHASES = ("build", "kernels", "check", "scale", "dist")
+ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -369,6 +382,14 @@ ENGINE_SQL = {
           and l_shipdate < date '1994-01-01' + interval '1' year
           and l_discount between 0.06 - 0.01 and 0.06 + 0.01
           and l_quantity < 24""",
+    17: """select sum(l_extendedprice) / 7.0 as avg_yearly
+        from lineitem, part
+        where p_partkey = l_partkey
+          and p_brand = 'Brand#23'
+          and p_container = 'MED BOX'
+          and l_quantity < (
+            select 0.2 * avg(l_quantity) from lineitem
+            where l_partkey = p_partkey)""",
 }
 
 ORACLE_SQL = {
@@ -400,10 +421,17 @@ ORACLE_SQL = {
         WHERE l_shipdate >= {_days(1994, 1, 1)}
           AND l_shipdate < {_days(1995, 1, 1)}
           AND l_discount BETWEEN 5 AND 7 AND l_quantity < 2400""", {}),
+    17: ("""SELECT CAST(SUM(l_extendedprice) AS REAL) / 100.0 / 7.0
+        FROM lineitem, part
+        WHERE p_partkey = l_partkey AND p_brand = 'Brand#23'
+          AND p_container = 'MED BOX'
+          AND l_quantity < (
+            SELECT 0.2 * AVG(l_quantity) FROM lineitem
+            WHERE l_partkey = p_partkey)""", {0: "f"}),
 }
 
 ORACLE_TABLES = ("customer", "orders", "lineitem", "supplier", "nation",
-                 "region")
+                 "region", "part")
 
 
 def load_sqlite(conn) -> sqlite3.Connection:
@@ -427,16 +455,25 @@ def load_sqlite(conn) -> sqlite3.Connection:
 
 def compare_oracle(q: int, engine_rows, oracle_rows, modes) -> None:
     """The TPC-H suite's comparison: decimal averages are round-half-up
-    ints on the engine side, compared after rounding sqlite's float."""
+    ints on the engine side, compared after rounding sqlite's float;
+    float columns ("f") to a relative 1e-6."""
     def norm(row):
         return tuple(
             (None if v is None else round(float(v)))
             if modes.get(j) == "r" else v
             for j, v in enumerate(row))
 
+    def same(e, o):
+        return len(e) == len(o) and all(
+            (a is None) == (b is None) if None in (a, b) else
+            math.isclose(a, b, rel_tol=1e-6) if modes.get(j) == "f" else
+            a == b
+            for j, (a, b) in enumerate(zip(e, o)))
+
     e_rows = [norm(r) for r in engine_rows]
     o_rows = [norm(tuple(r)) for r in oracle_rows]
-    if e_rows != o_rows:
+    if len(e_rows) != len(o_rows) or not all(
+            same(e, o) for e, o in zip(e_rows, o_rows)):
         raise AssertionError(f"Q{q} differs from sqlite:\n engine "
                              f"{e_rows[:3]}\n oracle {o_rows[:3]}")
 
@@ -446,7 +483,7 @@ def phase_check(dev) -> None:
     from presto_tpu_torch.runner import LocalRunner
 
     sf = 0.01
-    session = {"page_rows": 1 << 15}
+    session = {"page_rows": 1 << 15, "generated_join_enabled": "false"}
     gpu = LocalRunner({"tpch": TpchConnector(sf, device=dev)},
                       session=session, device=dev)
     cpu_conn = TpchConnector(sf, device="cpu")
@@ -466,16 +503,145 @@ def phase_check(dev) -> None:
         log(f"check: Q{q} SF {sf}: {len(got)} rows, card == CPU == sqlite")
 
 
+# ------------------------------------------------------ the fused path
+
+FUSED_QUERIES = (1, 3, 5, 6, 17)
+# what each query's default session must fuse: a partial-aggregation
+# tail (Q1, Q6, Q17's outer sum) and generated joins (Q3, Q5, Q17)
+FUSED_AGG = (1, 6, 17)
+FUSED_JOINS = (3, 5, 17)
+
+
+def program_shape(key) -> str:
+    """A captured program's chain shape: per split or batched, and its
+    tail (a page-emitting chain, or the partial-aggregation step)."""
+    extra = key[2]
+    return f"{key[0]}/{extra[0] if extra else 'page'}"
+
+
+def check_programs() -> dict:
+    """Every program captured on the card, replayed at its latest inputs,
+    against the same function run op by op on the card on the same
+    inputs: equal tensor for tensor (max_abs_err 0)."""
+    from presto_tpu_torch.exec import graphs
+
+    shapes: dict = {}
+    for key, prog in graphs.cached():
+        if prog.device.type != "cuda" or prog.last_call is None:
+            continue
+        starts, counts = prog.last_call
+        got = graphs.leaves_of(prog(starts, counts))
+        want = graphs.leaves_of(prog.eager(starts, counts))
+        if len(got) != len(want):
+            raise AssertionError(f"{program_shape(key)}: replay returned "
+                                 f"{len(got)} tensors, op by op {len(want)}")
+        err = max((max_abs_err(g, w) for g, w in zip(got, want)), default=0)
+        sh = shapes.setdefault(program_shape(key), dict(
+            programs=0, max_abs_err=0, capture_s=0.0, batch=set()))
+        sh["programs"] += 1
+        sh["max_abs_err"] = max(sh["max_abs_err"], err)
+        sh["capture_s"] += prog.capture_s
+        sh["batch"].add(prog.batch)
+    for name, sh in shapes.items():
+        sh["batch"] = sorted(sh["batch"])
+        if sh["max_abs_err"] != 0:
+            raise AssertionError(f"{name}: graph replay != op by op "
+                                 f"(max_abs_err {sh['max_abs_err']})")
+    return shapes
+
+
+def fusion_counters(ex, gen_before: int) -> dict:
+    return dict(program_launches=ex.program_launches,
+                splits_scanned=ex.splits_scanned,
+                fused_partial_aggs=ex.fused_partial_aggs,
+                generated_joins=ex.generated_joins_used - gen_before)
+
+
+def phase_fused(dev, cluster) -> None:
+    """The reference's default TPC-H path on the card: generated joins
+    and fused per-split programs replayed as CUDA graphs. At SF 0.01 the
+    card's default session == the CPU with fusion forced == sqlite; every
+    captured chain shape replays equal to its op-by-op run; and the
+    distributed path under the default session == the single process."""
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.exec import graphs
+    from presto_tpu_torch.runner import LocalRunner
+
+    sf, page_rows = 0.01, 1 << 13  # 13 lineitem splits: one padded batch
+    gpu = LocalRunner({"tpch": TpchConnector(sf, device=dev)},
+                      session={"page_rows": page_rows}, device=dev)
+    cpu_conn = TpchConnector(sf, device="cpu")
+    cpu = LocalRunner({"tpch": cpu_conn}, device="cpu", session={
+        "page_rows": page_rows, "fused_partial_agg_enabled": "true",
+        "split_batch_size": "64"})
+    db = load_sqlite(cpu_conn)
+    for q in FUSED_QUERIES:
+        ex = gpu.executor
+        gen0 = ex.generated_joins_used
+        got = gpu.execute(ENGINE_SQL[q]).rows
+        counters = fusion_counters(ex, gen0)
+        ex = cpu.executor
+        gen0 = ex.generated_joins_used
+        want = cpu.execute(ENGINE_SQL[q]).rows
+        if got != want or counters != fusion_counters(ex, gen0):
+            raise AssertionError(
+                f"fused Q{q} SF {sf}: card != CPU with fusion forced\n"
+                f" card {got[:3]} {counters}\n cpu  {want[:3]} "
+                f"{fusion_counters(ex, gen0)}")
+        if (counters["program_launches"] <= 0
+                or (q in FUSED_AGG and counters["fused_partial_aggs"] <= 0)
+                or (q in FUSED_JOINS and counters["generated_joins"] <= 0)):
+            raise AssertionError(f"fused Q{q}: the default session did not "
+                                 f"fuse: {counters}")
+        oracle_sql, modes = ORACLE_SQL[q]
+        compare_oracle(q, got, db.execute(oracle_sql).fetchall(), modes)
+        log(f"fused: Q{q} SF {sf}: {len(got)} rows, card == CPU (fusion "
+            f"forced) == sqlite; {counters}")
+    # the distributed path under the default session: 4 worker threads
+    # capture and replay the leaf fragments' programs on one card
+    coord = cluster.coordinator(sf, page_rows, FUSED_DIST_SESSION)
+    single = cluster.local(sf, page_rows, {})
+    for q in (1, 3, 5):
+        got, _, _ = _dist_run(coord, ENGINE_SQL[q])
+        want = single.execute(ENGINE_SQL[q]).rows
+        if got != want:
+            raise AssertionError(f"fused dist Q{q}: rows != single process")
+        log(f"fused: dist Q{q} SF {sf} x{N_WORKERS} workers, default "
+            f"session: {len(got)} rows == single process")
+    shapes = check_programs()
+    log("fused: graph replay == op by op on the card, per chain shape: "
+        + json.dumps(shapes) + f"; process totals {graphs.stats}")
+
+
 # -------------------------------------------------------------- the scale
 
-SCALE_RUNS = ((1, 10.0), (6, 10.0), (3, 1.0), (5, 1.0))
+SCALE_RUNS = ((1, 10.0), (6, 10.0), (3, 1.0), (5, 1.0), (17, 1.0))
 KERNEL_NAMES = ("segsum", "probe_dim", "probe_radix", "part_ids")
 # a substring of each kernel's device symbol(s) in a profile
 KERNEL_SYMBOLS = {"segsum": "segsum_", "probe_dim": "probe_dim_",
                   "probe_radix": "probe_radix_", "part_ids": "part_ids_"}
-# kernels each query's main path must launch
-REQUIRED = {1: ("segsum",), 6: ("segsum",), 3: ("probe_radix",),
-            5: ("probe_dim", "probe_radix")}
+# the sessions each scale query runs under: the reference's defaults
+# (generated join, fusion and split batching on the card: CUDA graphs);
+# the three switches off, which leaves per-split graphs of the
+# filter/project chains; and nothing fused, op by op (the path before
+# graphs), whose materialized joins hold the probe kernels
+SCALE_MODES = {
+    "default": {},
+    "three_off": {"generated_join_enabled": "false",
+                  "fused_partial_agg_enabled": "false",
+                  "split_batch_size": "false"},
+    "eager": {"generated_join_enabled": "false",
+              "tpu_offload_enabled": "false"},
+}
+EAGER_SESSION = SCALE_MODES["eager"]
+# kernels each query's main path must launch, per session
+REQUIRED = {
+    "default": {1: ("segsum",), 6: ("segsum",), 3: (), 5: (), 17: ()},
+    "three_off": {1: ("segsum",), 6: ("segsum",), 3: ("probe_radix",),
+                  5: ("probe_dim", "probe_radix"), 17: ()},
+    "eager": {1: ("segsum",), 6: ("segsum",), 3: ("probe_radix",),
+              5: ("probe_dim", "probe_radix"), 17: ()},
+}
 
 
 def filtered_lineitem_rows(conn, cutoff: int, page_rows: int) -> int:
@@ -490,59 +656,90 @@ def filtered_lineitem_rows(conn, cutoff: int, page_rows: int) -> int:
 
 
 def phase_scale(dev) -> dict:
+    """Each scale query under each session of SCALE_MODES: one warm-up
+    (its graph captures timed apart), then TIMED_RUNS timed runs."""
     from presto_tpu_torch import cuda
     from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.exec import graphs
     from presto_tpu_torch.runner import LocalRunner
 
     page_rows = 1 << 20
-    runners = {}
+    conns = {}
     launches_total = {k: 0 for k in KERNEL_NAMES}
     per_query = {}
     cuda.reset_counts()  # counts cover the main-path runs below only
     for q, sf in SCALE_RUNS:
-        if sf not in runners:
-            runners[sf] = LocalRunner(
-                {"tpch": TpchConnector(sf, device=dev)},
-                session={"page_rows": page_rows}, device=dev)
-        runner = runners[sf]
-        before = dict(cuda.launches)
-        torch.cuda.reset_peak_memory_stats()
-        res = runner.execute(ENGINE_SQL[q])  # warm-up
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(TIMED_RUNS):
+        if sf not in conns:
+            conns[sf] = TpchConnector(sf, device=dev)
+        for mode, props in SCALE_MODES.items():
+            runner = LocalRunner({"tpch": conns[sf]}, device=dev,
+                                 session={"page_rows": page_rows, **props})
+            # each reading holds its own graphs' memory only
+            graphs.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(cuda.launches)
+            cap0 = dict(graphs.stats)
             t0 = time.perf_counter()
-            res = runner.execute(ENGINE_SQL[q])
+            res = runner.execute(ENGINE_SQL[q])  # warm-up
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        counts = {k: cuda.launches.get(k, 0) - before.get(k, 0)
-                  for k in KERNEL_NAMES}
-        peak = torch.cuda.max_memory_allocated()
-        runs = 1 + TIMED_RUNS
-        log(f"scale: Q{q} SF {sf:g}: rows {len(res.rows)}, wall s "
-            f"{[round(w, 4) for w in walls]} (median "
-            f"{statistics.median(walls):.4f}), peak alloc "
-            f"{peak / 2**30:.3f} GiB, launches per run "
-            f"{ {k: v // runs for k, v in counts.items()} }, "
-            f"boost retries {runner.executor.capacity_boost_retries}")
-        for k in REQUIRED[q]:
-            if counts[k] <= 0:
-                raise AssertionError(f"Q{q}: kernel {k} never launched")
-        if q == 1:
-            cutoff = _days(1998, 12, 1) - 90
-            conn = runner.catalogs["tpch"]
-            want = filtered_lineitem_rows(conn, cutoff, page_rows)
-            got = sum(r[-1] for r in res.rows)
-            log(f"scale: Q1 SF {sf:g} count_order sum {got}, connector "
-                f"rows with l_shipdate <= cutoff {want}, all lineitem "
-                f"rows {filtered_lineitem_rows(conn, 1 << 30, page_rows)}")
-            if got != want:
-                raise AssertionError("Q1 count_order != connector rows")
-        per_query[q] = dict(sf=sf, wall_s=walls, rows=len(res.rows),
-                            peak_bytes=peak, launches=counts)
-        for k in KERNEL_NAMES:
-            launches_total[k] += counts[k]
+            first_s = time.perf_counter() - t0
+            captures = graphs.stats["captures"] - cap0["captures"]
+            capture_s = graphs.stats["capture_s"] - cap0["capture_s"]
+            walls = []
+            for _ in range(TIMED_RUNS):
+                t0 = time.perf_counter()
+                res = runner.execute(ENGINE_SQL[q])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            counts = {k: cuda.launches.get(k, 0) - before.get(k, 0)
+                      for k in KERNEL_NAMES}
+            ex = runner.executor
+            fused = dict(program_launches=ex.program_launches,
+                         splits_scanned=ex.splits_scanned,
+                         splits_per_launch=(
+                             ex.splits_scanned / ex.program_launches
+                             if ex.program_launches else 0.0),
+                         fused_partial_aggs=ex.fused_partial_aggs)
+            peak = torch.cuda.max_memory_allocated()
+            reserved = torch.cuda.max_memory_reserved()
+            runs = 1 + TIMED_RUNS
+            log(f"scale: Q{q} SF {sf:g} {mode}: rows {len(res.rows)}, wall "
+                f"s {[round(w, 4) for w in walls]} (median "
+                f"{statistics.median(walls):.4f}), first run "
+                f"{first_s:.3f} s with {captures} graph captures taking "
+                f"{capture_s:.3f} s, peak alloc {peak / 2**30:.3f} GiB "
+                f"(reserved {reserved / 2**30:.3f} GiB), per run {fused}, "
+                f"kernel launches per run "
+                f"{ {k: v // runs for k, v in counts.items()} }, boost "
+                f"retries {ex.capacity_boost_retries}")
+            for k in REQUIRED[mode][q]:
+                if counts[k] <= 0:
+                    raise AssertionError(f"Q{q} {mode}: kernel {k} never "
+                                         f"launched")
+            if q == 1:
+                cutoff = _days(1998, 12, 1) - 90
+                want = filtered_lineitem_rows(conns[sf], cutoff, page_rows)
+                got = sum(r[-1] for r in res.rows)
+                if got != want:
+                    raise AssertionError(
+                        f"Q1 {mode}: count_order {got} != connector rows "
+                        f"{want}")
+            rows = per_query.setdefault(q, {"sf": sf, "rows": res.rows})
+            if res.rows != rows["rows"]:
+                raise AssertionError(f"Q{q} {mode}: rows differ from "
+                                     f"{next(iter(SCALE_MODES))}")
+            rows[mode] = dict(wall_s=walls, first_run_s=first_s,
+                              captures=captures, capture_s=capture_s,
+                              peak_bytes=peak, reserved_bytes=reserved,
+                              launches=counts, **fused)
+            for k in KERNEL_NAMES:
+                launches_total[k] += counts[k]
+    for v in per_query.values():
+        v["rows"] = len(v["rows"])
     log("scale: " + json.dumps({"per_query": per_query}))
+    graphs.clear()
+    torch.cuda.empty_cache()
     return launches_total
 
 
@@ -550,6 +747,15 @@ def phase_scale(dev) -> dict:
 
 N_WORKERS = 4
 DIST_SCALE = ((1, 10.0), (3, 1.0), (5, 1.0))
+# the distributed phase's session: every join partitioned and every
+# exchange through K4 on the card, with the generated join off (the
+# materialized joins this phase has always held)
+DIST_SESSION = {"join_distribution_type": "partitioned",
+                "device_exchange_enabled": "true",
+                "generated_join_enabled": "false"}
+# the fused phase's: the same distribution, the default TPC-H path
+FUSED_DIST_SESSION = {"join_distribution_type": "partitioned",
+                      "device_exchange_enabled": "true"}
 # kernels each distributed query must launch (K4 wherever an exchange
 # repartitions: Q1's 4 groups gather)
 DIST_REQUIRED = {1: ("segsum",), 3: ("part_ids",), 5: ("part_ids",)}
@@ -576,25 +782,23 @@ class DistCluster:
         for w in self.workers:
             w.start()
 
-    def coordinator(self, sf: float, page_rows: int, kernels: str = "true"):
+    def coordinator(self, sf: float, page_rows: int,
+                    session: dict = DIST_SESSION):
         from presto_tpu_torch.dist.dcn import DcnRunner
 
         name = _catalog(sf)
         return DcnRunner({name: self.catalogs[name]},
                          [w.uri for w in self.workers],
                          default_catalog=name, device=self.dev,
-                         session_props={
-                             "page_rows": page_rows,
-                             "join_distribution_type": "partitioned",
-                             "device_exchange_enabled": "true",
-                             "pallas_join_enabled": kernels})
+                         session_props={"page_rows": page_rows, **session})
 
-    def local(self, sf: float, page_rows: int):
+    def local(self, sf: float, page_rows: int,
+              session: dict = EAGER_SESSION):
         from presto_tpu_torch.runner import LocalRunner
 
         name = _catalog(sf)
         return LocalRunner({name: self.catalogs[name]}, name,
-                           session={"page_rows": page_rows},
+                           session={"page_rows": page_rows, **session},
                            device=self.dev)
 
     def stop(self) -> None:
@@ -661,7 +865,8 @@ def phase_dist(dev, cluster: "DistCluster") -> dict:
         # outside the counted runs: the single-process rows and K4 off
         want = cluster.local(sf, page_rows).execute(ENGINE_SQL[q]).rows
         off, off_wall, _ = _dist_run(
-            cluster.coordinator(sf, page_rows, kernels="false"),
+            cluster.coordinator(sf, page_rows, {
+                **DIST_SESSION, "pallas_join_enabled": "false"}),
             ENGINE_SQL[q])
         if rows != want or off != want:
             raise AssertionError(
@@ -683,25 +888,31 @@ def phase_dist(dev, cluster: "DistCluster") -> dict:
 
 
 def phase_profile(dev, cluster: "DistCluster") -> None:
-    """Where the time goes: each scale and dist query once more under
-    torch.profiler — the device's busy share of the wall time, the
-    number of device kernels, and device time by kernel name."""
+    """Where the time goes: each scale query under each session of
+    SCALE_MODES, and each dist query, once more under torch.profiler —
+    the device's busy share of the wall time, the number of device
+    kernels, and device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    runs = [("local", q, sf, cluster.local(sf, 1 << 20))
-            for q, sf in SCALE_RUNS]
-    runs += [("dist", q, sf, cluster.coordinator(sf, 1 << 20))
+    from presto_tpu_torch.exec import graphs
+
+    runs = [("local", q, sf, mode, cluster.local(sf, 1 << 20, props))
+            for q, sf in SCALE_RUNS for mode, props in SCALE_MODES.items()]
+    runs += [("dist", q, sf, "dist", cluster.coordinator(sf, 1 << 20))
              for q, sf in DIST_SCALE]
-    for path, q, sf, runner in runs:
-        runner.execute(ENGINE_SQL[q])  # warm-up
+    for path, q, sf, mode, runner in runs:
+        graphs.clear()
+        runner.execute(ENGINE_SQL[q])  # warm-up (and graph captures)
         torch.cuda.synchronize()
+        replays0 = graphs.stats["replays"]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             runner.execute(ENGINE_SQL[q])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        replays = graphs.stats["replays"] - replays0
         by_name: dict = {}
         calls: dict = {}
         n_kernels = 0
@@ -714,10 +925,10 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
             calls[e.name] = calls.get(e.name, 0) + 1
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log(f"profile: {path} Q{q} SF {sf:g}: wall {wall_us / 1e3:.2f} "
-            f"ms, device "
-            f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
-            f"{n_kernels} device kernels; top: " + "; ".join(
+        log(f"profile: {path} Q{q} SF {sf:g} {mode}: wall "
+            f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+            f"({100 * busy / wall_us:.1f}%), {n_kernels} device kernels, "
+            f"{replays} graph replays; top: " + "; ".join(
                 f"{name[:60]} {us / 1e3:.2f} ms" for name, us in top))
         # the port's kernels as the profiler sees them on the path: device
         # time per launch, to cross-check the kernels phase's events
@@ -726,9 +937,10 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
             count = sum(calls[nm] for nm in names)
             if count:
                 us = sum(by_name[nm] for nm in names)
-                log(f"profile: {path} Q{q} SF {sf:g}: {kernel} {count} "
-                    f"launches, {us / 1e3:.3f} ms, "
+                log(f"profile: {path} Q{q} SF {sf:g} {mode}: {kernel} "
+                    f"{count} launches, {us / 1e3:.3f} ms, "
                     f"{us / 1e3 / count:.4f} ms per launch")
+    graphs.clear()
 
 
 def main() -> int:
@@ -772,8 +984,10 @@ def main() -> int:
         launches = phase_scale(dev)
     cluster = None
     try:
-        if phases & {"dist", "profile"}:
+        if phases & {"fused", "dist", "profile"}:
             cluster = DistCluster(dev, (0.01, 1.0, 10.0))
+        if "fused" in phases:
+            phase_fused(dev, cluster)
         if "dist" in phases:
             dist = phase_dist(dev, cluster)
             launches = {k: (launches[k] or 0) + dist[k]

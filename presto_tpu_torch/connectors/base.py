@@ -59,7 +59,9 @@ class GeneratorConnector:
     generation from the global row index. Subclasses provide
     ``_schemas``, ``_dicts`` (table -> column -> Dictionary), ``device``,
     and per table either ``_gen_<table>_at(idx)`` (elementwise in the
-    row index) or ``_gen_<table>(start, n)``, returning a _Lazy."""
+    row index) or ``_gen_<table>(start, n)``, returning a _Lazy whose
+    columns are flat over the rows ``start + arange(n)`` (``start`` may
+    be a column of B starts, for B chunks at once)."""
 
     def page_for_split(self, split: "Split",
                        columns: Optional[Sequence[str]] = None) -> Page:
@@ -71,24 +73,78 @@ class GeneratorConnector:
             schema.column_names()
         )
         n_pad = SH.bucket(split.row_count)
-        lazy = self._lazy_rows(split.table, split.start_row, n_pad)
+        datas, valid = self.gen_body(split.table, n_pad, names)(
+            split.start_row)
         in_range = torch.arange(n_pad, device=self.device) < split.row_count
-        valid = lazy.get("__valid__") & in_range
         dicts = self._dicts.get(split.table, {})
         blocks = tuple(
-            Block(data=lazy.get(nm), type=schema.column_type(nm),
-                  nulls=None, dictionary=dicts.get(nm))
-            for nm in names
+            Block(data=d, type=schema.column_type(nm), nulls=None,
+                  dictionary=dicts.get(nm))
+            for nm, d in zip(names, datas)
         )
-        return Page(blocks=blocks, valid=valid)
+        return Page(blocks=blocks, valid=valid & in_range)
 
-    def _lazy_rows(self, table: str, start: int, n: int):
-        """The table's _Lazy over rows [start, start+n)."""
+    def _lazy_rows(self, table: str, start, n: int):
+        """The table's _Lazy over rows ``start + arange(n)``, flattened
+        (``start`` an int, a 0-d or a [B, 1] int64 tensor)."""
         at = getattr(self, f"_gen_{table}_at", None)
         if at is not None:
-            return at(start + torch.arange(n, dtype=torch.int64,
-                                           device=self.device))
+            return at((start + torch.arange(n, dtype=torch.int64,
+                                            device=self.device)
+                       ).reshape(-1))
         return getattr(self, f"_gen_{table}")(start, n)
+
+    def gen_body(self, table: str, n: int, names: Tuple[str, ...]):
+        """Connector.gen_body: ``start -> (column tensors, valid)`` over
+        rows [start, start + n). ``start`` is a 0-d int64 tensor on the
+        device (a graph replays it with the start written in place) or,
+        for an eager page, an int."""
+
+        def fn(start):
+            lazy = self._lazy_rows(table, start, n)
+            return tuple(lazy.get(nm) for nm in names), lazy.get("__valid__")
+
+        return fn
+
+    def gen_batch(self, table: str, n: int, names: Tuple[str, ...]):
+        """Connector.gen_batch in one pass over all B chunks: the columns
+        come flat, chunk b at rows [b * n, (b + 1) * n)."""
+
+        def fn(starts):
+            lazy = self._lazy_rows(table, starts.reshape(-1, 1), n)
+            return tuple(lazy.get(nm) for nm in names), lazy.get("__valid__")
+
+        return fn
+
+    def gen_at(self, table: str, names: Tuple[str, ...]):
+        """Connector.gen_at for tables whose columns are elementwise in
+        the row index (``_gen_<table>_at``); None otherwise."""
+        at = getattr(self, f"_gen_{table}_at", None)
+        if at is None:
+            return None
+
+        def fn(idx):
+            lazy = at(idx)
+            return tuple(lazy.get(nm) for nm in names), lazy.get("__valid__")
+
+        return fn
+
+    def prune_splits(self, table: str, splits: List[Split], constraint):
+        """Drop splits whose rows provably miss a pushed key range, for
+        columns with a monotonic_row_bound."""
+        out = splits
+        for col, lo, hi in constraint:
+            f = self.monotonic_row_bound(table, col)
+            if f is None:
+                continue
+            row_lo = max(f(lo), 0) if lo is not None else 0
+            row_hi = max(f(hi + 1), 0) if hi is not None else None
+            out = [
+                s for s in out
+                if s.start_row + s.row_count > row_lo
+                and (row_hi is None or s.start_row < row_hi)
+            ]
+        return out
 
     def host_rows(self, table: str, target_rows: int = 1 << 20):
         """Materialize a table as Python row tuples (oracle loading)."""
@@ -133,12 +189,76 @@ class Connector:
     ) -> Page:
         raise NotImplementedError
 
+    def prune_splits(self, table: str, splits: List[Split],
+                     constraint) -> List[Split]:
+        """Drop splits that provably hold no row of the pushed constraint
+        ((column, lo, hi) closed integer ranges). Advisory: the engine
+        applies the full predicate to what survives."""
+        return splits
+
+    def monotonic_row_bound(self, table: str, column: str):
+        """For a column non-decreasing in the row index: f(v) = the
+        smallest row index whose value >= v; None if not monotonic."""
+        return None
+
+    def gen_body(self, table: str, n: int, names: Tuple[str, ...]):
+        """Optional chunk generator: ``start -> (column tensors, valid)``
+        over rows [start, start + n), ``start`` a 0-d int64 device
+        tensor. It launches work only — no host reads, no control flow
+        on ``start`` — so the executor can capture it into a CUDA graph
+        and replay it per split (exec/executor._fused_stream). None when
+        the connector only produces pages."""
+        return None
+
+    def gen_batch(self, table: str, n: int, names: Tuple[str, ...]):
+        """Optional batched generator: ``starts[B] -> (column tensors,
+        valid)`` with the B chunks flat, chunk b at rows [b * n,
+        (b + 1) * n) — the generation half of split-batched execution.
+        Derived from gen_body by default."""
+        body = self.gen_body(table, n, names)
+        if body is None:
+            return None
+
+        def fn(starts):
+            chunks = [body(starts[b]) for b in range(starts.shape[0])]
+            datas = tuple(torch.cat(cols) for cols in
+                          zip(*(c[0] for c in chunks)))
+            return datas, torch.cat([c[1] for c in chunks])
+
+        return fn
+
+    def gen_at(self, table: str, names: Tuple[str, ...]):
+        """Optional random-access generator: ``row_idx -> (column
+        tensors, valid)`` at arbitrary int64 row indices (clipped to the
+        table by the caller). With key_inverse it makes a join against
+        the table build-free. None when the table cannot be generated at
+        scattered indices."""
+        return None
+
+    def key_inverse(self, table: str, column: str):
+        """Optional closed-form inverse of a unique key column: ``vals ->
+        (row_idx, found)``; for every value present, row_idx is the row
+        holding it and found is true; for any other value found is false
+        (row_idx may be anything — callers clip before generating). None
+        when no closed form exists."""
+        return None
+
+    def key_window_inverse(self, table: str, column: str):
+        """Optional windowed inverse ``(fn, L)``: ``fn(vals) -> (base_idx,
+        found)`` with every row holding v in [base_idx, base_idx + L).
+        None when the column has no window structure."""
+        return None
+
     def pages(
         self,
         table: str,
         columns: Optional[Sequence[str]] = None,
         target_rows: int = 1 << 20,
+        constraint=None,
     ) -> Iterator[Page]:
-        for split in self.splits(table, target_rows):
+        splits = self.splits(table, target_rows)
+        if constraint:
+            splits = self.prune_splits(table, splits, constraint)
+        for split in splits:
             if split.row_count:
                 yield self.page_for_split(split, columns)

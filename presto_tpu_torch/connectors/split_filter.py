@@ -20,6 +20,12 @@ class SplitFilterConnector:
     """Wraps a connector; task ``index`` of ``count`` sees only its
     round-robin share of ``table``'s splits."""
 
+    # pages() below IS the base per-split generation loop over this
+    # wrapper's own splits(), so the executor's whole-pipeline fusion
+    # (which drives splits() and gen_body directly) may fuse a task's
+    # leaf fragment exactly as it fuses the local path
+    fused_scan_ok = True
+
     def __init__(self, inner, table: str, index: int, count: int):
         self._inner = inner
         self._table = table

@@ -443,6 +443,59 @@ class TpchConnector(GeneratorConnector, Connector):
             "orders": frozenset({"o_orderkey"}),
         }.get(table, frozenset())
 
+    def monotonic_row_bound(self, table: str, column: str):
+        """Key columns are monotonic in the row index (spec layout), so a
+        pushed key range prunes whole generator splits."""
+
+        def okey_row(v: int) -> int:
+            # smallest order idx with sparse orderkey >= v
+            # (okey(i) = (i//8)*32 + i%8 + 1, dbgen mk_sparse)
+            v0 = max(v - 1, 0)
+            block, w = divmod(v0, 32)
+            return block * 8 + min(w, 8)
+
+        return {
+            ("orders", "o_orderkey"): okey_row,
+            ("lineitem", "l_orderkey"):
+                lambda v: okey_row(v) * MAX_LINES_PER_ORDER,
+            ("customer", "c_custkey"): lambda v: v - 1,
+            ("part", "p_partkey"): lambda v: v - 1,
+            ("supplier", "s_suppkey"): lambda v: v - 1,
+            ("partsupp", "ps_partkey"): lambda v: (v - 1) * 4,
+            ("nation", "n_nationkey"): lambda v: v,
+            ("region", "r_regionkey"): lambda v: v,
+        }.get((table, column))
+
+    def key_inverse(self, table: str, column: str):
+        """Closed-form key -> row inverses (Connector.key_inverse): every
+        TPC-H key column is an arithmetic function of the row index
+        (spec 4.2.3 layouts), so the inverse is elementwise — the basis
+        of the build-free generated join."""
+        n = self.row_count(table) if table in self._schemas else 0
+
+        def dense_from_1(vals):  # key = row + 1
+            found = (vals >= 1) & (vals <= n)
+            return vals - 1, found
+
+        def dense_from_0(vals):  # key = row
+            found = (vals >= 0) & (vals < n)
+            return vals, found
+
+        def okey_inv(vals):  # sparse keys, 8 used per 32 (mk_sparse)
+            m = vals - 1
+            oidx = (m // 32) * 8 + m % 32
+            found = (vals >= 1) & (m % 32 < 8) & (oidx < n)
+            return oidx, found
+
+        return {
+            ("region", "r_regionkey"): dense_from_0,
+            ("nation", "n_nationkey"): dense_from_0,
+            ("part", "p_partkey"): dense_from_1,
+            ("supplier", "s_suppkey"): dense_from_1,
+            ("customer", "c_custkey"): dense_from_1,
+            ("orders", "o_orderkey"): okey_inv,
+        }.get((table, column))
+
     # ---- per-table generators: a _Lazy of column thunks over global row
     # keys; every value is a pure function of the row keys
 
@@ -652,7 +705,8 @@ class TpchConnector(GeneratorConnector, Connector):
         return lz
 
     def _gen_lineitem(self, start, n: int) -> _Lazy:
-        slot = start + torch.arange(n, dtype=torch.int64, device=self.device)
+        slot = (start + torch.arange(n, dtype=torch.int64,
+                                     device=self.device)).reshape(-1)
         oidx = slot // MAX_LINES_PER_ORDER
         line = slot % MAX_LINES_PER_ORDER + 1
         okey = self._orderkey(oidx)

@@ -16,12 +16,16 @@ raises.
 ``count(launches, name)`` exactly where it launches); ``plain_calls``
 counts calls that took the plain PyTorch version because their tensors
 lay on the CPU. Worker tasks launch from several threads at once, so
-the counts move under a lock.
+the counts move under a lock. A wrapper called while its thread
+captures a CUDA graph launches nothing yet: its count goes to the
+capture's own counter (``capturing``), and exec/graphs.py adds that
+counter to ``launches`` on every replay of the graph.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -73,12 +77,41 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[str, Callable[..., int]] = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+# per thread: the Counter of the graph capture in progress, if any
+_capture = threading.local()
 
 
 def count(counter: collections.Counter, name: str) -> None:
-    """Add one to ``counter[name]`` (``launches`` or ``plain_calls``)."""
+    """Add one to ``counter[name]`` (``launches`` or ``plain_calls``);
+    during a graph capture on this thread, a launch is recorded in the
+    capture's counter instead."""
+    recorded = getattr(_capture, "counter", None)
+    if recorded is not None and counter is launches:
+        recorded[name] += 1
+        return
     with _count_lock:
         counter[name] += 1
+
+
+def add_counts(counter: collections.Counter,
+               counts: collections.Counter) -> None:
+    """Add a graph's captured launches to ``counter`` (one replay)."""
+    if counts:
+        with _count_lock:
+            counter.update(counts)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Record this thread's kernel launches in a Counter of their own
+    (yielded) while a CUDA graph captures them."""
+    recorded: collections.Counter = collections.Counter()
+    prev = getattr(_capture, "counter", None)
+    _capture.counter = recorded
+    try:
+        yield recorded
+    finally:
+        _capture.counter = prev
 
 
 def reset_counts() -> None:

@@ -18,10 +18,17 @@ stages), ``stream_fragment`` (a shipped fragment's pages through an
 emit callback under the same overflow ladder, for the worker's spooled
 emit), the exchange-tier switches and the exchange counters.
 
-Left for later slices (ROADMAP): fused pipelines and split batching,
-late materialization, the memory governor, spill and partitioned
-joins/aggregations, the generated join, semi/anti/cross joins, windows,
-HLL and collect aggregates, and the result cache.
+The reference's default TPC-H path: the build-free generated join
+(closed-form key inverse + generate-at-index, ``_generated_join_page``)
+and whole-pipeline fusion (``_fused_stream``): a scan -> filter ->
+project -> generated join -> partial aggregation chain runs per split
+(or per batch of splits) as ONE program, which exec/graphs.py captures
+into a CUDA graph on the card and replays.
+
+Left for later slices (ROADMAP): the windowed generated join, the
+cross-query launch batcher, late materialization, the memory governor,
+spill and partitioned joins/aggregations, semi/anti/cross joins,
+windows, HLL and collect aggregates, and the result cache.
 
 Deferred-sync discipline, as in the reference: overflow flags stay
 device scalars and are read ONCE per attempt; on overflow the whole
@@ -34,6 +41,7 @@ operator chains.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -42,11 +50,15 @@ import torch
 
 from presto_tpu_torch import resolve_device
 from presto_tpu_torch import types as T
+from presto_tpu_torch.connectors.base import Connector
 from presto_tpu_torch.exec import agg_states as S
+from presto_tpu_torch.exec import graphs
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec import shapes as SH
 from presto_tpu_torch.expr.eval import evaluate, evaluate_filter
+from presto_tpu_torch.expr.ir import InputRef
 from presto_tpu_torch.ops import agg as A
+from presto_tpu_torch.ops import consts
 from presto_tpu_torch.ops import cuda_agg as CA
 from presto_tpu_torch.ops import cuda_join as CJ
 from presto_tpu_torch.ops import hashing as H
@@ -117,7 +129,7 @@ def _canonical_join_cols(left_blocks: List[Block],
                     lut = np.array([universe[v] for v in d.values],
                                    np.int64)
                     codes = b.data.clamp(0, len(d) - 1).to(torch.int64)
-                    return torch.from_numpy(lut).to(b.device)[codes]
+                    return consts.lut(lut, b.device)[codes]
 
                 lcols.append(canon(lb, ld))
                 rcols.append(canon(rb, rd))
@@ -204,6 +216,28 @@ class Executor:
         self.device_exchange = "auto"
         # wall-clock deadline (time.monotonic) from query_max_run_time
         self.query_deadline: Optional[float] = None
+        # the reference's default TPC-H path (session properties of the
+        # same names): tpu_offload_enabled (off = nothing fuses),
+        # generated_join_enabled, fused_partial_agg_enabled ("auto" |
+        # "true" | "false") and split_batch_size ("auto" | 0 | an int).
+        # "auto" is on when the executor runs on a CUDA device, where
+        # the reference says "on TPU": the win is the per-launch host
+        # cost a graph replay removes, which the CPU does not pay
+        self.offload = True
+        self.generated_join = True
+        self.agg_fusion = "auto"
+        self.split_batch = "auto"
+        # fusion counters under the reference's names: generated joins
+        # built (cumulative), fused streams with a partial-aggregation
+        # tail, program launches (graph replays on the card) and the
+        # real splits they covered, this attempt — splits_per_launch is
+        # their ratio. split_batch_fallbacks stays 0: the port never
+        # falls back from a batched program to the per-split loop
+        self.generated_joins_used = 0
+        self.fused_partial_aggs = 0
+        self.program_launches = 0
+        self.splits_scanned = 0
+        self.split_batch_fallbacks = 0
         # exchange counters (reference: exec/counters.py rows of the
         # same names)
         self.spooled_exchange_pages = 0
@@ -258,6 +292,11 @@ class Executor:
     # ------------------------------------------------------------- execute
     def pages(self, node: P.PhysicalNode) -> Iterator[Page]:
         """Stream the pages of a node."""
+        if isinstance(node, (P.Filter, P.Project, P.HashJoin)):
+            fused = self._fused_stream(node)
+            if fused is not None:
+                yield from fused
+                return
         if isinstance(node, P.TableScan):
             yield from self.catalogs[node.catalog].pages(
                 node.table, node.columns, target_rows=self.page_rows)
@@ -365,6 +404,9 @@ class Executor:
         self.capacity_boost_retries = 0
         for _ in range(_MAX_ATTEMPTS):
             self._pending_overflow = []
+            self.fused_partial_aggs = 0
+            self.program_launches = 0
+            self.splits_scanned = 0
             if on_attempt is not None:
                 on_attempt()
             out: List = []
@@ -402,6 +444,328 @@ class Executor:
         """One exchange edge task served from a same-process spool."""
         self.mesh_local_exchanges += 1
 
+    # ------------------------------------------------------ fused pipelines
+    def _scan_chain(self, node: P.PhysicalNode, *, through_joins: bool):
+        """Walk a Filter/Project/Exchange chain (and, when through_joins,
+        generated-join-eligible HashJoins) down to its TableScan: the one
+        chain walker of the generated-join check and _fused_stream.
+        Returns (scan, chain top-down) with HashJoins as (node,
+        info) pairs, or None when a node breaks the chain."""
+        chain: List = []
+        cur = node
+        while True:
+            if isinstance(cur, (P.Filter, P.Exchange, P.Project)):
+                chain.append(cur)
+                cur = cur.source
+            elif through_joins and isinstance(cur, P.HashJoin):
+                info = self._generated_join_info(
+                    cur, self.output_types(cur.left))
+                if info is None:
+                    return None
+                chain.append((cur, info))
+                cur = cur.left
+            elif isinstance(cur, P.TableScan):
+                return cur, chain
+            else:
+                return None
+
+    def _generators(self, node: P.PhysicalNode) -> tuple:
+        """The object behind the generator of every scan under ``node``:
+        a captured program embeds their constants (scale, row counts),
+        so they are part of its key. A connector wrapper (a task's split
+        filter) resolves to the generator it wraps, so every task of a
+        fragment shares one program."""
+        out = []
+        todo = [node]
+        while todo:
+            n = todo.pop()
+            if isinstance(n, P.TableScan):
+                conn = self.catalogs[n.catalog]
+                out.append(getattr(conn.gen_body, "__self__", conn))
+            todo.extend(n.children())
+        return tuple(out)
+
+    def _fused_stream(self, node: P.PhysicalNode, agg_tail=None,
+                      key_extra=None) -> Optional[Iterator[Page]]:
+        """Whole-pipeline fusion: when ``node`` is a chain of Filter /
+        Project / Exchange / build-free generated joins over a TableScan
+        of an on-device generator, run the ENTIRE per-split pipeline —
+        generation included — as ONE program per split (exec/graphs.py:
+        a captured CUDA graph on the card) and stream its outputs. None
+        when the subtree has a node that does not fuse.
+
+        ``agg_tail`` extends the fusion through partial aggregation
+        (_fused_partial_tail): a ("map", fn, None) tail appends a page
+        transform (global partial states), an ("aggflag", fn, merge) tail
+        a grouped partial step whose overflow flag joins the deferred
+        ladder; ``merge`` folds states inside a batched program.
+        ``key_extra`` adds the caller's boost-dependent parameters to
+        the program key.
+
+        Split batching (split_batch_size) runs batches of B splits as
+        one program: a page-emitting chain generates the B splits flat
+        ([B * n_pad] rows, chunk b at [b * n_pad, (b + 1) * n_pad) —
+        the reference's vmapped stack, already merged) and emits them as
+        one page; an aggregation tail runs the splits one after another
+        inside the program and folds their states, as the reference's
+        lax.scan does. Tail batches pad with zero row counts.
+
+        Reference: presto_tpu/exec/executor.py _fused_stream (without
+        its cross-query LaunchBatcher branch and result-cache points,
+        which are not ported); operator/ScanFilterAndProjectOperator.java
+        fuses scan, filter and project for the same reason."""
+        if not self.offload:
+            return None
+        walked = self._scan_chain(node, through_joins=True)
+        if walked is None:
+            return None
+        cur, chain = walked
+        if not chain and agg_tail is None:
+            return None  # a bare scan is no pipeline
+        conn = self.catalogs[cur.catalog]
+        # fuse only where pages() is exactly the base per-split
+        # generation loop (or a wrapper declares its own is)
+        base_pages = (
+            getattr(type(conn), "pages", None) is Connector.pages
+            or getattr(type(conn), "fused_scan_ok", False)
+        )
+        if not base_pages or "pages" in vars(conn):
+            return None
+        names = tuple(cur.columns)
+        if conn.gen_body(cur.table, 8, names) is None:
+            return None
+        schema = conn.table_schema(cur.table)
+        scan_types = tuple(schema.column_type(c) for c in names)
+        dicts = getattr(conn, "_dicts", {}).get(cur.table, {})
+        scan_dicts = tuple(dicts.get(c) for c in names)
+        splits = conn.splits(cur.table, self.page_rows)
+        if cur.constraint:
+            splits = conn.prune_splits(cur.table, splits, cur.constraint)
+
+        # bottom-up list of page transforms (top-down in ``chain``)
+        steps: List = []
+        for nd in reversed(chain):
+            if isinstance(nd, tuple):
+                jnode, info = nd
+                steps.append(("map", self.generated_join_kernel(jnode, info)))
+                self.generated_joins_used += 1
+            else:
+                fn = _node_replay_fn(nd)
+                if fn is not None:
+                    steps.append(("map", fn))
+        batch_merge = None
+        if agg_tail is not None:
+            kind, fn, batch_merge = agg_tail
+            steps.append((kind, fn))
+            self.fused_partial_aggs += 1
+
+        def make_page(datas, valid, n_pad, counts):
+            # canonical split shape: generation pads to the ladder bucket
+            # and rows past each split's real count mask out here
+            rows = torch.arange(n_pad, dtype=torch.int64, device=valid.device)
+            in_range = (rows[None, :] < counts[:, None]).reshape(-1)
+            return Page(blocks=tuple(
+                Block(data=d, type=t, nulls=None, dictionary=dic)
+                for d, t, dic in zip(datas, scan_types, scan_dicts)
+            ), valid=valid & in_range)
+
+        def apply_steps(page, use_steps):
+            flags = []
+            for kind, fn in use_steps:
+                if kind == "aggflag":
+                    page, flag = fn(page)
+                    flags.append(flag)
+                else:
+                    page = fn(page)
+            return page, tuple(flags)
+
+        def run_split(gen_fn, n_pad, start, count, use_steps):
+            datas, valid = gen_fn(start)
+            return apply_steps(make_page(datas, valid, n_pad, count),
+                               use_steps)
+
+        def or_flags(flags):
+            out = torch.zeros((), dtype=torch.bool, device=self.device)
+            for f in flags:
+                out = out | f
+            return out
+
+        programs: Dict = {}
+
+        def program(kind, n_pad, batch, build):
+            key = (kind, n_pad, batch)
+            if key not in programs:
+                programs[key] = graphs.program(
+                    (kind, node, key_extra, cur.table, n_pad, batch,
+                     self.device, self.kernels, self._generators(node)),
+                    build, batch, self.device)
+            return programs[key]
+
+        def launch_one(split):
+            n_pad = SH.bucket(split.row_count)
+
+            def build():
+                gen_fn = conn.gen_body(cur.table, n_pad, names)
+                return lambda starts, counts: run_split(
+                    gen_fn, n_pad, starts[0], counts[:1], steps)
+
+            page, flags = program("fused", n_pad, 1, build)(
+                [split.start_row], [split.row_count])
+            self.program_launches += 1
+            self.splits_scanned += 1
+            self._pending_overflow.extend(flags)
+            return page
+
+        live = [s for s in splits if s.row_count]
+
+        def stream_single():
+            for split in live:
+                yield launch_one(split)
+
+        bmax = 0
+        if len(live) > 1:
+            n_pad_all = max(SH.bucket(s.row_count) for s in live)
+            bmax = self._split_batch_max(n_pad_all,
+                                         scanned=agg_tail is not None)
+        if bmax < 2:
+            return stream_single()
+
+        def build_batch():
+            if agg_tail is None:
+                # page-emitting chain: every step is row-wise, so the
+                # chain over the flat batch IS the concat of the
+                # per-split pages
+                gen_b = conn.gen_batch(cur.table, n_pad_all, names)
+
+                def run_batch(starts, counts):
+                    datas, valid = gen_b(starts)
+                    return apply_steps(
+                        make_page(datas, valid, n_pad_all, counts), steps)
+
+                return run_batch
+            gen_fn = conn.gen_body(cur.table, n_pad_all, names)
+            if steps[-1][0] == "map":
+                # global partial-agg tail: one state row per split,
+                # stacked — exactly the per-split states' concat (no
+                # step of such a chain raises a flag)
+                def run_batch(starts, counts):
+                    states = [
+                        run_split(gen_fn, n_pad_all, starts[b],
+                                  counts[b:b + 1], steps)[0]
+                        for b in range(starts.shape[0])]
+                    return concat_all(states), ()
+
+                return run_batch
+            # grouped partial-agg tail: the splits run in turn and fold
+            # into one merge-capacity state page (the host _FoldBuffer's
+            # merge, inside the program); every overflow ORs into one
+            # deferred flag per batch
+            pre, tail_fn = steps[:-1], steps[-1][1]
+
+            def one_state(start, count):
+                page, flags = run_split(gen_fn, n_pad_all, start, count,
+                                        pre)
+                st, ovf = tail_fn(page)
+                return st, or_flags(flags) | ovf
+
+            def run_batch(starts, counts):
+                # split 0 seeds the fold (merged alone into the merge
+                # capacity, so every step sees one state shape)
+                st, ovf = one_state(starts[0], counts[:1])
+                acc, m = batch_merge(st)
+                ovf = ovf | m
+                for b in range(1, starts.shape[0]):
+                    st, f = one_state(starts[b], counts[b:b + 1])
+                    acc, m = batch_merge(concat_all([acc, st]))
+                    ovf = ovf | f | m
+                return acc, (ovf,)
+
+            return run_batch
+
+        def stream_batched():
+            i = 0
+            while i < len(live):
+                chunk = live[i:i + bmax]
+                if len(chunk) == 1:
+                    # a lone tail split reuses the per-split program
+                    # instead of padding a 2-batch
+                    yield launch_one(chunk[0])
+                    i += 1
+                    continue
+                B = SH.split_batch_bucket(len(chunk))
+                pad = [0] * (B - len(chunk))
+                page, flags = program("fused_batch", n_pad_all, B,
+                                      build_batch)(
+                    [s.start_row for s in chunk] + pad,
+                    [s.row_count for s in chunk] + pad)
+                self.program_launches += 1
+                self.splits_scanned += len(chunk)
+                self._pending_overflow.extend(flags)
+                yield page
+                i += len(chunk)
+
+        return stream_batched()
+
+    def _fused_partial_tail(self, node: P.Aggregation, layouts,
+                            cap: Optional[int], max_iters: Optional[int]):
+        """The partial-aggregation tail step for _fused_stream — a
+        (kind, fn, batch_merge) triple — or None when the shape should
+        not fuse. Global aggregations always qualify; grouped ones
+        unless a big group capacity meets a join in the chain (there the
+        join-output compaction stream, _agg_source_pages, wins). The
+        fused tail does exactly the per-page work of the unfused loop;
+        ``batch_merge`` is the state merge a batched program folds
+        with."""
+        mode = self.agg_fusion
+        if not self.offload or mode == "false":
+            return None
+        if mode == "auto" and self.device.type != "cuda":
+            return None
+        layouts_t = tuple(tuple(lay) for lay in layouts)
+        if not node.group_channels:
+            return ("map", functools.partial(
+                _partial_global_agg, node.aggregates, layouts_t,
+                kernels=self.kernels), None)
+        if cap is None:
+            return None
+        if (node.capacity > A.MATMUL_AGG_MAX_GROUPS
+                and _subtree_has_join(node.source)):
+            return None
+        raw = functools.partial(_partial_agg_page, node.group_channels,
+                                node.aggregates, layouts_t,
+                                kernels=self.kernels)
+        merge_raw = functools.partial(_merge_partials_page, node.aggregates,
+                                      layouts_t, len(node.group_channels))
+        return (
+            "aggflag",
+            functools.partial(_fused_agg_step, raw, cap, max_iters),
+            functools.partial(_fused_merge_step, merge_raw, cap, max_iters),
+        )
+
+    def _split_batch_max(self, n_pad: int, scanned: bool) -> int:
+        """Max splits per batched launch of one fused stream, or 0 when
+        split batching is off. "auto" is on when the executor runs on a
+        CUDA device; an int forces that max on any device. A page-
+        emitting batch (scanned=False) materializes B * n_pad rows at
+        once and keeps them under SPLIT_BATCH_ROWS_MAX; an aggregation
+        tail runs one split at a time and is exempt. Floored to a power
+        of two, so full batches share one program and only the tail
+        batch pads."""
+        mode = self.split_batch
+        if mode in (0, "false", None) or not self.offload:
+            return 0
+        if mode == "auto":
+            if self.device.type != "cuda":
+                return 0
+            cap = SH.SPLIT_BATCH_MAX
+        else:
+            cap = int(mode)
+        if not scanned and n_pad > 0:
+            cap = min(cap, SH.SPLIT_BATCH_ROWS_MAX // n_pad)
+        if cap < 2:
+            return 0
+        return 1 << (cap.bit_length() - 1)
+
     # --------------------------------------------------------- aggregation
     def _agg_in_types(self, node: P.Aggregation) -> List[Optional[T.SqlType]]:
         src = self.output_types(node.source)
@@ -432,8 +796,26 @@ class Executor:
             return
         in_types = self._agg_in_types(node)
         layouts = self._layouts(node, in_types)
+        if node.step == "partial":
+            # a shipped worker fragment's leaf: generation through the
+            # partial step as one program per split when the source fuses
+            pcap = _next_pow2(node.capacity * self._capacity_boost)
+            tail = self._fused_partial_tail(node, layouts, pcap,
+                                            64 * self._capacity_boost)
+            fused = None if tail is None else self._fused_stream(
+                node.source, agg_tail=tail,
+                key_extra=("partial", node.group_channels, node.aggregates,
+                           pcap, 64 * self._capacity_boost))
+            if fused is not None:
+                yield from fused
+                return
         if not node.group_channels:
-            partials = [
+            tail = (None if node.step == "partial" else
+                    self._fused_partial_tail(node, layouts, None, None))
+            fused = None if tail is None else self._fused_stream(
+                node.source, agg_tail=tail,
+                key_extra=("global", node.aggregates, layouts))
+            partials = list(fused) if fused is not None else [
                 _partial_global_agg(node.aggregates, layouts, p,
                                     kernels=self.kernels)
                 for p in self.pages(node.source)
@@ -481,8 +863,20 @@ class Executor:
         fold_cap = min(cap, _next_pow2((1 << 20) * self._capacity_boost))
         fold = _FoldBuffer(self, merge_fn, fold_cap, max_iters,
                            2 * fold_cap)
-        for page in self._agg_source_pages(node):
-            fold.add(partial(page))
+        # scan -> filter -> project -> partial agg as ONE program per
+        # split when the source chain fuses; its state pages feed the
+        # same fold
+        tail = self._fused_partial_tail(node, layouts, cap, max_iters)
+        fused = None if tail is None else self._fused_stream(
+            node.source, agg_tail=tail,
+            key_extra=("single", node.group_channels, node.aggregates, cap,
+                       max_iters))
+        if fused is not None:
+            for out in fused:
+                fold.add(out)
+        else:
+            for page in self._agg_source_pages(node):
+                fold.add(partial(page))
         merged = fold.final_merged()
         if merged is None:
             return
@@ -537,9 +931,11 @@ class Executor:
             return
         acc = None
         for page in self.pages(node.source):
-            both = page if acc is None else concat_all([acc, page])
-            self._pending_overflow.append(both.num_rows() > C)
-            acc = compact_page(both, C)
+            if acc is None:
+                acc, overflow = _compact_with_flag(page, C)
+            else:
+                acc, overflow = _merge_compact_flag(acc, page, C)
+            self._pending_overflow.append(overflow)
         if acc is not None:
             yield acc
 
@@ -551,6 +947,10 @@ class Executor:
                 "presto_tpu_torch yet (ROADMAP queue 1, slice B)")
         left_types = self.output_types(node.left)
         right_types = self.output_types(node.right)
+        gj = self._generated_join_info(node, left_types)
+        if gj is not None:
+            yield from self._exec_join_generated(node, gj)
+            return
         # <=1 match per probe row when ANY build key scans a connector-
         # declared unique column: output capacities stay exact
         unique_build = any(
@@ -569,6 +969,125 @@ class Executor:
             return
         yield from self._join_pass(node, build, self.pages(node.left),
                                    left_types, unique_build=unique_build)
+
+    def _generated_join_info(self, node: P.HashJoin, left_types):
+        """Eligibility for the build-free GENERATED join: the build side
+        is a Filter/Project/Exchange chain over a TableScan of a
+        connector that inverts the join-key column in closed form
+        (Connector.key_inverse) and generates its columns at arbitrary
+        row indices (Connector.gen_at). Probe keys then map to build
+        table rows arithmetically and the carried columns are GENERATED
+        at those rows: no hash table, no searchsorted, no gathers, no
+        capacity overflow — the collapse of HashBuilderOperator +
+        LookupJoinOperator for deterministic generator tables."""
+        if not self.generated_join:
+            return None
+        if node.join_type not in ("inner", "left"):
+            return None
+        walked = self._scan_chain(node.right, through_joins=False)
+        if walked is None:
+            return None
+        cur, chain = walked
+
+        def plain_int(t) -> bool:
+            return not (
+                T.is_string(t) or t.is_dictionary_encoded
+                or T.is_floating(t)
+                or (isinstance(t, T.DecimalType) and not t.is_short)
+            )
+
+        if not all(plain_int(left_types[c]) for c in node.left_keys):
+            return None
+
+        def resolve(ch: int) -> Optional[int]:
+            # build-root channel -> scan channel through the projects
+            for nd in chain:
+                if isinstance(nd, P.Project):
+                    e = nd.exprs[ch]
+                    if not isinstance(e, InputRef):
+                        return None
+                    ch = e.channel
+            return ch
+
+        conn = self.catalogs[cur.catalog]
+        n_rows = conn.row_count(cur.table)
+        gen = conn.gen_at(cur.table, cur.columns)
+        if gen is None or n_rows <= 0:
+            return None
+        # ONE key must invert in closed form; the remaining key pairs
+        # become equality checks against the generated build columns
+        inv, pivot, window, gen_keys = None, None, 1, None
+        for j, rk in enumerate(node.right_keys):
+            sc = resolve(rk)
+            if sc is None:
+                continue
+            inv = conn.key_inverse(cur.table, cur.columns[sc])
+            if inv is not None:
+                pivot = j
+                break
+        if inv is None and self._capacity_boost == 1:
+            # windowed inverse (slot-structured fact tables): the pivot
+            # key pins an L-slot candidate window and the other keys,
+            # generated per candidate, pick the row. No connector of the
+            # port offers one yet (generated_join_kernel refuses it)
+            for j, rk in enumerate(node.right_keys):
+                sc = resolve(rk)
+                if sc is None:
+                    continue
+                wi = conn.key_window_inverse(cur.table, cur.columns[sc])
+                if wi is None:
+                    continue
+                extra_sc = [resolve(rkk)
+                            for jj, rkk in enumerate(node.right_keys)
+                            if jj != j]
+                if not extra_sc or any(c is None for c in extra_sc):
+                    continue
+                inv, window = wi
+                pivot = j
+                gen_keys = conn.gen_at(
+                    cur.table, tuple(cur.columns[c] for c in extra_sc))
+                break
+        if inv is None or (window > 1 and gen_keys is None):
+            return None
+        extra_pairs = tuple(
+            (lk, rk)
+            for j, (lk, rk) in enumerate(zip(node.left_keys,
+                                             node.right_keys))
+            if j != pivot
+        )
+        schema = conn.table_schema(cur.table)
+        scan_types = tuple(schema.column_type(c) for c in cur.columns)
+        dicts = getattr(conn, "_dicts", {}).get(cur.table, {})
+        scan_dicts = tuple(dicts.get(c) for c in cur.columns)
+        # the build chain replays bottom-up over the generated pages
+        chain_fns = tuple(
+            fn for fn in (_node_replay_fn(nd) for nd in reversed(chain))
+            if fn is not None
+        )
+        return (node.left_keys[pivot], extra_pairs, inv, window, gen_keys,
+                gen, scan_types, scan_dicts, chain_fns, n_rows)
+
+    @staticmethod
+    def generated_join_kernel(node: P.HashJoin, info):
+        """The ONE place the _generated_join_info tuple meets the page
+        function (page -> page), shared by the per-page join and
+        _fused_stream."""
+        (pivot_ch, extra_pairs, inv, window, _gen_keys, gen, scan_types,
+         scan_dicts, chain_fns, n_rows) = info
+        if window > 1:
+            raise NotImplementedError(
+                "the windowed generated join is not ported to "
+                "presto_tpu_torch yet (ROADMAP queue 1, slice B)")
+        return functools.partial(
+            _generated_join_page, pivot_ch, extra_pairs, node.join_type,
+            inv, gen, scan_types, scan_dicts, chain_fns, n_rows)
+
+    def _exec_join_generated(self, node: P.HashJoin, info
+                             ) -> Iterator[Page]:
+        self.generated_joins_used += 1
+        kern = self.generated_join_kernel(node, info)
+        for page in self.pages(node.left):
+            yield kern(page)
 
     def _kernels_allowed(self) -> bool:
         """Kernel joins engage on the first attempt only: a boosted
@@ -716,6 +1235,91 @@ def _unique_kernel_probe_page(key_ch, join_type, layout, page: Page,
     return Page(blocks=page.blocks + tuple(right_blocks), valid=out_valid)
 
 
+def _replay_filter(predicate, page: Page) -> Page:
+    return evaluate_filter(predicate, page)
+
+
+def _node_replay_fn(nd):
+    """Per-node page -> page transform for chain replay over generated
+    pages (None for pass-through nodes such as a local Exchange) — the
+    ONE place chain-replay semantics live."""
+    if isinstance(nd, P.Filter):
+        return functools.partial(_replay_filter, nd.predicate)
+    if isinstance(nd, P.Project):
+        return functools.partial(_project_page, nd.exprs)
+    return None
+
+
+def _fused_agg_step(raw, cap, max_iters, page: Page):
+    """Partial-agg tail of a fused pipeline: distinct groups <= rows,
+    so the group capacity clips to the page as in the unfused loop."""
+    return raw(page, min(cap, _next_pow2(page.capacity)), max_iters)
+
+
+def _fused_merge_step(merge_raw, cap, max_iters, page: Page):
+    """State merge of a batched program: fold the carried state plus one
+    split's partial states back into the merge capacity. The output
+    capacity depends on (cap, key structure) only, never on the input
+    page's, so the fold keeps one state shape."""
+    return merge_raw(page, cap, max_iters)
+
+
+def _compact_with_flag(page: Page, cap: int):
+    """compact_page plus the dropped-rows overflow flag."""
+    return compact_page(page, cap), page.num_rows() > cap
+
+
+def _merge_compact_flag(acc: Page, page: Page, cap: int):
+    """Fold one more page into the rolling dense accumulator: concat and
+    stable compaction back to cap, flagging dropped rows."""
+    both = concat_all([acc, page])
+    return compact_page(both, cap), both.num_rows() > cap
+
+
+def _generated_join_page(left_key_ch, extra_pairs, join_type, inv, gen,
+                         scan_types, scan_dicts, chain_fns, n_rows,
+                         page: Page) -> Page:
+    """Build-free generated join: probe keys -> build table rows via the
+    connector's closed-form inverse; the carried build columns GENERATED
+    at those rows; the build side's Filter/Project chain replayed over
+    the generated blocks. Elementwise throughout — the output page is
+    the probe page extended in place (<= 1 match per probe row by the
+    key_inverse uniqueness contract), so capacities are exact and there
+    is no overflow flag."""
+    kblk = page.block(left_key_ch)
+    ridx, found = inv(kblk.data.to(torch.int64))
+    if kblk.nulls is not None:
+        found = found & ~kblk.nulls
+    datas, gvalid = gen(ridx.clamp(0, max(n_rows - 1, 0)))
+    bpage = Page(blocks=tuple(
+        Block(data=d, type=t, nulls=None, dictionary=dic)
+        for d, t, dic in zip(datas, scan_types, scan_dicts)
+    ), valid=found & gvalid)
+    for fn in chain_fns:
+        bpage = fn(bpage)
+    matched = bpage.valid
+    # non-pivot key pairs: equality against the generated build columns
+    # (SQL semantics: NULL on either side never matches)
+    for lk, rk in extra_pairs:
+        lblk, rblk = page.block(lk), bpage.block(rk)
+        eq = lblk.data.to(torch.int64) == rblk.data.to(torch.int64)
+        if lblk.nulls is not None:
+            eq = eq & ~lblk.nulls
+        if rblk.nulls is not None:
+            eq = eq & ~rblk.nulls
+        matched = matched & eq
+    if join_type == "left":
+        right_blocks = tuple(
+            b.with_data(b.data, nulls=(~matched if b.nulls is None
+                                       else (b.nulls | ~matched)))
+            for b in bpage.blocks)
+        out_valid = page.valid
+    else:  # inner
+        right_blocks = bpage.blocks
+        out_valid = page.valid & matched
+    return Page(blocks=page.blocks + right_blocks, valid=out_valid)
+
+
 def _project_page(exprs, page: Page) -> Page:
     blocks = []
     for e in exprs:
@@ -790,8 +1394,8 @@ def _state_reduce(st, blk, kind, apply_pre, reducer):
     dic = blk.dictionary
     if dic is not None and kind in (A.MIN, A.MAX) and len(dic):
         rank_np = dic.sort_rank().astype(np.int64)
-        rank = torch.from_numpy(rank_np).to(blk.device)
-        inv = torch.from_numpy(np.argsort(rank_np)).to(blk.device)
+        rank = consts.lut(rank_np, blk.device)
+        inv = consts.lut(np.argsort(rank_np), blk.device)
         data = rank[blk.data.clamp(0, len(dic) - 1).to(torch.int64)]
         vals, out_nulls = reducer(data, blk.nulls)
         vals = inv[vals.clamp(0, len(dic) - 1)].to(blk.data.dtype)

@@ -16,6 +16,7 @@ from presto_tpu_torch import types as T
 from presto_tpu_torch.expr import functions as F
 from presto_tpu_torch.expr import ir
 from presto_tpu_torch.expr.values import Val, broadcast_val, cast_data
+from presto_tpu_torch.ops import consts
 from presto_tpu_torch.page import Dictionary, Page
 
 
@@ -38,7 +39,7 @@ def _const_val(ctx: F.Ctx, node: ir.Constant) -> Val:
         raise NotImplementedError(
             f"{t} constants are not ported to presto_tpu_torch yet"
         )
-    return Val(torch.tensor(node.value, dtype=t.device_dtype, device=dev),
+    return Val(torch.full((), node.value, dtype=t.device_dtype, device=dev),
                None, t, py_value=node.value)
 
 
@@ -109,7 +110,7 @@ def _unify_string_vals(ctx: F.Ctx, vals):
             lut = np.array([universe[x] for x in v.dictionary.values],
                            np.int32)
             codes = v.data.clamp(0, len(v.dictionary) - 1).to(torch.int64)
-            data = torch.from_numpy(lut).to(ctx.device)[codes]
+            data = consts.lut(lut, ctx.device)[codes]
         elif v.is_const and v.py_value is not None:
             data = torch.full((ctx.capacity,), universe[v.py_value],
                               dtype=torch.int32, device=ctx.device)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.ops import consts
 from presto_tpu_torch.expr.values import (
     Val,
     add_months_to_days,
@@ -304,7 +305,7 @@ def _string_codes_for_compare(ctx: Ctx, a: Val, b: Val):
         lut = np.array([pos[x] for x in v.dictionary.values] or [0],
                        np.int64)
         codes = v.data.clamp(0, max(len(v.dictionary) - 1, 0))
-        return torch.from_numpy(lut).to(ctx.device)[codes.to(torch.int64)]
+        return consts.lut(lut, ctx.device)[codes.to(torch.int64)]
 
     return canon(a), canon(b)
 

@@ -13,9 +13,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.ops import consts
 from presto_tpu_torch.page import Dictionary
 
 NOT_CONST = object()
@@ -200,8 +202,8 @@ def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor):
 
 
 def days_in_month(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    lengths = torch.tensor([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
-                           dtype=torch.int64, device=m.device)
+    lengths = consts.lut([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
+                         m.device, np.int64)
     base = lengths[m - 1]
     leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
     return torch.where((m == 2) & leap, 29, base)

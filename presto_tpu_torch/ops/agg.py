@@ -44,7 +44,8 @@ MATMUL_AGG_MAX_GROUPS = 4096
 
 # hash-table probing rounds between host checks for convergence (a
 # round after convergence changes nothing, so checking every few rounds
-# keeps the results identical to checking every round)
+# keeps the results identical to checking every round; a CUDA graph
+# capture may not read the device, so it records every round)
 _CHECK_EVERY = 8
 
 _BIG = (1 << 62)
@@ -123,10 +124,11 @@ def compute_groups_sorted(
     perm = packed_argsort(K.pack_sort_keys(parts), n)
     svalid = valid[perm]
 
-    diff = torch.zeros(n, dtype=torch.bool, device=dev)
+    # row 0 starts a group; every later row where a key word changes
+    # (no scalar writes: a CUDA graph capture may not copy from the host)
+    diff = _arange(n, dev) == 0
     for k in cmp_words:
         sk = k[perm]
-        diff[0] = True
         diff[1:] |= sk[1:] != sk[:-1]
     boundary = svalid & diff
     gid_sorted = torch.cumsum(boundary.to(torch.int64), 0) - 1
@@ -252,8 +254,9 @@ def compute_groups_hashed(
         return valid & ok
 
     owner = torch.full((cap,), n, dtype=torch.int64, device=dev)
+    capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
     for it in range(max_iters):
-        if it % _CHECK_EVERY == 0 and not bool(
+        if it % _CHECK_EVERY == 0 and not capturing and not bool(
                 (valid & ~key_eq_owner(owner, slot)).any()):
             break
         settled = key_eq_owner(owner, slot)
@@ -266,7 +269,7 @@ def compute_groups_hashed(
     unresolved = (valid & ~settled).any()
     # occupied slots = slots some row actually settled in
     used = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
-    used[torch.where(settled, slot, cap)] = True
+    used.index_fill_(0, torch.where(settled, slot, cap), True)
     used = used[:cap]
     gid_slot = torch.cumsum(used.to(torch.int64), 0) - 1
     num_groups = used.sum(dtype=torch.int64)
@@ -384,8 +387,7 @@ def aggregate(
     if kind in (MIN, MAX):
         ident = _minmax_identity(data.dtype, kind == MIN)
         filled = torch.where(contributing, data,
-                             torch.tensor(ident, dtype=data.dtype,
-                                          device=data.device))
+                             torch.full_like(data, ident))
         out = torch.full((nseg,), ident, dtype=data.dtype,
                          device=data.device)
         out.scatter_reduce_(0, cids, filled, "amin" if kind == MIN
@@ -440,8 +442,7 @@ def global_aggregate(
     if kind in (MIN, MAX):
         ident = _minmax_identity(data.dtype, kind == MIN)
         filled = torch.where(contributing, data,
-                             torch.tensor(ident, dtype=data.dtype,
-                                          device=data.device))
+                             torch.full_like(data, ident))
         val = filled.min() if kind == MIN else filled.max()
         return torch.where(empty, torch.zeros_like(val), val), empty
     if kind == ANY:

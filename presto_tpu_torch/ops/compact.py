@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from presto_tpu_torch.ops import consts
 from presto_tpu_torch.page import Block, Dictionary, Page
 
 
@@ -90,7 +91,7 @@ def concat_all(pages) -> Page:
                     lut = np.array([pos[v] for v in d.values], np.int32)
                     codes = b.data.clamp(0, len(d) - 1).to(torch.int64)
                     remapped.append(
-                        torch.from_numpy(lut).to(b.data.device)[codes])
+                        consts.lut(lut, b.data.device)[codes])
                 datas = remapped
         if isinstance(datas[0], tuple):
             data = tuple(

@@ -160,7 +160,7 @@ def expand_matches(
         0, torch.where(match, pid_c, probe_cap),
         torch.ones_like(pid_c))[:probe_cap]
     build_matched = torch.zeros(build_cap + 1, dtype=torch.bool, device=dev)
-    build_matched[torch.where(match, bid, build_cap)] = True
+    build_matched.index_fill_(0, torch.where(match, bid, build_cap), True)
 
     return JoinMatches(
         probe_idx=pid_c,

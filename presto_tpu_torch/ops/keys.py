@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.ops import u64
+from presto_tpu_torch.ops import consts, u64
 from presto_tpu_torch.page import Block
 
 
@@ -40,10 +40,6 @@ def _float_order_u64(x: torch.Tensor) -> torch.Tensor:
     bits = x64.view(torch.int64)
     out = torch.where(bits < 0, ~bits, bits | u64.SIGN)
     return torch.where(torch.isnan(x64), u64.POISON, out)
-
-
-def _lut(values: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(values)).to(device)
 
 
 def equality_encoding(block: Block) -> List[torch.Tensor]:
@@ -71,7 +67,7 @@ def equality_encoding(block: Block) -> List[torch.Tensor]:
         for i, v in enumerate(values):
             lut[i] = first.setdefault(v, i)
         codes = block.data.clamp(0, len(values) - 1).to(torch.int64)
-        return [_lut(lut, block.data.device)[codes]]
+        return [consts.lut(lut, block.data.device)[codes]]
     return [block.data.to(torch.int64)]
 
 
@@ -98,7 +94,8 @@ def order_encoding_parts(
             parts = [(torch.zeros(block.data.shape, dtype=torch.int64,
                                   device=dev), 1)]
         else:
-            rank = _lut(block.dictionary.sort_rank().astype(np.int64), dev)
+            rank = consts.lut(
+                block.dictionary.sort_rank().astype(np.int64), dev)
             codes = block.data.clamp(0, len(block.dictionary) - 1)
             bits = max(1, (len(block.dictionary) - 1).bit_length())
             parts = [(rank[codes.to(torch.int64)], bits)]

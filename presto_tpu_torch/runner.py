@@ -12,6 +12,11 @@ NotImplementedError. The runner honours:
     ids) at the reference's Pallas dispatch points, "false" keeps every
     aggregate, join and exchange on the torch segment-op, sort-join and
     splitmix64 paths;
+  - the reference's default TPC-H path: ``generated_join_enabled``
+    (default true), ``fused_partial_agg_enabled`` and
+    ``split_batch_size`` ("auto" = on a CUDA device; an integer batch
+    forces split batching on any device) and ``tpu_offload_enabled``
+    (false = nothing fuses);
   - ``device_exchange_enabled``, ``query_max_run_time`` and the
     distribution knobs the stage-DAG path reads (dist/dcn.py).
 
@@ -61,6 +66,14 @@ class LocalRunner:
         ex.page_rows = int(s.get("page_rows"))
         ex.kernels = s.get("pallas_join_enabled") == "true"
         ex.device_exchange = s.get("device_exchange_enabled")
+        ex.offload = bool(s.get("tpu_offload_enabled"))
+        ex.generated_join = bool(s.get("generated_join_enabled"))
+        ex.agg_fusion = s.get("fused_partial_agg_enabled")
+        sb = s.get("split_batch_size")
+        # "auto" resolves per device inside the executor; a number
+        # forces that max batch
+        ex.split_batch = int(sb) if sb.isdigit() else (
+            "auto" if sb == "auto" else 0)
         ms = int(s.get("query_max_run_time"))
         ex.query_deadline = (time.monotonic() + ms / 1000.0) if ms > 0 \
             else None

@@ -9,7 +9,10 @@ the reference's except where the port runs a different mode by design:
   - ``pallas_join_enabled`` defaults to "true" (the reference's forced
     mode): the CUDA kernels engage on the card and their plain twins on
     the CPU, so the distributed path routes exchanges through K4;
-  - ``generated_join_enabled`` defaults to false;
+  - ``fused_partial_agg_enabled`` and ``split_batch_size`` resolve
+    "auto" to on when the executor runs on a CUDA device (the
+    reference: on TPU), where each fused program is a replayed CUDA
+    graph;
   - ``stage_scheduler`` defaults to "true": the stage DAG is the only
     distributed plane ported;
   - ``mesh_exchange_mode``, ``adaptive_execution`` default to "false".
@@ -70,6 +73,13 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
     p.name: p
     for p in [
         PropertyMetadata(
+            "tpu_offload_enabled",
+            "run fused per-split pipelines (one program per split, a "
+            "captured CUDA graph on the card); false runs every operator "
+            "of every page op by op and nothing fuses",
+            bool, True,
+        ),
+        PropertyMetadata(
             "join_distribution_type",
             "auto | broadcast | partitioned (reference: "
             "join_distribution_type)",
@@ -120,8 +130,32 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         ),
         PropertyMetadata(
             "generated_join_enabled",
-            "the build-free generated join; not ported (false)",
-            bool, False,
+            "allow the build-free generated join (closed-form key "
+            "inverse + generate-at-index) for eligible joins over "
+            "generator-connector tables; off forces the materialized "
+            "build paths (the sort join and the K2/K3 probe kernels)",
+            bool, True,
+        ),
+        PropertyMetadata(
+            "fused_partial_agg_enabled",
+            "fuse scan->filter->project->partial-aggregation chains into "
+            "ONE program per split (fused_partial_aggs counter). auto = "
+            "on when the executor runs on a CUDA device, where the win "
+            "is the per-launch host cost a graph replay removes; off on "
+            "the CPU",
+            str, "auto",
+            validate=_tristate,
+        ),
+        PropertyMetadata(
+            "split_batch_size",
+            "fold up to this many splits of a fused scan pipeline into "
+            "ONE program launch (partial-aggregation chains fold their "
+            "states inside the program; page-emitting chains emit the "
+            "batch as one page). auto = on a CUDA device with the "
+            "default max batch, false = per-split launches "
+            "(program_launches / splits_scanned counters)",
+            str, "auto",
+            validate=lambda v: v in ("auto", "false", "off") or v.isdigit(),
         ),
         PropertyMetadata(
             "task_retry_attempts",
@@ -201,10 +235,6 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
 # property -> (predicate over its value that asks for a plane the port
 # lacks, what to say). ROADMAP queue 1 lists each plane.
 _NOT_PORTED = {
-    "generated_join_enabled": (
-        lambda v: v is True,
-        "generated_join_enabled=true: the build-free generated join is "
-        "not ported to presto_tpu_torch yet (ROADMAP queue 1, slice A2)"),
     "mesh_exchange_mode": (
         lambda v: v != "false",
         "mesh_exchange_mode: the ICI mesh exchange plane is not ported "
@@ -255,6 +285,10 @@ class Session:
         if prop.validate and not prop.validate(parsed):
             raise ValueError(f"invalid value for {name}: {value!r}")
         self._values[name] = parsed
+
+    def unset(self, name: str) -> None:
+        """Back to the property's default."""
+        self._values.pop(name, None)
 
     def get(self, name: str) -> Any:
         prop = SYSTEM_SESSION_PROPERTIES.get(name)

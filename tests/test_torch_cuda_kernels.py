@@ -97,7 +97,9 @@ def test_queries_on_the_card_equal_the_cpu(dev):
     spec.loader.exec_module(queries)
     QUERIES = queries.QUERIES
 
-    session = {"page_rows": 1 << 15}
+    # the materialized joins: with the generated join (the default) no
+    # TPC-H join reaches the probe kernels
+    session = {"page_rows": 1 << 15, "generated_join_enabled": "false"}
     gpu = LocalRunner({"tpch": TpchConnector(0.01, device=dev)},
                       session=session, device=dev)
     cpu = LocalRunner({"tpch": TpchConnector(0.01, device="cpu")},
@@ -150,3 +152,58 @@ def test_distributed_q3_family_on_the_card_equals_the_cpu(dev):
     finally:
         for w in workers:
             w.stop()
+
+
+@pytest.mark.parametrize("groups", [1, 8, 100])
+def test_segsum_kernel_replays_in_a_cuda_graph(dev, groups):
+    """K1 captured into a CUDA graph (exec/graphs.py) and replayed on new
+    inputs written into its static buffers equals segsum_plain, and each
+    replay adds the captured launch to the count."""
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch.exec import graphs
+    from presto_tpu_torch.ops import cuda_agg as CA
+
+    n = 1 << 16
+    ids = torch.zeros(n, dtype=torch.int64, device=dev)
+    vals = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    def fn(starts, counts):
+        # the inputs live in the program's static buffers: each call
+        # derives its rows from the start it was given
+        seed = starts[0] * n + torch.arange(n, device=dev)
+        ids.copy_(seed % (groups + 2) - 1)
+        vals.copy_(seed * 7919 - counts[0])
+        return CA.segsum_cuda(ids, vals, None, groups)
+
+    prog = graphs.Program(fn, 1, dev)
+    for start in (0, 3, 11):  # the capture, then two replays
+        before = cuda.launches["segsum"]
+        got = prog([start], [start + 5])
+        torch.cuda.synchronize()
+        assert cuda.launches["segsum"] == before + 1
+        seed = start * n + torch.arange(n)
+        want = CA.segsum_plain(seed % (groups + 2) - 1,
+                               seed * 7919 - (start + 5), None, groups)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_failed_graph_capture_raises(dev):
+    """A fused program that reads the device on the host cannot be
+    captured: its first call raises, and nothing runs it op by op in
+    its place."""
+    from presto_tpu_torch.exec import graphs
+
+    def fn(starts, counts):
+        x = starts * 2
+        if bool(x.sum() > 0):  # a host read, illegal while capturing
+            x = x + 1
+        return x
+
+    prog = graphs.Program(fn, 1, dev)
+    with pytest.raises(RuntimeError):
+        prog([3], [1])
+    torch.cuda.synchronize()
+    # the card is still usable after the failed capture
+    assert torch.equal(graphs.Program(lambda s, c: s + c, 1, dev)(
+        [2], [5]).cpu(), torch.tensor([7]))

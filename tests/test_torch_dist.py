@@ -4,8 +4,11 @@ Two port WorkerServers (module fixture, SF 0.01, page_rows 2^13) and a
 port DcnRunner: TPC-H Q1, Q3, Q5 and a forced-partitioned Q3-family
 (tests/test_device_exchange.py's) equal the port's LocalRunner (held to
 presto_tpu by tests/test_torch_sql_tpch.py) and the sqlite oracle, with
-the kernel dispatch points on and off; the DAG is engaged, the
-exchanges spooled and, with kernels on, K4's twin partitions them. Also:
+the kernel dispatch points on and off and the generated join off (the
+materialized joins this path holds); the DAG is engaged, the
+exchanges spooled and, with kernels on, K4's twin partitions them. The
+default session (generated joins, and the workers' leaf fragments fused
+with split batching forced) gives the same rows. Also:
 the device spool's HTTP fetch equals its local read and re-fetches
 byte-identically, the spool_exchange_bytes budget spills to disk, a
 failed task fails the query with DcnQueryFailed, and each plane the
@@ -26,6 +29,7 @@ from presto_tpu_torch.dist import serde as SERDE
 from presto_tpu_torch.dist import spool as SPOOL
 from presto_tpu_torch.dist.dcn import DcnQueryFailed, DcnRunner
 from presto_tpu_torch.dist.fragmenter import clip_for_shipping
+from presto_tpu_torch.exec import graphs
 from presto_tpu_torch.runner import LocalRunner
 from presto_tpu_torch.server.worker import WorkerServer, local_runtime
 from tests.oracle import load_sqlite
@@ -65,7 +69,9 @@ def workers():
 @pytest.fixture(scope="module")
 def local_rows():
     r = LocalRunner({"tpch": TpchConnector(SF, device="cpu")},
-                    session={"page_rows": PAGE_ROWS}, device="cpu")
+                    session={"page_rows": PAGE_ROWS,
+                             "generated_join_enabled": "false"},
+                    device="cpu")
     return {q: r.execute(sql).rows for q, sql in QUERIES.items()}
 
 
@@ -77,6 +83,7 @@ def db():
 def _coord(workers, **props):
     session = {"join_distribution_type": "partitioned",
                "device_exchange_enabled": "true",
+               "generated_join_enabled": "false",
                "page_rows": PAGE_ROWS, "retry_backoff_ms": 20}
     session.update(props)
     return DcnRunner({"tpch": TpchConnector(SF, device="cpu")}, workers,
@@ -199,6 +206,10 @@ class _Broken:
     def page_for_split(self, split, columns=None):
         raise RuntimeError("injected scan failure")
 
+    def gen_body(self, table, n, names):
+        # the fused scan generates through gen_body, not page_for_split
+        raise RuntimeError("injected scan failure")
+
 
 def test_failed_task_fails_the_query(workers):
     bad = _worker("bad", _Broken(TpchConnector(SF, device="cpu")))
@@ -232,8 +243,25 @@ def test_unsplittable_plan_runs_locally(workers):
     ("stage_scheduler", "auto"),
     ("stage_scheduler", "false"),
     ("hash_partition_count", 4),
-    ("generated_join_enabled", "true"),
 ])
 def test_left_out_planes_raise(prop, value, workers):
     with pytest.raises(NotImplementedError):
         _coord(workers, **{prop: value})
+
+
+@pytest.mark.parametrize("q", [1, 3, 5])
+def test_default_session_fuses_on_the_workers(q, workers, local_rows, db):
+    """The reference's default TPC-H path over the stage DAG: generated
+    joins where a build side scans a generator, and each task's leaf
+    fragment fused into one program per batch of its splits."""
+    coord = _coord(workers, generated_join_enabled="true",
+                   fused_partial_agg_enabled="true", split_batch_size="64")
+    graphs.clear()
+    rows = coord.execute(QUERIES[q])
+    assert coord.last_distribution == "stage-dag"
+    # a task's share of the lineitem splits ran as one batched program
+    # (Q5's lineitem leaf is a bare scan, which is no pipeline)
+    assert any(prog.batch > 1 for _key, prog in graphs.cached()) == (q != 5)
+    assert _multiset(rows) == _multiset(local_rows[q])
+    oracle_sql, modes = ORACLE[q]
+    compare(q, rows, db.execute(oracle_sql).fetchall(), modes)

@@ -1,10 +1,13 @@
 """The slice as a whole: presto_tpu_torch's LocalRunner on the CPU runs
-TPC-H Q1, Q3, Q5 and Q6 at SF 0.005 and returns the sqlite oracle's rows
-(tests/test_sql_tpch.py's ENGINE_SQL/ORACLE/compare) and presto_tpu's rows
+TPC-H Q1, Q3, Q5, Q6, Q10, Q12 and Q17 at SF 0.005 and returns the sqlite
+oracle's rows (tests/test_sql_tpch.py's ENGINE_SQL/ORACLE/compare) and
+presto_tpu's rows, twice: with the generated join off
 (pallas_join_enabled=true, generated_join_enabled=false — the setup of
-tests/test_pallas_join_exec.py). Floats agree to 9 significant digits;
-everything else exactly. The kernel dispatch points (K1 on Q1 and Q6, the
-dim and radix probes on Q5) are reached on the plain path."""
+tests/test_pallas_join_exec.py, which holds the kernel dispatch points:
+K1 on Q1 and Q6, the dim and radix probes on Q5, reached on the plain
+path), and under each engine's default session (the generated join on,
+its counter moving as presto_tpu's does). Floats agree to 9 significant
+digits; everything else exactly."""
 
 import dataclasses
 import math
@@ -22,8 +25,10 @@ from tests.oracle import load_sqlite
 from tests.test_sql_tpch import ENGINE_SQL, ORACLE, compare
 
 SF = 0.005
-QUERIES = (1, 3, 5, 6)
+QUERIES = (1, 3, 5, 6, 10, 12, 17)
 PAGE_ROWS = 1 << 15
+# the materialized joins: the kernel dispatch points this file holds
+GJ_OFF = {"generated_join_enabled": "false"}
 
 
 @pytest.fixture(scope="module")
@@ -41,14 +46,19 @@ def conn():
     return TpchConnector(SF, device="cpu")
 
 
-def _run_port(conn, session=None):
+def _run_port(conn, session=GJ_OFF):
     runner = LocalRunner({"tpch": conn},
-                         session={"page_rows": PAGE_ROWS, **(session or {})},
+                         session={"page_rows": PAGE_ROWS, **session},
                          device="cpu")
     out = {}
     for q in QUERIES:
         cuda.reset_counts()
-        out[q] = (runner.execute(ENGINE_SQL[q]), dict(cuda.plain_calls))
+        gen0 = runner.executor.generated_joins_used
+        res = runner.execute(ENGINE_SQL[q])
+        ex = runner.executor
+        out[q] = (res, dict(cuda.plain_calls),
+                  ex.generated_joins_used - gen0,
+                  (ex.program_launches, ex.splits_scanned))
     return out
 
 
@@ -58,11 +68,32 @@ def port(conn):
 
 
 @pytest.fixture(scope="module")
+def port_default(conn):
+    return _run_port(conn, session={})
+
+
+def _run_reference(runner):
+    out = {}
+    for q in QUERIES:
+        gen0 = runner.executor.generated_joins_used
+        res = runner.execute(ENGINE_SQL[q])
+        ex = runner.executor
+        out[q] = (res, ex.generated_joins_used - gen0,
+                  (ex.program_launches, ex.splits_scanned))
+    return out
+
+
+@pytest.fixture(scope="module")
 def reference(ref_conn):
     r = RefRunner({"tpch": ref_conn}, page_rows=PAGE_ROWS)
     r.session.set("pallas_join_enabled", "true")
     r.session.set("generated_join_enabled", False)
-    return {q: r.execute(ENGINE_SQL[q]) for q in QUERIES}
+    return _run_reference(r)
+
+
+@pytest.fixture(scope="module")
+def reference_default(ref_conn):
+    return _run_reference(RefRunner({"tpch": ref_conn}, page_rows=PAGE_ROWS))
 
 
 def _same_rows(got, want):
@@ -84,10 +115,31 @@ def test_port_matches_sqlite_oracle(q, port, db):
 
 @pytest.mark.parametrize("q", QUERIES)
 def test_port_matches_reference_engine(q, port, reference):
-    got, want = port[q][0], reference[q]
+    got, want = port[q][0], reference[q][0]
     _same_rows(got.rows, want.rows)
     assert got.column_names == want.column_names
     assert got.column_types == want.column_types
+
+
+@pytest.mark.parametrize("q", QUERIES)
+def test_default_session_matches_reference_and_sqlite(q, port_default,
+                                                      reference_default, db):
+    """No session overrides on either engine: the reference's default
+    TPC-H path — generated joins, and one fused program per split of
+    each fused chain (the last query attempt's launches and splits)."""
+    (got, _plain, gen_used, launches), (want, ref_gen_used, ref_launches) \
+        = port_default[q], reference_default[q]
+    _same_rows(got.rows, want.rows)
+    assert got.column_names == want.column_names
+    assert gen_used == ref_gen_used
+    assert launches == ref_launches
+    oracle_sql, modes = ORACLE[q]
+    compare(q, got.rows, db.execute(oracle_sql).fetchall(), modes)
+
+
+def test_default_session_uses_the_generated_join(port_default, port):
+    assert all(port_default[q][2] > 0 for q in (3, 5, 10, 12, 17))
+    assert not any(port[q][2] for q in QUERIES)
 
 
 def test_kernel_dispatch_points_reached_on_the_plain_path(port):
@@ -101,14 +153,15 @@ def test_kernel_dispatch_points_reached_on_the_plain_path(port):
 
 
 def test_kernels_off_runs_the_segment_ops_and_sort_join(conn, port):
-    off = _run_port(conn, session={"pallas_join_enabled": "false"})
+    off = _run_port(conn, session={"pallas_join_enabled": "false", **GJ_OFF})
     for q in QUERIES:
         _same_rows(off[q][0].rows, port[q][0].rows)
         assert not off[q][1], off[q][1]
 
 
 def test_capacity_boost_retry_gives_the_same_rows(conn, port):
-    runner = LocalRunner({"tpch": conn}, session={"page_rows": PAGE_ROWS},
+    runner = LocalRunner({"tpch": conn},
+                         session={"page_rows": PAGE_ROWS, **GJ_OFF},
                          device="cpu")
     runner.executor.agg_optimistic_rows = 16  # far below Q3's groups
     res = runner.execute(ENGINE_SQL[3])
@@ -152,16 +205,23 @@ def test_more_joins_match_sqlite(name, kernels, conn, db):
     sql, oracle_sql = EXTRA[name]
     runner = LocalRunner({"tpch": conn}, device="cpu",
                          session={"page_rows": PAGE_ROWS,
-                                  "pallas_join_enabled": kernels})
+                                  "pallas_join_enabled": kernels, **GJ_OFF})
     got = runner.execute(sql).rows
     want = [tuple(r) for r in db.execute(oracle_sql).fetchall()]
     assert sorted(got) == sorted(want)
 
 
 def test_generated_join_is_a_later_slice(conn):
-    with pytest.raises(NotImplementedError, match="generated join"):
-        LocalRunner({"tpch": conn}, device="cpu",
-                    session={"generated_join_enabled": "true"})
+    """The closed-form generated join is ported; its windowed form (for
+    slot-structured fact tables, TPC-DS) is a later slice: no TPC-H
+    column offers a windowed inverse, so the closed form serves every
+    generated join."""
+    runner = LocalRunner({"tpch": conn}, device="cpu",
+                         session={"generated_join_enabled": "true"})
+    assert runner.executor.generated_join
+    for table in conn.tables():
+        for col in conn.table_schema(table).column_names():
+            assert conn.key_window_inverse(table, col) is None
 
 
 def test_runner_defaults_to_the_card(conn):
@@ -192,7 +252,8 @@ def _split_aggregations(node):
 
 @pytest.mark.parametrize("q", QUERIES)
 def test_partial_final_split_gives_the_single_step_rows(q, conn, port):
-    runner = LocalRunner({"tpch": conn}, session={"page_rows": PAGE_ROWS},
+    runner = LocalRunner({"tpch": conn},
+                         session={"page_rows": PAGE_ROWS, **GJ_OFF},
                          device="cpu")
     plan = _split_aggregations(runner.plan(ENGINE_SQL[q]))
     assert runner.executor.output_types(plan) == \
