@@ -14,29 +14,37 @@ Phases:
            the time of one wrapper call (call_ms: host plus device), the
            bound the card's memory rate sets, and a library yardstick
            timed the same way as the kernel
-  check    TPC-H Q1, Q3, Q5, Q6 at SF 0.01 on the card == the same queries
-           on the CPU == a sqlite3 oracle loaded from the port's own pages
-           (generated join off: the joins hold the probe kernels)
-  fused    the reference's default TPC-H path (generated joins, fused
-           per-split programs as CUDA graphs, split batching): Q1, Q3,
-           Q5, Q6, Q17 at SF 0.01 under the default session on the card
-           == the CPU with fusion forced == sqlite, with the fusion
-           counters equal and > 0; the distributed path under the
-           default session == the single process; every captured
-           program replayed == its op-by-op run on the card
-  scale    the main path at size: Q1 and Q6 at SF 10, Q3, Q5 and Q17 at
-           SF 1, through LocalRunner, under the default session, with
-           the three fusion switches off, and op by op (SCALE_MODES):
-           per-query wall time, first-run graph captures, peak memory,
-           program launches and kernel launch counts (through graph
-           replays); every kernel of each session's path must launch
+  check    all 22 TPC-H queries at SF 0.01 and the 16 TPC-DS queries at
+           SF 0.01 (Q64 again at SF 0.025) on the card == the same
+           queries on the CPU == a sqlite3 oracle loaded from the port's
+           own pages (generated join off: the joins hold the probe
+           kernels); the card launches exactly the kernels whose twins
+           the CPU run dispatches
+  fused    the reference's default path (generated joins, the windowed
+           form on TPC-DS's fact-to-fact joins, fused per-split programs
+           as CUDA graphs, split batching): the same queries under the
+           default session on the card == the CPU with fusion forced ==
+           sqlite, with the fusion counters and kernel sets equal; the
+           distributed path under the default session == the single
+           process; every captured program replayed == its op-by-op run
+           on the card
+  scale    the main path at size, through LocalRunner: Q1 and Q6 at SF
+           10, Q3, Q5 and Q17 at SF 1 under the default session, with the
+           three fusion switches off, and op by op (SCALE_MODES), and the
+           15 other TPC-H queries and TPC-DS Q17 and Q64 at SF 1 under
+           the same three sessions: per-query wall time, first-run
+           graph captures, peak memory, program launches and kernel
+           launch counts (through graph replays); rows equal across
+           sessions; every kernel the same query's CPU run dispatched
+           must launch, unless this size puts that dispatch point beyond
+           the kernel's range (DispatchPoints)
   dist     the distributed path: 4 in-process WorkerServers on the card
            and a DcnRunner (stage DAG, partitioned joins, every exchange
            partitioned on the card through K4). Q3 and Q5 at SF 0.01 ==
            the card's LocalRunner == sqlite; then Q1 at SF 10, Q3 and Q5
            at SF 1 (page_rows 2^20): one warm-up and 3 timed runs each,
            rows == the single-process rows, and == again with K4 off
-  profile  (only when asked for) the scale queries under each session
+  profile  (only when asked for) the base scale rungs under each session
            and the dist queries once more under torch.profiler: device
            busy share, device kernels, graph replays, device time by
            kernel, and each of the port's kernels' device time per launch
@@ -50,10 +58,11 @@ presto_tpu_torch, torch, numpy and the standard library.
 from __future__ import annotations
 
 import argparse
+import collections
 import datetime
 import json
 import math
-import sqlite3
+import re
 import statistics
 import subprocess
 import sys
@@ -341,172 +350,133 @@ def _days(y, m, d):
     return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
 
 
-# engine SQL (tests/tpch_queries.py; Q3 with the extra tiebreaker the
-# TPC-H suite adds for a deterministic order) and the oracle SQL over
-# engine encodings: decimals unscaled ints, dates epoch days
-ENGINE_SQL = {
-    1: """select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
-        sum(l_extendedprice) as sum_base_price,
-        sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
-        sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
-        avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
-        avg(l_discount) as avg_disc, count(*) as count_order
-        from lineitem
-        where l_shipdate <= date '1998-12-01' - interval '90' day
-        group by l_returnflag, l_linestatus
-        order by l_returnflag, l_linestatus""",
-    3: """select l_orderkey,
-        sum(l_extendedprice * (1 - l_discount)) as revenue,
-        o_orderdate, o_shippriority
-        from customer, orders, lineitem
-        where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
-          and l_orderkey = o_orderkey
-          and o_orderdate < date '1995-03-15'
-          and l_shipdate > date '1995-03-15'
-        group by l_orderkey, o_orderdate, o_shippriority
-        order by revenue desc, o_orderdate, l_orderkey
-        limit 10""",
-    5: """select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue
-        from customer, orders, lineitem, supplier, nation, region
-        where c_custkey = o_custkey and l_orderkey = o_orderkey
-          and l_suppkey = s_suppkey and c_nationkey = s_nationkey
-          and s_nationkey = n_nationkey and n_regionkey = r_regionkey
-          and r_name = 'ASIA'
-          and o_orderdate >= date '1994-01-01'
-          and o_orderdate < date '1994-01-01' + interval '1' year
-        group by n_name
-        order by revenue desc""",
-    6: """select sum(l_extendedprice * l_discount) as revenue
-        from lineitem
-        where l_shipdate >= date '1994-01-01'
-          and l_shipdate < date '1994-01-01' + interval '1' year
-          and l_discount between 0.06 - 0.01 and 0.06 + 0.01
-          and l_quantity < 24""",
-    17: """select sum(l_extendedprice) / 7.0 as avg_yearly
-        from lineitem, part
-        where p_partkey = l_partkey
-          and p_brand = 'Brand#23'
-          and p_container = 'MED BOX'
-          and l_quantity < (
-            select 0.2 * avg(l_quantity) from lineitem
-            where l_partkey = p_partkey)""",
-}
-
-ORACLE_SQL = {
-    1: (f"""SELECT l_returnflag, l_linestatus, SUM(l_quantity),
-        SUM(l_extendedprice), SUM(l_extendedprice * (100 - l_discount)),
-        SUM(l_extendedprice * (100 - l_discount) * (100 + l_tax)),
-        AVG(l_quantity), AVG(l_extendedprice), AVG(l_discount), COUNT(*)
-        FROM lineitem WHERE l_shipdate <= {_days(1998, 12, 1) - 90}
-        GROUP BY 1, 2 ORDER BY 1, 2""", {6: "r", 7: "r", 8: "r"}),
-    3: (f"""SELECT l_orderkey,
-        SUM(l_extendedprice * (100 - l_discount)) AS revenue,
-        o_orderdate, o_shippriority
-        FROM customer, orders, lineitem
-        WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey
-          AND l_orderkey = o_orderkey
-          AND o_orderdate < {_days(1995, 3, 15)}
-          AND l_shipdate > {_days(1995, 3, 15)}
-        GROUP BY l_orderkey, o_orderdate, o_shippriority
-        ORDER BY revenue DESC, o_orderdate, l_orderkey LIMIT 10""", {}),
-    5: (f"""SELECT n_name, SUM(l_extendedprice * (100 - l_discount)) AS rev
-        FROM customer, orders, lineitem, supplier, nation, region
-        WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
-          AND l_suppkey = s_suppkey AND c_nationkey = s_nationkey
-          AND s_nationkey = n_nationkey AND n_regionkey = r_regionkey
-          AND r_name = 'ASIA' AND o_orderdate >= {_days(1994, 1, 1)}
-          AND o_orderdate < {_days(1995, 1, 1)}
-        GROUP BY n_name ORDER BY rev DESC""", {}),
-    6: (f"""SELECT SUM(l_extendedprice * l_discount) FROM lineitem
-        WHERE l_shipdate >= {_days(1994, 1, 1)}
-          AND l_shipdate < {_days(1995, 1, 1)}
-          AND l_discount BETWEEN 5 AND 7 AND l_quantity < 2400""", {}),
-    17: ("""SELECT CAST(SUM(l_extendedprice) AS REAL) / 100.0 / 7.0
-        FROM lineitem, part
-        WHERE p_partkey = l_partkey AND p_brand = 'Brand#23'
-          AND p_container = 'MED BOX'
-          AND l_quantity < (
-            SELECT 0.2 * AVG(l_quantity) FROM lineitem
-            WHERE l_partkey = p_partkey)""", {0: "f"}),
-}
-
-ORACLE_TABLES = ("customer", "orders", "lineitem", "supplier", "nation",
-                 "region", "part")
+TPCH_ALL = tuple(range(1, 23))
+# the TPC-DS queries of the test suite (presto_tpu_torch/queries.py);
+# Q64's chain is longer at SF 0.025, where check and fused run it again
+TPCDS_ALL = (3, 7, 17, 19, 25, 26, 29, 37, 42, 52, 55, 62, 64, 82, 93, 96)
+Q64_SF = 0.025
 
 
-def load_sqlite(conn) -> sqlite3.Connection:
-    """A sqlite3 database of the connector's own generated rows, in
-    engine encodings (the loader logic of the test suite's oracle)."""
-    from presto_tpu_torch import types as T
+def sql(suite: str, q: int) -> str:
+    """The engine SQL of one query (presto_tpu_torch/queries.py: the test
+    suite's query texts, with its tiebreakers)."""
+    from presto_tpu_torch import queries as PQ
 
-    db = sqlite3.connect(":memory:")
-    for table in ORACLE_TABLES:
-        schema = conn.table_schema(table)
-        cols = ", ".join(
-            f"{c.name} {'TEXT' if T.is_string(c.type) else 'INTEGER'}"
-            for c in schema.columns)
-        db.execute(f"CREATE TABLE {table} ({cols})")
-        marks = ", ".join("?" * len(schema.columns))
-        db.executemany(f"INSERT INTO {table} VALUES ({marks})",
-                       conn.host_rows(table))
-    db.commit()
-    return db
+    return (PQ.TPCH_SQL if suite == "tpch" else PQ.TPCDS_SQL)[q]
 
 
-def compare_oracle(q: int, engine_rows, oracle_rows, modes) -> None:
-    """The TPC-H suite's comparison: decimal averages are round-half-up
-    ints on the engine side, compared after rounding sqlite's float;
-    float columns ("f") to a relative 1e-6."""
-    def norm(row):
-        return tuple(
-            (None if v is None else round(float(v)))
-            if modes.get(j) == "r" else v
-            for j, v in enumerate(row))
+def make_conn(suite: str, sf: float, dev):
+    if suite == "tpch":
+        from presto_tpu_torch.connectors.tpch import TpchConnector
 
-    def same(e, o):
-        return len(e) == len(o) and all(
-            (a is None) == (b is None) if None in (a, b) else
-            math.isclose(a, b, rel_tol=1e-6) if modes.get(j) == "f" else
-            a == b
-            for j, (a, b) in enumerate(zip(e, o)))
+        return TpchConnector(sf, device=dev)
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
 
-    e_rows = [norm(r) for r in engine_rows]
-    o_rows = [norm(tuple(r)) for r in oracle_rows]
-    if len(e_rows) != len(o_rows) or not all(
-            same(e, o) for e, o in zip(e_rows, o_rows)):
-        raise AssertionError(f"Q{q} differs from sqlite:\n engine "
-                             f"{e_rows[:3]}\n oracle {o_rows[:3]}")
+    return TpcdsConnector(sf, device=dev)
 
 
-def phase_check(dev) -> None:
-    from presto_tpu_torch.connectors.tpch import TpchConnector
+def make_runner(suite: str, conn, dev, session: dict):
     from presto_tpu_torch.runner import LocalRunner
 
-    sf = 0.01
+    return LocalRunner({suite: conn}, suite, session=session, device=dev)
+
+
+def tables_read(suite: str, conn, queries) -> list:
+    """The tables any of ``queries`` names: the oracle loads only those."""
+    text = " ".join(sql(suite, q) for q in queries)
+    return [t for t in conn.tables() if re.search(rf"\b{t}\b", text)]
+
+
+def check_oracle(suite: str, q: int, rows, db) -> None:
+    """The test suite's comparison of engine rows with sqlite's."""
+    from presto_tpu_torch import queries as PQ
+
+    if suite == "tpch":
+        oracle_sql, modes = PQ.TPCH_ORACLE[q]
+        PQ.compare_tpch(q, rows, db.execute(oracle_sql).fetchall(), modes)
+        return
+    oracle_sql, float_cols, round_cols = PQ.TPCDS_ORACLE[q]
+    want = db.execute(oracle_sql).fetchall()
+    if not want:
+        raise AssertionError(f"TPC-DS Q{q}: the oracle returned no rows")
+    PQ.compare_tpcds(q, rows, want, float_cols, round_cols)
+
+
+def same_rows(got, want) -> bool:
+    """Rows equal: doubles to 9 significant digits (two devices, or two
+    sessions, may sum in another order), everything else exactly."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(b, float) and isinstance(a, float):
+                if not math.isclose(a, b, rel_tol=1e-9):
+                    return False
+            elif a != b or type(a) is not type(b):
+                return False
+    return True
+
+
+def kernel_set(counts: dict) -> list:
+    return sorted(k for k, v in counts.items() if v)
+
+
+def run_pair(suite, q, gpu, cpu, label):
+    """One query on the card and on the CPU: (card rows, CPU rows, card
+    kernel launches, CPU twin dispatches). The sets of kernels must be
+    equal: the same data, the same dispatch decisions."""
+    from presto_tpu_torch import cuda
+
+    cuda.reset_counts()
+    got = gpu.execute(sql(suite, q)).rows
+    launched = kernel_set(cuda.launches)
+    cuda.reset_counts()
+    want = cpu.execute(sql(suite, q)).rows
+    dispatched = kernel_set(cuda.plain_calls)
+    if launched != dispatched:
+        raise AssertionError(f"{label}: the card launched {launched}, the "
+                             f"CPU dispatched the twins of {dispatched}")
+    return got, want, launched
+
+
+def phase_check(dev) -> dict:
+    """Every TPC-H query at SF 0.01 and every TPC-DS query at SF 0.01 (Q64
+    again at SF 0.025) with the generated join off: card rows == CPU rows
+    == sqlite, and the card launches the kernels whose twins the CPU
+    dispatches. Returns those kernels per (suite, query, sf, "check")."""
+    from presto_tpu_torch import queries as PQ
+
     session = {"page_rows": 1 << 15, "generated_join_enabled": "false"}
-    gpu = LocalRunner({"tpch": TpchConnector(sf, device=dev)},
-                      session=session, device=dev)
-    cpu_conn = TpchConnector(sf, device="cpu")
-    cpu = LocalRunner({"tpch": cpu_conn}, session=session, device="cpu")
-    t0 = time.perf_counter()
-    db = load_sqlite(cpu_conn)
-    log(f"check: sqlite oracle loaded at SF {sf} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for q in (1, 3, 5, 6):
-        got = gpu.execute(ENGINE_SQL[q]).rows
-        want = cpu.execute(ENGINE_SQL[q]).rows
-        if got != want:
-            raise AssertionError(f"Q{q} at SF {sf}: card rows != CPU rows"
-                                 f"\n card {got[:3]}\n cpu  {want[:3]}")
-        oracle_sql, modes = ORACLE_SQL[q]
-        compare_oracle(q, got, db.execute(oracle_sql).fetchall(), modes)
-        log(f"check: Q{q} SF {sf}: {len(got)} rows, card == CPU == sqlite")
+    runs = [("tpch", 0.01, TPCH_ALL), ("tpcds", 0.01, TPCDS_ALL),
+            ("tpcds", Q64_SF, (64,))]
+    dispatched = {}
+    for suite, sf, qs in runs:
+        cpu_conn = make_conn(suite, sf, "cpu")
+        gpu = make_runner(suite, make_conn(suite, sf, dev), dev, session)
+        cpu = make_runner(suite, cpu_conn, "cpu", session)
+        t0 = time.perf_counter()
+        db = PQ.load_sqlite(cpu_conn, tables_read(suite, cpu_conn, qs))
+        log(f"check: {suite} sqlite oracle loaded at SF {sf} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for q in qs:
+            label = f"check: {suite} Q{q} SF {sf}"
+            t0 = time.perf_counter()
+            got, want, kernels = run_pair(suite, q, gpu, cpu, label)
+            if not same_rows(got, want):
+                raise AssertionError(f"{label}: card rows != CPU rows\n "
+                                     f"card {got[:3]}\n cpu  {want[:3]}")
+            check_oracle(suite, q, got, db)
+            dispatched[(suite, q, sf, "check")] = kernels
+            log(f"{label}: {len(got)} rows, card == CPU == sqlite; kernels "
+                f"{kernels} on both ({time.perf_counter() - t0:.1f} s)")
+    return dispatched
 
 
 # ------------------------------------------------------ the fused path
 
-FUSED_QUERIES = (1, 3, 5, 6, 17)
-# what each query's default session must fuse: a partial-aggregation
+# what each TPC-H query's default session must fuse at least: a partial-aggregation
 # tail (Q1, Q6, Q17's outer sum) and generated joins (Q3, Q5, Q17)
 FUSED_AGG = (1, 6, 17)
 FUSED_JOINS = (3, 5, 17)
@@ -557,53 +527,61 @@ def fusion_counters(ex, gen_before: int) -> dict:
                 generated_joins=ex.generated_joins_used - gen_before)
 
 
-def phase_fused(dev, cluster) -> None:
-    """The reference's default TPC-H path on the card: generated joins
-    and fused per-split programs replayed as CUDA graphs. At SF 0.01 the
-    card's default session == the CPU with fusion forced == sqlite; every
+def phase_fused(dev, cluster) -> dict:
+    """The reference's default path on the card: generated joins (the
+    windowed form on TPC-DS's fact-to-fact joins) and fused per-split
+    programs replayed as CUDA graphs. At SF 0.01 (TPC-DS Q64 also at SF
+    0.025) every query's card default session == the CPU with fusion
+    forced == sqlite, with equal fusion counters and kernel sets; every
     captured chain shape replays equal to its op-by-op run; and the
-    distributed path under the default session == the single process."""
-    from presto_tpu_torch.connectors.tpch import TpchConnector
+    distributed path under the default session == the single process.
+    Returns the kernels each query launched, per (suite, query, sf,
+    "fused")."""
+    from presto_tpu_torch import queries as PQ
     from presto_tpu_torch.exec import graphs
-    from presto_tpu_torch.runner import LocalRunner
 
-    sf, page_rows = 0.01, 1 << 13  # 13 lineitem splits: one padded batch
-    gpu = LocalRunner({"tpch": TpchConnector(sf, device=dev)},
-                      session={"page_rows": page_rows}, device=dev)
-    cpu_conn = TpchConnector(sf, device="cpu")
-    cpu = LocalRunner({"tpch": cpu_conn}, device="cpu", session={
-        "page_rows": page_rows, "fused_partial_agg_enabled": "true",
-        "split_batch_size": "64"})
-    db = load_sqlite(cpu_conn)
-    for q in FUSED_QUERIES:
-        ex = gpu.executor
-        gen0 = ex.generated_joins_used
-        got = gpu.execute(ENGINE_SQL[q]).rows
-        counters = fusion_counters(ex, gen0)
-        ex = cpu.executor
-        gen0 = ex.generated_joins_used
-        want = cpu.execute(ENGINE_SQL[q]).rows
-        if got != want or counters != fusion_counters(ex, gen0):
-            raise AssertionError(
-                f"fused Q{q} SF {sf}: card != CPU with fusion forced\n"
-                f" card {got[:3]} {counters}\n cpu  {want[:3]} "
-                f"{fusion_counters(ex, gen0)}")
-        if (counters["program_launches"] <= 0
-                or (q in FUSED_AGG and counters["fused_partial_aggs"] <= 0)
-                or (q in FUSED_JOINS and counters["generated_joins"] <= 0)):
-            raise AssertionError(f"fused Q{q}: the default session did not "
-                                 f"fuse: {counters}")
-        oracle_sql, modes = ORACLE_SQL[q]
-        compare_oracle(q, got, db.execute(oracle_sql).fetchall(), modes)
-        log(f"fused: Q{q} SF {sf}: {len(got)} rows, card == CPU (fusion "
-            f"forced) == sqlite; {counters}")
+    page_rows = 1 << 13  # 13 lineitem splits at SF 0.01: a padded batch
+    forced = {"page_rows": page_rows, "fused_partial_agg_enabled": "true",
+              "split_batch_size": "64"}
+    runs = [("tpch", 0.01, TPCH_ALL), ("tpcds", 0.01, TPCDS_ALL),
+            ("tpcds", Q64_SF, (64,))]
+    dispatched = {}
+    for suite, sf, qs in runs:
+        cpu_conn = make_conn(suite, sf, "cpu")
+        gpu = make_runner(suite, make_conn(suite, sf, dev), dev,
+                          {"page_rows": page_rows})
+        cpu = make_runner(suite, cpu_conn, "cpu", forced)
+        db = PQ.load_sqlite(cpu_conn, tables_read(suite, cpu_conn, qs))
+        for q in qs:
+            label = f"fused: {suite} Q{q} SF {sf}"
+            gen0 = (gpu.executor.generated_joins_used,
+                    cpu.executor.generated_joins_used)
+            got, want, kernels = run_pair(suite, q, gpu, cpu, label)
+            counters = fusion_counters(gpu.executor, gen0[0])
+            cpu_counters = fusion_counters(cpu.executor, gen0[1])
+            if not same_rows(got, want) or counters != cpu_counters:
+                raise AssertionError(
+                    f"{label}: card != CPU with fusion forced\n"
+                    f" card {got[:3]} {counters}\n cpu  {want[:3]} "
+                    f"{cpu_counters}")
+            if suite == "tpch" and q in FUSED_AGG + FUSED_JOINS and (
+                    counters["program_launches"] <= 0
+                    or (q in FUSED_AGG and counters["fused_partial_aggs"] <= 0)
+                    or (q in FUSED_JOINS and counters["generated_joins"] <= 0)):
+                raise AssertionError(f"{label}: the default session did not "
+                                     f"fuse: {counters}")
+            check_oracle(suite, q, got, db)
+            dispatched[(suite, q, sf, "fused")] = kernels
+            log(f"{label}: {len(got)} rows, card == CPU (fusion forced) == "
+                f"sqlite; {counters}; kernels {kernels} on both")
     # the distributed path under the default session: 4 worker threads
     # capture and replay the leaf fragments' programs on one card
+    sf = 0.01
     coord = cluster.coordinator(sf, page_rows, FUSED_DIST_SESSION)
     single = cluster.local(sf, page_rows, {})
     for q in (1, 3, 5):
-        got, _, _ = _dist_run(coord, ENGINE_SQL[q])
-        want = single.execute(ENGINE_SQL[q]).rows
+        got, _, _ = _dist_run(coord, sql("tpch", q))
+        want = single.execute(sql("tpch", q)).rows
         if got != want:
             raise AssertionError(f"fused dist Q{q}: rows != single process")
         log(f"fused: dist Q{q} SF {sf} x{N_WORKERS} workers, default "
@@ -611,11 +589,18 @@ def phase_fused(dev, cluster) -> None:
     shapes = check_programs()
     log("fused: graph replay == op by op on the card, per chain shape: "
         + json.dumps(shapes) + f"; process totals {graphs.stats}")
+    return dispatched
 
 
 # -------------------------------------------------------------- the scale
 
-SCALE_RUNS = ((1, 10.0), (6, 10.0), (3, 1.0), (5, 1.0), (17, 1.0))
+# the main path's rungs (the BASELINE ladder's TPC-H queries and Q17),
+# then the rest of the query surface at SF 1: the 15 other TPC-H
+# queries and TPC-DS Q17 and Q64, each under every session of
+# SCALE_MODES
+BASE_SCALE = ((1, 10.0), (6, 10.0), (3, 1.0), (5, 1.0), (17, 1.0))
+NEW_TPCH = (2, 4, 7, 8, 9, 11, 13, 14, 15, 16, 18, 19, 20, 21, 22)
+NEW_TPCDS = (17, 64)
 KERNEL_NAMES = ("segsum", "probe_dim", "probe_radix", "part_ids")
 # a substring of each kernel's device symbol(s) in a profile
 KERNEL_SYMBOLS = {"segsum": "segsum_", "probe_dim": "probe_dim_",
@@ -634,7 +619,10 @@ SCALE_MODES = {
               "tpu_offload_enabled": "false"},
 }
 EAGER_SESSION = SCALE_MODES["eager"]
-# kernels each query's main path must launch, per session
+SCALE_RUNS = (tuple(("tpch", q, sf) for q, sf in BASE_SCALE)
+              + tuple(("tpch", q, 1.0) for q in NEW_TPCH)
+              + tuple(("tpcds", q, 1.0) for q in NEW_TPCDS))
+# kernels the base rungs' main paths must launch, per session
 REQUIRED = {
     "default": {1: ("segsum",), 6: ("segsum",), 3: (), 5: (), 17: ()},
     "three_off": {1: ("segsum",), 6: ("segsum",), 3: ("probe_radix",),
@@ -642,6 +630,106 @@ REQUIRED = {
     "eager": {1: ("segsum",), 6: ("segsum",), 3: ("probe_radix",),
               5: ("probe_dim", "probe_radix"), 17: ()},
 }
+
+
+# a kernel's dispatch point: K1, or the hash-join probe, whose layout
+# (K2 up to 2,048 build slots, K3 up to 2^20) follows the build's size
+FAMILY = {"segsum": "segsum", "probe_dim": "probe",
+          "probe_radix": "probe"}
+
+
+def required_families(cpu_dispatch: dict, suite: str, q: int, mode: str):
+    """The dispatch points a new scale run must reach with a kernel: those
+    whose twins the same query dispatched on the CPU at SF 0.01 in the
+    check (eager: generated join off) or fused (default) phase. None
+    when that phase did not run."""
+    phase = "fused" if mode == "default" else "check"
+    kernels = cpu_dispatch.get((suite, q, 0.01, phase))
+    if kernels is None:
+        return None
+    return sorted({FAMILY[k] for k in kernels})
+
+
+class DispatchPoints:
+    """Observes, while a scale query runs, each K1 and probe dispatch
+    point the executor reaches and whether the kernel's range admits it
+    at this size: K1 takes at most cuda_agg.MAX_GROUPS group slots, the
+    probe kernels builds of at most RADIX_MAX_BUILD slots and only on a
+    query's first attempt (a capacity-boost retry takes the sort join,
+    as the reference does). It changes no decision."""
+
+    def __init__(self):
+        self.seen = collections.Counter()
+
+    def __enter__(self):
+        from presto_tpu_torch.exec.executor import Executor
+        from presto_tpu_torch.ops import cuda_agg as CA
+        from presto_tpu_torch.ops import cuda_join as CJ
+
+        seen = self.seen
+        supported = CA.supported
+        radix = Executor._radix_join_eligible
+        unique = Executor._unique_kernel_eligible
+
+        def k1(kind, num_groups, data):
+            ok = supported(kind, num_groups, data)
+            if ok:
+                seen["segsum", "in range"] += 1
+            elif supported(kind, 1, data):
+                seen["segsum", f"{num_groups} group slots > "
+                               f"{CA.MAX_GROUPS}"] += 1
+            return ok
+
+        def probe(ex, node, build):
+            ok = radix(ex, node, build)
+            if ok:
+                seen["probe", "in range"] += 1
+            elif ex.kernels and build.capacity > CJ.RADIX_MAX_BUILD:
+                seen["probe", f"build of {build.capacity} slots > "
+                              f"{CJ.RADIX_MAX_BUILD}"] += 1
+            elif ex.kernels and ex._capacity_boost > 1:
+                seen["probe", "a capacity-boost retry"] += 1
+            return ok
+
+        def probe_unique(ex, node, build, *args):
+            ok = unique(ex, node, build, *args)
+            if ok:
+                seen["probe", "in range"] += 1
+            return ok
+
+        self._saved = [(CA, "supported", supported),
+                       (Executor, "_radix_join_eligible", radix),
+                       (Executor, "_unique_kernel_eligible", unique)]
+        CA.supported = k1
+        Executor._radix_join_eligible = probe
+        Executor._unique_kernel_eligible = probe_unique
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def missing(self, families, counts) -> list:
+        """Required families with no launch: a family in range at some
+        dispatch point must launch; one out of range at every dispatch
+        point it reached is excused, and ``excused`` says why."""
+        out = []
+        for fam in families:
+            launched = sum(v for k, v in counts.items()
+                           if FAMILY.get(k) == fam)
+            in_range = self.seen[fam, "in range"]
+            declined = [why for (f, why) in self.seen
+                        if f == fam and why != "in range"]
+            if not launched and (in_range or not declined):
+                out.append(fam)
+        return out
+
+    def excused(self, counts) -> dict:
+        return {f: sorted(why for (ff, why) in self.seen
+                          if ff == f and why != "in range")
+                for f in ("segsum", "probe")
+                if not sum(v for k, v in counts.items()
+                           if FAMILY.get(k) == f)}
 
 
 def filtered_lineitem_rows(conn, cutoff: int, page_rows: int) -> int:
@@ -655,41 +743,50 @@ def filtered_lineitem_rows(conn, cutoff: int, page_rows: int) -> int:
     return total
 
 
-def phase_scale(dev) -> dict:
-    """Each scale query under each session of SCALE_MODES: one warm-up
-    (its graph captures timed apart), then TIMED_RUNS timed runs."""
+def phase_scale(dev, cpu_dispatch: dict) -> dict:
+    """Each scale query under each of its sessions: one warm-up (its
+    graph captures timed apart), then TIMED_RUNS timed runs. Rows must be
+    equal across a query's sessions, and each run must launch its
+    required kernels (checked after every reading is logged)."""
     from presto_tpu_torch import cuda
-    from presto_tpu_torch.connectors.tpch import TpchConnector
     from presto_tpu_torch.exec import graphs
-    from presto_tpu_torch.runner import LocalRunner
 
     page_rows = 1 << 20
     conns = {}
     launches_total = {k: 0 for k in KERNEL_NAMES}
     per_query = {}
+    missing = []
     cuda.reset_counts()  # counts cover the main-path runs below only
-    for q, sf in SCALE_RUNS:
-        if sf not in conns:
-            conns[sf] = TpchConnector(sf, device=dev)
-        for mode, props in SCALE_MODES.items():
-            runner = LocalRunner({"tpch": conns[sf]}, device=dev,
-                                 session={"page_rows": page_rows, **props})
+    for suite, q, sf in SCALE_RUNS:
+        if (suite, sf) not in conns:
+            t0 = time.perf_counter()
+            conns[(suite, sf)] = make_conn(suite, sf, dev)
+            log(f"scale: {suite} SF {sf:g} connector built in "
+                f"{time.perf_counter() - t0:.2f} s")
+        name = f"{suite} Q{q}"
+        for mode in SCALE_MODES:
+            runner = make_runner(suite, conns[(suite, sf)], dev,
+                                 {"page_rows": page_rows,
+                                  **SCALE_MODES[mode]})
             # each reading holds its own graphs' memory only
             graphs.clear()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             before = dict(cuda.launches)
             cap0 = dict(graphs.stats)
+            gen0 = runner.executor.generated_joins_used
             t0 = time.perf_counter()
-            res = runner.execute(ENGINE_SQL[q])  # warm-up
-            torch.cuda.synchronize()
+            with DispatchPoints() as points:  # the timed runs repeat it
+                res = runner.execute(sql(suite, q))  # warm-up
+                torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
             captures = graphs.stats["captures"] - cap0["captures"]
             capture_s = graphs.stats["capture_s"] - cap0["capture_s"]
+            gen_first = runner.executor.generated_joins_used - gen0
             walls = []
             for _ in range(TIMED_RUNS):
                 t0 = time.perf_counter()
-                res = runner.execute(ENGINE_SQL[q])
+                res = runner.execute(sql(suite, q))
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             counts = {k: cuda.launches.get(k, 0) - before.get(k, 0)
@@ -700,35 +797,46 @@ def phase_scale(dev) -> dict:
                          splits_per_launch=(
                              ex.splits_scanned / ex.program_launches
                              if ex.program_launches else 0.0),
-                         fused_partial_aggs=ex.fused_partial_aggs)
+                         fused_partial_aggs=ex.fused_partial_aggs,
+                         generated_joins=gen_first)
             peak = torch.cuda.max_memory_allocated()
             reserved = torch.cuda.max_memory_reserved()
             runs = 1 + TIMED_RUNS
-            log(f"scale: Q{q} SF {sf:g} {mode}: rows {len(res.rows)}, wall "
-                f"s {[round(w, 4) for w in walls]} (median "
+            base = suite == "tpch" and (q, sf) in BASE_SCALE
+            required = (REQUIRED[mode][q] if base
+                        else required_families(cpu_dispatch, suite, q,
+                                               mode))
+            log(f"scale: {name} SF {sf:g} {mode}: rows {len(res.rows)}, "
+                f"wall s {[round(w, 4) for w in walls]} (median "
                 f"{statistics.median(walls):.4f}), first run "
                 f"{first_s:.3f} s with {captures} graph captures taking "
                 f"{capture_s:.3f} s, peak alloc {peak / 2**30:.3f} GiB "
                 f"(reserved {reserved / 2**30:.3f} GiB), per run {fused}, "
                 f"kernel launches per run "
-                f"{ {k: v // runs for k, v in counts.items()} }, boost "
-                f"retries {ex.capacity_boost_retries}")
-            for k in REQUIRED[mode][q]:
-                if counts[k] <= 0:
-                    raise AssertionError(f"Q{q} {mode}: kernel {k} never "
-                                         f"launched")
-            if q == 1:
+                f"{ {k: v // runs for k, v in counts.items()} }, required "
+                f"{required}, out of range here {points.excused(counts)}, "
+                f"boost retries {ex.capacity_boost_retries}")
+            if base:
+                missing += [f"{name} {mode}: {k}" for k in required
+                            if counts[k] <= 0]
+            elif required is not None:
+                missing += [f"{name} {mode}: {f}"
+                            for f in points.missing(required, counts)]
+            if (suite, q) == ("tpch", 1):
                 cutoff = _days(1998, 12, 1) - 90
-                want = filtered_lineitem_rows(conns[sf], cutoff, page_rows)
+                want = filtered_lineitem_rows(conns[(suite, sf)], cutoff,
+                                              page_rows)
                 got = sum(r[-1] for r in res.rows)
                 if got != want:
                     raise AssertionError(
                         f"Q1 {mode}: count_order {got} != connector rows "
                         f"{want}")
-            rows = per_query.setdefault(q, {"sf": sf, "rows": res.rows})
-            if res.rows != rows["rows"]:
-                raise AssertionError(f"Q{q} {mode}: rows differ from "
+            rows = per_query.setdefault(name, {"sf": sf, "rows": res.rows})
+            if not same_rows(res.rows, rows["rows"]):
+                raise AssertionError(f"{name} {mode}: rows differ from "
                                      f"{next(iter(SCALE_MODES))}")
+            if not res.rows:
+                raise AssertionError(f"{name} SF {sf:g}: no rows")
             rows[mode] = dict(wall_s=walls, first_run_s=first_s,
                               captures=captures, capture_s=capture_s,
                               peak_bytes=peak, reserved_bytes=reserved,
@@ -740,6 +848,9 @@ def phase_scale(dev) -> dict:
     log("scale: " + json.dumps({"per_query": per_query}))
     graphs.clear()
     torch.cuda.empty_cache()
+    if missing:
+        raise AssertionError("scale: required kernels never launched: "
+                             + "; ".join(missing))
     return launches_total
 
 
@@ -821,21 +932,22 @@ def _dist_run(coord, sql):
 
 def phase_dist(dev, cluster: "DistCluster") -> dict:
     from presto_tpu_torch import cuda
+    from presto_tpu_torch import queries as PQ
     from presto_tpu_torch.connectors.tpch import TpchConnector
 
     # SF 0.01: card DcnRunner == card LocalRunner == sqlite
-    db = load_sqlite(TpchConnector(0.01, device="cpu"))
+    cpu_conn = TpchConnector(0.01, device="cpu")
+    db = PQ.load_sqlite(cpu_conn, tables_read("tpch", cpu_conn, (3, 5)))
     coord = cluster.coordinator(0.01, 1 << 13)
     single = cluster.local(0.01, 1 << 13)
     for q in (3, 5):
-        got, _, _ = _dist_run(coord, ENGINE_SQL[q])
-        want = single.execute(ENGINE_SQL[q]).rows
+        got, _, _ = _dist_run(coord, sql("tpch", q))
+        want = single.execute(sql("tpch", q)).rows
         if got != want:
             raise AssertionError(f"dist Q{q} SF 0.01: rows != single "
                                  f"process\n dist {got[:3]}\n local "
                                  f"{want[:3]}")
-        oracle_sql, modes = ORACLE_SQL[q]
-        compare_oracle(q, got, db.execute(oracle_sql).fetchall(), modes)
+        check_oracle("tpch", q, got, db)
         log(f"dist: Q{q} SF 0.01: {len(got)} rows, DcnRunner on the card "
             f"== LocalRunner == sqlite")
 
@@ -847,10 +959,10 @@ def phase_dist(dev, cluster: "DistCluster") -> dict:
         coord = cluster.coordinator(sf, page_rows)
         before = dict(cuda.launches)
         torch.cuda.reset_peak_memory_stats()
-        rows, _, _ = _dist_run(coord, ENGINE_SQL[q])  # warm-up
+        rows, _, _ = _dist_run(coord, sql("tpch", q))  # warm-up
         walls, spooled = [], None
         for _ in range(TIMED_RUNS):
-            rows, wall, spooled = _dist_run(coord, ENGINE_SQL[q])
+            rows, wall, spooled = _dist_run(coord, sql("tpch", q))
             walls.append(wall)
         counts = {k: cuda.launches.get(k, 0) - before.get(k, 0)
                   for k in KERNEL_NAMES}
@@ -863,11 +975,11 @@ def phase_dist(dev, cluster: "DistCluster") -> dict:
         for k in KERNEL_NAMES:
             launches_total[k] += counts[k]
         # outside the counted runs: the single-process rows and K4 off
-        want = cluster.local(sf, page_rows).execute(ENGINE_SQL[q]).rows
+        want = cluster.local(sf, page_rows).execute(sql("tpch", q)).rows
         off, off_wall, _ = _dist_run(
             cluster.coordinator(sf, page_rows, {
                 **DIST_SESSION, "pallas_join_enabled": "false"}),
-            ENGINE_SQL[q])
+            sql("tpch", q))
         if rows != want or off != want:
             raise AssertionError(
                 f"dist Q{q} SF {sf:g}: rows differ (K4 on == single "
@@ -898,18 +1010,18 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
     from presto_tpu_torch.exec import graphs
 
     runs = [("local", q, sf, mode, cluster.local(sf, 1 << 20, props))
-            for q, sf in SCALE_RUNS for mode, props in SCALE_MODES.items()]
+            for q, sf in BASE_SCALE for mode, props in SCALE_MODES.items()]
     runs += [("dist", q, sf, "dist", cluster.coordinator(sf, 1 << 20))
              for q, sf in DIST_SCALE]
     for path, q, sf, mode, runner in runs:
         graphs.clear()
-        runner.execute(ENGINE_SQL[q])  # warm-up (and graph captures)
+        runner.execute(sql("tpch", q))  # warm-up (and graph captures)
         torch.cuda.synchronize()
         replays0 = graphs.stats["replays"]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            runner.execute(ENGINE_SQL[q])
+            runner.execute(sql("tpch", q))
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         replays = graphs.stats["replays"] - replays0
@@ -975,19 +1087,22 @@ def main() -> int:
         measured["probe_dim"] = dim_t1
         measured["probe_radix"] = check_probe(gen, dev, 1 << 20)
         measured["part_ids"] = check_part_ids(gen, dev)[1]  # one key
+    cpu_dispatch = {}  # the kernels the CPU runs dispatched, per query
     if "check" in phases:
-        phase_check(dev)
+        cpu_dispatch.update(phase_check(dev))
     # launches: the sum over the main paths that ran (the single-process
     # scale runs and the distributed runs), each counted from 0
     launches = {k: None for k in KERNEL_NAMES}
-    if "scale" in phases:
-        launches = phase_scale(dev)
     cluster = None
     try:
         if phases & {"fused", "dist", "profile"}:
             cluster = DistCluster(dev, (0.01, 1.0, 10.0))
+        # fused before scale: the scale runs' required kernels come from
+        # the check and fused phases' CPU runs
         if "fused" in phases:
-            phase_fused(dev, cluster)
+            cpu_dispatch.update(phase_fused(dev, cluster))
+        if "scale" in phases:
+            launches = phase_scale(dev, cpu_dispatch)
         if "dist" in phases:
             dist = phase_dist(dev, cluster)
             launches = {k: (launches[k] or 0) + dist[k]

@@ -43,9 +43,12 @@ class SplitFilterConnector:
         return mine or [Split(table, 0, 0)]
 
     def pages(self, table: str, columns: Optional[Sequence[str]] = None,
-              target_rows: int = 1 << 20):
+              target_rows: int = 1 << 20, constraint=None):
         # re-implemented, not delegated: the inner pages() would call
         # the inner splits() and bypass the filter
-        for split in self.splits(table, target_rows):
+        splits = self.splits(table, target_rows)
+        if constraint:
+            splits = self._inner.prune_splits(table, splits, constraint)
+        for split in splits:
             if split.row_count:
                 yield self._inner.page_for_split(split, columns)

@@ -326,6 +326,11 @@ class _Lazy:
 
     __getitem__ = get
 
+    def merge(self, other: "_Lazy") -> None:
+        """Adopt another lazy's thunks (later put() calls override); their
+        memoization stays shared through the adopted thunks' closures."""
+        self._thunks.update(other._thunks)
+
 
 # ------------------------------------------------------------- connector
 

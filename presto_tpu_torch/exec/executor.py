@@ -25,10 +25,17 @@ project -> generated join -> partial aggregation chain runs per split
 (or per batch of splits) as ONE program, which exec/graphs.py captures
 into a CUDA graph on the card and replays.
 
-Left for later slices (ROADMAP): the windowed generated join, the
-cross-query launch batcher, late materialization, the memory governor,
-spill and partitioned joins/aggregations, semi/anti/cross joins,
-windows, HLL and collect aggregates, and the result cache.
+Semi and anti joins emit each probe page with a BOOLEAN match column
+(``_semi_join_page``), UniqueId numbers the stream's slots, and the
+windowed generated join (``_generated_join_window_page``) resolves
+fact-to-fact joins on slot-structured tables (TPC-DS ticket and order
+numbers) by generating the other keys at each candidate slot.
+
+Left for later slices (ROADMAP): the cross-query launch batcher, late
+materialization, the memory governor, spill and partitioned
+joins/aggregations (the grace-partitioned semi pass with them), cross
+joins, windows, grouping sets, HLL and collect aggregates, and the
+result cache.
 
 Deferred-sync discipline, as in the reference: overflow flags stay
 device scalars and are read ONCE per attempt; on overflow the whole
@@ -280,8 +287,13 @@ class Executor:
                     tuple(src[c] for c in spec.extra_channels)))
             return out
         if isinstance(node, P.HashJoin):
-            return self.output_types(node.left) + self.output_types(
-                node.right)
+            left = self.output_types(node.left)
+            if node.join_type in ("semi", "anti"):
+                # the probe page plus the match column the planner filters
+                return left + [T.BOOLEAN]
+            return left + self.output_types(node.right)
+        if isinstance(node, P.UniqueId):
+            return self.output_types(node.source) + [T.BIGINT]
         if isinstance(node, P.RemoteSource):
             return list(node.types)
         raise NotImplementedError(
@@ -299,7 +311,8 @@ class Executor:
                 return
         if isinstance(node, P.TableScan):
             yield from self.catalogs[node.catalog].pages(
-                node.table, node.columns, target_rows=self.page_rows)
+                node.table, node.columns, target_rows=self.page_rows,
+                constraint=node.constraint)
             return
         if isinstance(node, P.Filter):
             for page in self.pages(node.source):
@@ -344,6 +357,17 @@ class Executor:
         if isinstance(node, (P.Output, P.Exchange)):
             # single-device execution: an exchange is a pass-through
             yield from self.pages(node.source)
+            return
+        if isinstance(node, P.UniqueId):
+            # a row id unique across the stream: slot position plus the
+            # slots of the pages before (a host int: no device read)
+            offset = 0
+            for page in self.pages(node.source):
+                ids = Block(data=torch.arange(
+                    offset, offset + page.capacity, dtype=torch.int64,
+                    device=page.device), type=T.BIGINT)
+                offset += page.capacity
+                yield Page(blocks=page.blocks + (ids,), valid=page.valid)
             return
         if isinstance(node, P.RemoteSource):
             # DCN ingest (reference: ExchangeOperator): the registered
@@ -547,7 +571,10 @@ class Executor:
         for nd in reversed(chain):
             if isinstance(nd, tuple):
                 jnode, info = nd
-                steps.append(("map", self.generated_join_kernel(jnode, info)))
+                kern, windowed = self.generated_join_kernel(jnode, info)
+                # a windowed join's multi-match flag joins the deferred
+                # overflow ladder like an aggregation tail's
+                steps.append(("flag" if windowed else "map", kern))
                 self.generated_joins_used += 1
             else:
                 fn = _node_replay_fn(nd)
@@ -572,7 +599,7 @@ class Executor:
         def apply_steps(page, use_steps):
             flags = []
             for kind, fn in use_steps:
-                if kind == "aggflag":
+                if kind in ("flag", "aggflag"):
                     page, flag = fn(page)
                     flags.append(flag)
                 else:
@@ -646,14 +673,16 @@ class Executor:
             gen_fn = conn.gen_body(cur.table, n_pad_all, names)
             if steps[-1][0] == "map":
                 # global partial-agg tail: one state row per split,
-                # stacked — exactly the per-split states' concat (no
-                # step of such a chain raises a flag)
+                # stacked — exactly the per-split states' concat; a
+                # windowed join's flags OR into one per batch
                 def run_batch(starts, counts):
-                    states = [
+                    outs = [
                         run_split(gen_fn, n_pad_all, starts[b],
-                                  counts[b:b + 1], steps)[0]
+                                  counts[b:b + 1], steps)
                         for b in range(starts.shape[0])]
-                    return concat_all(states), ()
+                    flags = [f for _st, fl in outs for f in fl]
+                    states = concat_all([st for st, _fl in outs])
+                    return states, (or_flags(flags),) if flags else ()
 
                 return run_batch
             # grouped partial-agg tail: the splits run in turn and fold
@@ -941,10 +970,6 @@ class Executor:
 
     # ---------------------------------------------------------------- join
     def _exec_join(self, node: P.HashJoin) -> Iterator[Page]:
-        if node.join_type not in ("inner", "left", "right", "full"):
-            raise NotImplementedError(
-                f"{node.join_type} joins are not ported to "
-                "presto_tpu_torch yet (ROADMAP queue 1, slice B)")
         left_types = self.output_types(node.left)
         right_types = self.output_types(node.right)
         gj = self._generated_join_info(node, left_types)
@@ -1028,8 +1053,9 @@ class Executor:
         if inv is None and self._capacity_boost == 1:
             # windowed inverse (slot-structured fact tables): the pivot
             # key pins an L-slot candidate window and the other keys,
-            # generated per candidate, pick the row. No connector of the
-            # port offers one yet (generated_join_kernel refuses it)
+            # generated per candidate, pick the row. A probe row matching
+            # > 1 candidates raises the deferred flag and the boosted
+            # retry takes the general join (windowed is off at boost > 1)
             for j, rk in enumerate(node.right_keys):
                 sc = resolve(rk)
                 if sc is None:
@@ -1070,24 +1096,34 @@ class Executor:
     @staticmethod
     def generated_join_kernel(node: P.HashJoin, info):
         """The ONE place the _generated_join_info tuple meets the page
-        function (page -> page), shared by the per-page join and
-        _fused_stream."""
-        (pivot_ch, extra_pairs, inv, window, _gen_keys, gen, scan_types,
+        functions, shared by the per-page join and _fused_stream:
+        returns (page_fn, windowed). Plain: page -> page. Windowed:
+        page -> (page, multi_flag), the flag a device scalar the caller
+        defers to the overflow ladder."""
+        (pivot_ch, extra_pairs, inv, window, gen_keys, gen, scan_types,
          scan_dicts, chain_fns, n_rows) = info
-        if window > 1:
-            raise NotImplementedError(
-                "the windowed generated join is not ported to "
-                "presto_tpu_torch yet (ROADMAP queue 1, slice B)")
+        if window == 1:
+            return functools.partial(
+                _generated_join_page, pivot_ch, extra_pairs, node.join_type,
+                inv, gen, scan_types, scan_dicts, chain_fns, n_rows), False
         return functools.partial(
-            _generated_join_page, pivot_ch, extra_pairs, node.join_type,
-            inv, gen, scan_types, scan_dicts, chain_fns, n_rows)
+            _generated_join_window_page, pivot_ch, extra_pairs,
+            node.join_type, inv, window, gen_keys, gen, scan_types,
+            scan_dicts, chain_fns, n_rows), True
 
     def _exec_join_generated(self, node: P.HashJoin, info
                              ) -> Iterator[Page]:
         self.generated_joins_used += 1
-        kern = self.generated_join_kernel(node, info)
+        kern, windowed = self.generated_join_kernel(node, info)
         for page in self.pages(node.left):
-            yield kern(page)
+            if not windowed:
+                yield kern(page)
+                continue
+            out, multi = kern(page)
+            # > 1 in-window matches for some probe row: the key set is
+            # not unique in the data, and the retry takes the general join
+            self._pending_overflow.append(multi)
+            yield out
 
     def _kernels_allowed(self) -> bool:
         """Kernel joins engage on the first attempt only: a boosted
@@ -1136,7 +1172,13 @@ class Executor:
     def _join_pass(self, node: P.HashJoin, build: Page, probe_pages,
                    left_types, *, unique_build: bool = False):
         """One build+probe pass. unique_build: <=1 match per probe row —
-        output sized to the probe page exactly."""
+        output sized to the probe page exactly. Semi and anti joins emit
+        each probe page with its match column (_semi_join_page)."""
+        if node.join_type in ("semi", "anti"):
+            for page in probe_pages:
+                yield _semi_join_page(node.left_keys, node.right_keys, page,
+                                      build)
+            return
         use_radix = self._radix_join_eligible(node, build)
         layout = CJ.plan_layout(build.capacity) if use_radix else None
         use_unique = (not use_radix and unique_build
@@ -1308,16 +1350,82 @@ def _generated_join_page(left_key_ch, extra_pairs, join_type, inv, gen,
         if rblk.nulls is not None:
             eq = eq & ~rblk.nulls
         matched = matched & eq
+    return _extend_with_build(join_type, page, bpage, matched)
+
+
+def _extend_with_build(join_type, page: Page, bpage: Page,
+                       matched: torch.Tensor) -> Page:
+    """A generated join's output: the probe page extended in place with
+    the generated build columns (<= 1 match per probe row); a left join
+    keeps unmatched probe rows with NULL build columns."""
     if join_type == "left":
         right_blocks = tuple(
             b.with_data(b.data, nulls=(~matched if b.nulls is None
                                        else (b.nulls | ~matched)))
             for b in bpage.blocks)
-        out_valid = page.valid
-    else:  # inner
-        right_blocks = bpage.blocks
-        out_valid = page.valid & matched
-    return Page(blocks=page.blocks + right_blocks, valid=out_valid)
+        return Page(blocks=page.blocks + right_blocks, valid=page.valid)
+    return Page(blocks=page.blocks + bpage.blocks,
+                valid=page.valid & matched)
+
+
+def _generated_join_window_page(left_key_ch, extra_pairs, join_type, inv,
+                                window, gen_keys, gen, scan_types,
+                                scan_dicts, chain_fns, n_rows,
+                                page: Page):
+    """Windowed generated join: the pivot key pins an L-slot candidate
+    window of the slot-structured build table; the other key columns are
+    GENERATED at each candidate to resolve the unique matching row, then
+    the carried columns generate at the resolved rows — fact-to-fact
+    joins (store_sales to store_returns on ticket and item) with no build
+    state. Returns (page, multi_flag): the flag (a device scalar) trips
+    when some probe row matched > 1 candidates, i.e. the key set is not
+    unique in the data; the caller defers it to the overflow ladder."""
+    kblk = page.block(left_key_ch)
+    vals = kblk.data.to(torch.int64)
+    base, found = inv(vals)
+    if kblk.nulls is not None:
+        found = found & ~kblk.nulls
+    probe_extras = []
+    for lk, _rk in extra_pairs:
+        b = page.block(lk)
+        if b.nulls is not None:
+            found = found & ~b.nulls
+        probe_extras.append(b.data.to(torch.int64))
+    resolved = torch.zeros_like(vals)
+    any_match = torch.zeros_like(found)
+    multi = torch.zeros_like(found)
+    for k in range(window):
+        cand = (base + k).clamp(0, max(n_rows - 1, 0))
+        in_range = (base + k >= 0) & (base + k < n_rows)
+        kdatas, kvalid = gen_keys(cand)
+        mk = found & kvalid & in_range
+        for pv, kd in zip(probe_extras, kdatas):
+            mk = mk & (pv == kd.to(torch.int64))
+        multi = multi | (mk & any_match)
+        resolved = torch.where(mk & ~any_match, cand, resolved)
+        any_match = any_match | mk
+    datas, gvalid = gen(resolved)
+    bpage = Page(blocks=tuple(
+        Block(data=d, type=t, nulls=None, dictionary=dic)
+        for d, t, dic in zip(datas, scan_types, scan_dicts)
+    ), valid=any_match & gvalid)
+    for fn in chain_fns:
+        bpage = fn(bpage)
+    return (_extend_with_build(join_type, page, bpage, bpage.valid),
+            multi.any())
+
+
+def _semi_join_page(left_keys, right_keys, page: Page, build: Page) -> Page:
+    """Semi/anti join page: the probe page plus a BOOLEAN match column
+    whose NULLs carry SQL three-valued IN semantics; the planner's
+    filter above keeps (semi) or drops (anti) the matched rows."""
+    lcols, lnulls, rcols, rnulls = _canonical_join_cols(
+        [page.block(c) for c in left_keys],
+        [build.block(c) for c in right_keys])
+    has_match, null_result = J.semi_join_mask(
+        rcols, rnulls, build.valid, lcols, lnulls, page.valid)
+    match = Block(data=has_match, type=T.BOOLEAN, nulls=null_result)
+    return Page(blocks=page.blocks + (match,), valid=page.valid)
 
 
 def _project_page(exprs, page: Page) -> Page:

@@ -36,9 +36,10 @@ def _const_val(ctx: F.Ctx, node: ir.Constant) -> Val:
         return Val(torch.zeros((), dtype=torch.int32, device=dev), None, t,
                    py_value=node.value)
     if t.is_dictionary_encoded:
-        raise NotImplementedError(
-            f"{t} constants are not ported to presto_tpu_torch yet"
-        )
+        # complex constants (array/map/row literals): a one-entry
+        # dictionary makes the value first-class, as the reference does
+        return Val(torch.zeros((), dtype=torch.int32, device=dev), None, t,
+                   Dictionary([node.value]), py_value=node.value)
     return Val(torch.full((), node.value, dtype=t.device_dtype, device=dev),
                None, t, py_value=node.value)
 

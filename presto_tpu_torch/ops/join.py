@@ -197,3 +197,54 @@ def unique_join_lookup(
         found = found & (bc[bid] == pc)
     collision = (pvalid & ((hi - lo) > 1)).any()
     return bid, found, collision
+
+
+SEMI_WINDOW = 4
+
+
+def semi_join_mask(
+    build_cols: Sequence[torch.Tensor],
+    build_nulls: Sequence[Optional[torch.Tensor]],
+    build_valid: torch.Tensor,
+    probe_cols: Sequence[torch.Tensor],
+    probe_nulls: Sequence[Optional[torch.Tensor]],
+    probe_valid: torch.Tensor,
+) -> tuple:
+    """Per-probe-row (has_match, null_result) for IN / semi-join
+    predicates. null_result marks SQL three-valued unknown: the probe key
+    is NULL, or there is no match while the build set holds a NULL
+    (x IN (..., NULL) is NULL, not false).
+
+    The build hashes sort with invalid rows poisoned to the largest u64
+    (last in unsigned order); each probe row verifies the first
+    SEMI_WINDOW candidates of its hash range, and a range wider than the
+    window counts as a match on the hash alone (collision odds 2^-64).
+
+    Reference: presto_tpu/ops/join.py semi_join_mask;
+    operator/HashSemiJoinOperator.java + SetBuilderOperator."""
+    bcols, b_null = _fold_nulls(build_cols, build_nulls, False)
+    pcols, p_null = _fold_nulls(probe_cols, probe_nulls, False)
+    bvalid = build_valid & ~b_null
+    build_has_null = (build_valid & b_null).any()
+
+    none_nulls = [None] * len(bcols)
+    bhash = H.hash_columns(bcols, none_nulls)
+    phash = H.hash_columns(pcols, none_nulls)
+    poisoned = torch.where(bvalid, bhash, u64.POISON)
+    perm = torch.argsort(u64.order(poisoned), stable=True)
+    sorted_hash = poisoned[perm]
+    lo = searchsorted_u64(sorted_hash, phash, "left")
+    hi = searchsorted_u64(sorted_hash, phash, "right")
+
+    has_match = torch.zeros_like(probe_valid)
+    build_cap = bvalid.shape[0]
+    for w in range(SEMI_WINDOW):
+        bid = perm[(lo + w).clamp(0, build_cap - 1)]
+        ok = (lo + w < hi) & bvalid[bid]
+        for bc, pc in zip(bcols, pcols):
+            ok = ok & (bc[bid] == pc)
+        has_match = has_match | ok
+    has_match = has_match | ((hi - lo) > SEMI_WINDOW)
+
+    null_result = probe_valid & (p_null | (~has_match & build_has_null))
+    return probe_valid & has_match & ~p_null, null_result

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec.executor import Executor
 from presto_tpu_torch.exec.prune import prune_plan
+from presto_tpu_torch.exec.pushdown import push_scan_constraints
 from presto_tpu_torch.session import Session
 from presto_tpu_torch.sql import ast_nodes as N
 from presto_tpu_torch.sql.parser import parse
@@ -113,8 +114,8 @@ class LocalRunner:
             raise NotImplementedError(
                 f"{type(stmt).__name__} statements are not ported to "
                 "presto_tpu_torch yet; the slice runs SELECT queries")
-        return prune_plan(self._planner().plan_statement(stmt),
-                          self.catalogs)
+        return push_scan_constraints(prune_plan(
+            self._planner().plan_statement(stmt), self.catalogs))
 
     def execute(self, sql: str) -> QueryResult:
         out = self._plan_query(parse(sql))

@@ -157,5 +157,5 @@ def test_filter_matches_reference(name):
 
 def test_unported_function_names_the_slice():
     with pytest.raises(KeyError, match="not ported"):
-        IR.call("regexp_like", IR.Constant("a", T.VARCHAR),
+        IR.call("json_extract", IR.Constant("a", T.VARCHAR),
                 IR.Constant("b", T.VARCHAR))

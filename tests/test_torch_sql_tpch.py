@@ -212,10 +212,10 @@ def test_more_joins_match_sqlite(name, kernels, conn, db):
 
 
 def test_generated_join_is_a_later_slice(conn):
-    """The closed-form generated join is ported; its windowed form (for
-    slot-structured fact tables, TPC-DS) is a later slice: no TPC-H
-    column offers a windowed inverse, so the closed form serves every
-    generated join."""
+    """Both forms of the generated join are ported; the windowed one
+    serves slot-structured fact tables (TPC-DS ticket and order numbers,
+    tests/test_torch_sql_tpcds*.py). No TPC-H column offers a windowed
+    inverse, so on TPC-H the closed form serves every generated join."""
     runner = LocalRunner({"tpch": conn}, device="cpu",
                          session={"generated_join_enabled": "true"})
     assert runner.executor.generated_join
