@@ -30,20 +30,34 @@ Phases:
            on the card
   scale    the main path at size, through LocalRunner: Q1 and Q6 at SF
            10, Q3, Q5 and Q17 at SF 1 under the default session, with the
-           three fusion switches off, and op by op (SCALE_MODES), and the
+           three fusion switches off, and op by op (SCALE_MODES; Q3, Q5
+           and Q17 op by op again with late materialization off), and the
            15 other TPC-H queries and TPC-DS Q17 and Q64 at SF 1 under
            the same three sessions: per-query wall time, first-run
            graph captures, peak memory, program launches and kernel
            launch counts (through graph replays); rows equal across
            sessions; every kernel the same query's CPU run dispatched
            must launch, unless this size puts that dispatch point beyond
-           the kernel's range (DispatchPoints)
+           the kernel's range (DispatchPoints); then the BASELINE
+           ladder's memory-governed rungs at their stated scale, Q3 and
+           Q5 at SF 10 and Q1 at SF 100, under default and eager; Q1
+           and Q6 at SF 10 must match the reference's row checksums
+           (val_q1_sf10.json, val_q6_sf10.json)
   dist     the distributed path: 4 in-process WorkerServers on the card
            and a DcnRunner (stage DAG, partitioned joins, every exchange
            partitioned on the card through K4). Q3 and Q5 at SF 0.01 ==
            the card's LocalRunner == sqlite; then Q1 at SF 10, Q3 and Q5
            at SF 1 (page_rows 2^20): one warm-up and 3 timed runs each,
            rows == the single-process rows, and == again with K4 off
+  governed Q3 and Q5 at SF 10, Q18 and TPC-DS Q64 at SF 1 on the eager
+           session: unbounded, then under a small device_memory_budget
+           and with the spill variants that reach the host and the disk
+           tiers (GOVERNED): rows equal the unbounded run's, with the
+           governor's counters, peaks and kernel launches
+  oom      the device-OOM ladder: an injected fault (one retry, equal
+           rows), then the card's own torch.cuda.OutOfMemoryError under a
+           lowered per-process memory fraction, absorbed by a retry at a
+           halved budget with equal rows
   profile  (only when asked for) the base scale rungs under each session
            and the dist queries once more under torch.profiler: device
            busy share, device kernels, graph replays, device time by
@@ -60,20 +74,24 @@ from __future__ import annotations
 import argparse
 import collections
 import datetime
+import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 import torch
 
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound_ms column
 HBM_BYTES_PER_S = 3.35e12
 
-ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist")
+ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
+              "governed", "oom")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -85,8 +103,42 @@ DEVICE_ROUNDS = 3
 ROTATE_BYTES = 100 * 10**6
 
 
+# where the disk spill tier writes (git-ignored; emptied as each query
+# ends)
+SPILL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_spill")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def memory_peaks(dev) -> tuple:
+    """(max allocated, max reserved) bytes since the last reset."""
+    return (torch.cuda.max_memory_allocated(dev),
+            torch.cuda.max_memory_reserved(dev))
+
+
+def fresh_memory(dev) -> None:
+    """Drop the program cache's graphs and the allocator's free blocks,
+    and restart the peak counters: a reading then holds its own memory
+    only."""
+    from presto_tpu_torch.exec import graphs
+
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def rows_checksum(rows) -> int:
+    """Order-insensitive digest of result rows: the sum of each row's
+    crc32 over its repr, mod 2^32 (the digest of the reference's
+    val_q*_sf10.json files, written by tools/validate_rung.py)."""
+    csum = 0
+    for row in rows:
+        csum = (csum + zlib.crc32(repr(row).encode())) & 0xFFFFFFFF
+    return csum
 
 
 def card_line() -> str:
@@ -617,11 +669,49 @@ SCALE_MODES = {
                   "split_batch_size": "false"},
     "eager": {"generated_join_enabled": "false",
               "tpu_offload_enabled": "false"},
+    # eager with late materialization off (its "auto" is on on the card):
+    # what deferring the carried build columns does to the join rungs
+    "eager_lm_off": {"generated_join_enabled": "false",
+                     "tpu_offload_enabled": "false",
+                     "late_materialization_enabled": "false"},
 }
 EAGER_SESSION = SCALE_MODES["eager"]
+# the base rungs with joins, which also run eager_lm_off
+LATE_MAT_RUNGS = ((3, 1.0), (5, 1.0), (17, 1.0))
+# the BASELINE ladder's memory-governed rungs at their stated scale
+# (bench.py: q3_sf10, q5_sf10, q1_sf100), under default and eager
+STATED_SCALE = ((3, 10.0), (5, 10.0), (1, 100.0))
+STATED_MODES = ("default", "eager")
 SCALE_RUNS = (tuple(("tpch", q, sf) for q, sf in BASE_SCALE)
               + tuple(("tpch", q, 1.0) for q in NEW_TPCH)
-              + tuple(("tpcds", q, 1.0) for q in NEW_TPCDS))
+              + tuple(("tpcds", q, 1.0) for q in NEW_TPCDS)
+              + tuple(("tpch", q, sf) for q, sf in STATED_SCALE))
+# the reference's row checksums at SF 10 (rows, checksum_crc32)
+VALIDATED = {(1, 10.0): "val_q1_sf10.json", (6, 10.0): "val_q6_sf10.json"}
+
+
+def scale_modes(suite: str, q: int, sf: float) -> tuple:
+    if suite == "tpch" and (q, sf) in STATED_SCALE:
+        return STATED_MODES
+    if suite == "tpch" and (q, sf) in LATE_MAT_RUNGS:
+        return tuple(SCALE_MODES)
+    return ("default", "three_off", "eager")
+
+
+def check_validated(q: int, sf: float, rows) -> str:
+    """Rows against the reference's checksum file of (q, sf), if any."""
+    name = VALIDATED.get((q, sf))
+    if name is None:
+        return ""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           name)) as f:
+        want = json.load(f)
+    got = rows_checksum(rows)
+    if len(rows) != want["rows"] or got != want["checksum_crc32"]:
+        raise AssertionError(
+            f"Q{q} SF {sf:g}: {len(rows)} rows, checksum {got}; "
+            f"{name} has {want['rows']} rows, {want['checksum_crc32']}")
+    return f", checksum {got} == {name}"
 # kernels the base rungs' main paths must launch, per session
 REQUIRED = {
     "default": {1: ("segsum",), 6: ("segsum",), 3: (), 5: (), 17: ()},
@@ -630,6 +720,7 @@ REQUIRED = {
     "eager": {1: ("segsum",), 6: ("segsum",), 3: ("probe_radix",),
               5: ("probe_dim", "probe_radix"), 17: ()},
 }
+REQUIRED["eager_lm_off"] = REQUIRED["eager"]
 
 
 # a kernel's dispatch point: K1, or the hash-join probe, whose layout
@@ -763,15 +854,13 @@ def phase_scale(dev, cpu_dispatch: dict) -> dict:
             conns[(suite, sf)] = make_conn(suite, sf, dev)
             log(f"scale: {suite} SF {sf:g} connector built in "
                 f"{time.perf_counter() - t0:.2f} s")
-        name = f"{suite} Q{q}"
-        for mode in SCALE_MODES:
+        name = f"{suite} Q{q} SF {sf:g}"
+        for mode in scale_modes(suite, q, sf):
             runner = make_runner(suite, conns[(suite, sf)], dev,
                                  {"page_rows": page_rows,
                                   **SCALE_MODES[mode]})
             # each reading holds its own graphs' memory only
-            graphs.clear()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+            fresh_memory(dev)
             before = dict(cuda.launches)
             cap0 = dict(graphs.stats)
             gen0 = runner.executor.generated_joins_used
@@ -799,14 +888,15 @@ def phase_scale(dev, cpu_dispatch: dict) -> dict:
                              if ex.program_launches else 0.0),
                          fused_partial_aggs=ex.fused_partial_aggs,
                          generated_joins=gen_first)
-            peak = torch.cuda.max_memory_allocated()
-            reserved = torch.cuda.max_memory_reserved()
+            peak, reserved = memory_peaks(dev)
             runs = 1 + TIMED_RUNS
             base = suite == "tpch" and (q, sf) in BASE_SCALE
+            valid = check_validated(q, sf, res.rows) if suite == "tpch" \
+                else ""
             required = (REQUIRED[mode][q] if base
                         else required_families(cpu_dispatch, suite, q,
                                                mode))
-            log(f"scale: {name} SF {sf:g} {mode}: rows {len(res.rows)}, "
+            log(f"scale: {name} {mode}: rows {len(res.rows)}{valid}, "
                 f"wall s {[round(w, 4) for w in walls]} (median "
                 f"{statistics.median(walls):.4f}), first run "
                 f"{first_s:.3f} s with {captures} graph captures taking "
@@ -815,7 +905,8 @@ def phase_scale(dev, cpu_dispatch: dict) -> dict:
                 f"kernel launches per run "
                 f"{ {k: v // runs for k, v in counts.items()} }, required "
                 f"{required}, out of range here {points.excused(counts)}, "
-                f"boost retries {ex.capacity_boost_retries}")
+                f"boost retries {ex.capacity_boost_retries}, governor "
+                f"{governor_counters(ex)}")
             if base:
                 missing += [f"{name} {mode}: {k}" for k in required
                             if counts[k] <= 0]
@@ -836,11 +927,12 @@ def phase_scale(dev, cpu_dispatch: dict) -> dict:
                 raise AssertionError(f"{name} {mode}: rows differ from "
                                      f"{next(iter(SCALE_MODES))}")
             if not res.rows:
-                raise AssertionError(f"{name} SF {sf:g}: no rows")
+                raise AssertionError(f"{name}: no rows")
             rows[mode] = dict(wall_s=walls, first_run_s=first_s,
                               captures=captures, capture_s=capture_s,
                               peak_bytes=peak, reserved_bytes=reserved,
-                              launches=counts, **fused)
+                              launches=counts, **fused,
+                              **governor_counters(ex))
             for k in KERNEL_NAMES:
                 launches_total[k] += counts[k]
     for v in per_query.values():
@@ -852,6 +944,279 @@ def phase_scale(dev, cpu_dispatch: dict) -> dict:
         raise AssertionError("scale: required kernels never launched: "
                              + "; ".join(missing))
     return launches_total
+
+
+def governor_counters(ex) -> dict:
+    """The memory governor's and spill's counters of the last query."""
+    return dict(spill_partitions_used=ex.spill_partitions_used,
+                memory_chunked_pipelines=ex.memory_chunked_pipelines,
+                host_spill_pages=ex.host_spill_pages,
+                disk_spill_pages=ex.disk_spill_pages,
+                skew_chunks_used=ex.skew_chunks_used,
+                device_oom_retries=ex.device_oom_retries)
+
+
+# ----------------------------------------------------- the governed paths
+
+# the BASELINE SF 10 join rungs and the SF 1 rungs with the largest
+# footprints (Q18 eager above 11 GiB, DS Q64 default above 22 GiB), on the
+# eager session (materialized joins: the grace passes have builds), each
+# with its forced variants besides the unbounded run: "budget" is the
+# device_memory_budget that makes the governor bind at its scale (an 80
+# GB card's auto budget, ~70 GiB, rarely does at SF 10); "host" is a
+# spill_threshold_bytes with host_spill_bytes (grace passes by
+# threshold, their restreamed sides in host RAM); "disk" adds
+# disk_spill_bytes to the budget or to the threshold (the stores go to
+# files). Each threshold partitions only the builds named: Q3 SF 10's
+# orders build (8 passes over a regenerated lineitem scan, so no store
+# exists to spill, and Q3 has no disk variant); Q5 SF 10's orders build
+# over a stored probe; in each of TPC-DS Q64's two CTE halves, the
+# catalog-side build (95 MB by estimate) over a stored chain that holds
+# the store_sales x store_returns join (111 MB), so that those two nest
+# (its final self-join, 327 MB, has string keys and stays single-pass;
+# a budget small enough for grace passes nests six of its joins, and
+# their stores outgrew the 96 GiB of host memory of a one-card
+# machine). Q5 SF 1 at a 2 MiB threshold nests two grace joins: 16
+# passes over orders inside 8 over customer, the inner join's output
+# stored for the outer's passes
+GOVERNED = (
+    ("tpch", 3, 10.0, {"budget": {"device_memory_budget": 2 << 30},
+                       "host": {"spill_threshold_bytes": 256 << 20,
+                                "host_spill_bytes": 1}}),
+    ("tpch", 5, 10.0, {"budget": {"device_memory_budget": 2 << 30},
+                       "host": {"spill_threshold_bytes": 256 << 20,
+                                "host_spill_bytes": 1},
+                       "disk": {"device_memory_budget": 2 << 30,
+                                "disk_spill_bytes": 1}}),
+    ("tpch", 5, 1.0, {"host": {"spill_threshold_bytes": 2 << 20,
+                               "host_spill_bytes": 1}}),
+    ("tpch", 18, 1.0, {"budget": {"device_memory_budget": 256 << 20},
+                       "host": {"spill_threshold_bytes": 32 << 20,
+                                "host_spill_bytes": 1},
+                       "disk": {"device_memory_budget": 256 << 20,
+                                "disk_spill_bytes": 1}}),
+    ("tpcds", 64, 1.0, {"budget": {"device_memory_budget": 2 << 30},
+                        "host": {"spill_threshold_bytes": 64 << 20,
+                                 "host_spill_bytes": 1},
+                        "disk": {"spill_threshold_bytes": 64 << 20,
+                                 "disk_spill_bytes": 1}}),
+)
+
+
+def watch_grace_depth(ex) -> dict:
+    """Wrap one executor's grace-partitioned join so that the returned
+    dict reads the deepest nesting of live grace joins ("depth": 2 = a
+    grace join whose input is another grace join's output)."""
+    orig = ex._exec_join_partitioned
+    state = {"live": 0, "depth": 0}
+
+    def wrapped(*args, **kwargs):
+        state["live"] += 1
+        state["depth"] = max(state["depth"], state["live"])
+        try:
+            yield from orig(*args, **kwargs)
+        finally:
+            state["live"] -= 1
+
+    ex._exec_join_partitioned = wrapped
+    return state
+
+
+def phase_governed(dev) -> dict:
+    """Each GOVERNED query on the eager session, unbounded and then under
+    each of its forced variants: rows equal the unbounded run's, and the
+    phase must reach grace passes, nested grace joins, governed
+    rewrites, the host tier and the disk tier (files under SPILL_DIR).
+    Returns the kernels the forced runs launched."""
+    from presto_tpu_torch import cuda
+
+    page_rows = 1 << 20
+    os.makedirs(SPILL_DIR, exist_ok=True)
+    launches_total = {k: 0 for k in KERNEL_NAMES}
+    reached = collections.Counter()
+    per_query = {}
+    conns = {}
+    for suite, q, sf, forced in GOVERNED:
+        if (suite, sf) not in conns:
+            conns[(suite, sf)] = make_conn(suite, sf, dev)
+        conn = conns[(suite, sf)]
+        variants = {"unbounded": {}, **{
+            v: {**props, "spill_path": SPILL_DIR} if "disk" in v
+            else props for v, props in forced.items()}}
+        name = f"{suite} Q{q} SF {sf:g}"
+        want = None
+        for variant, props in variants.items():
+            runner = make_runner(suite, conn, dev, {
+                "page_rows": page_rows, **EAGER_SESSION, **props})
+            grace = watch_grace_depth(runner.executor)
+            fresh_memory(dev)
+            cuda.reset_counts()
+            t0 = time.perf_counter()
+            res = runner.execute(sql(suite, q))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: cuda.launches.get(k, 0) for k in KERNEL_NAMES}
+            peak, reserved = memory_peaks(dev)
+            ctr = {**governor_counters(runner.executor),
+                   "grace_join_depth": grace["depth"]}
+            if want is None:
+                want = res.rows
+                if not want:
+                    raise AssertionError(f"governed: {name}: no rows")
+            elif not same_rows(res.rows, want):
+                raise AssertionError(f"governed: {name} {variant}: rows "
+                                     f"differ from the unbounded run")
+            else:
+                for k in KERNEL_NAMES:
+                    launches_total[k] += counts[k]
+                reached["grace passes"] += ctr["spill_partitions_used"] > 1
+                reached["nested grace joins"] += ctr["grace_join_depth"] > 1
+                reached["governed rewrites"] += \
+                    ctr["memory_chunked_pipelines"] > 0
+                reached["host tier"] += ctr["host_spill_pages"] > 0
+                reached["disk tier"] += ctr["disk_spill_pages"] > 0
+            log(f"governed: {name} {variant} {props}: rows {len(res.rows)}"
+                f"{' == unbounded' if variant != 'unbounded' else ''}, "
+                f"wall {wall:.4f} s, peak alloc {peak / 2**30:.3f} GiB "
+                f"(reserved {reserved / 2**30:.3f} GiB), {ctr}, kernels "
+                f"launched {counts}, boost retries "
+                f"{runner.executor.capacity_boost_retries}")
+            per_query.setdefault(name, {})[variant] = dict(
+                wall_s=wall, peak_bytes=peak, reserved_bytes=reserved,
+                launches=counts, **ctr)
+    fresh_memory(dev)
+    left = os.listdir(SPILL_DIR)
+    if not left:
+        os.rmdir(SPILL_DIR)
+    log("governed: " + json.dumps({"reached": reached,
+                                   "per_query": per_query}))
+    if left:
+        raise AssertionError(f"governed: spill files left behind: {left}")
+    missing = [t for t in ("grace passes", "nested grace joins",
+                           "governed rewrites", "host tier", "disk tier")
+               if not reached[t]]
+    if missing:
+        raise AssertionError(f"governed: never reached {missing}")
+    return launches_total
+
+
+# ---------------------------------------------------------- the OOM ladder
+
+# the real out-of-memory run: TPC-H Q1 SF 10 on the eager session in
+# 2^23-row pages under a 4 GiB budget, which keeps the full page
+# (membudget.rows_cap: 4 GiB / 8 over Q1's 46-byte rows); a quarter of
+# it (two ladder halvings) governs the pages down to 2^21 rows
+OOM_PAGE_ROWS = 1 << 23
+OOM_BUDGET = 4 << 30
+
+
+def phase_oom(dev) -> dict:
+    """The device-OOM ladder on the card. First an injected fault on the
+    default session (Q1 SF 10, its graphs captured): one retry, equal
+    rows. Then the card's own torch.cuda.OutOfMemoryError: two
+    calibration runs measure the peaks of the first attempt (budget B)
+    and of the ladder's second halving (B / 4); the per-process memory
+    fraction is set between them, so the first attempt cannot fit; the
+    ladder must then finish the query under a halved budget with equal
+    rows. The fraction is restored afterwards. Returns the kernels the
+    ladder's runs launched."""
+    from presto_tpu_torch import cuda
+
+    conn = make_conn("tpch", 10.0, dev)
+    launches_total = {k: 0 for k in KERNEL_NAMES}
+    q1 = sql("tpch", 1)
+
+    # the injected fault, default session
+    plain = make_runner("tpch", conn, dev, {"page_rows": 1 << 20})
+    fresh_memory(dev)
+    want = plain.execute(q1).rows
+    runner = make_runner("tpch", conn, dev, {"page_rows": 1 << 20})
+    runner.executor.inject_device_oom = 1
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    got = runner.execute(q1).rows
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ex = runner.executor
+    for k in KERNEL_NAMES:
+        launches_total[k] += cuda.launches.get(k, 0)
+    if ex.device_oom_retries != 1 or not same_rows(got, want):
+        raise AssertionError(f"oom: injected fault: device_oom_retries "
+                             f"{ex.device_oom_retries}, rows equal "
+                             f"{same_rows(got, want)}")
+    log(f"oom: injected device fault, Q1 SF 10 default: "
+        f"device_oom_retries 1, rows == the plain run's, wall {wall:.4f} s")
+
+    # the card's own OOM, eager session
+    session = {"page_rows": OOM_PAGE_ROWS, **EAGER_SESSION}
+    peaks = {}
+    for div in (1, 4):
+        r = make_runner("tpch", conn, dev, {
+            **session, "device_memory_budget": OOM_BUDGET // div})
+        fresh_memory(dev)
+        rows = r.execute(q1).rows
+        torch.cuda.synchronize()
+        peaks[div] = memory_peaks(dev)
+        if not same_rows(rows, want):
+            raise AssertionError(f"oom: calibration at budget / {div}: "
+                                 f"rows differ")
+        lineitem = [r.executor.output_types(n) for n in _scans(
+            r.plan(q1))][0]
+        log(f"oom: calibration, budget {OOM_BUDGET // div / 2**30:g} GiB: "
+            f"page rows {r.executor._governed_target_rows(lineitem, False)}"
+            f", peak alloc {peaks[div][0] / 2**30:.3f} GiB, reserved "
+            f"{peaks[div][1] / 2**30:.3f} GiB")
+    # the limit sits between the second halving's reserve and the first
+    # attempt's allocation
+    low, high = peaks[4][1], peaks[1][0]
+    if not low < high:
+        raise AssertionError(f"oom: calibration does not separate: B / 4 "
+                             f"reserves {low}, B allocates {high}")
+    total = torch.cuda.mem_get_info(dev)[1]
+    limit = (low + high) // 2
+    runner = make_runner("tpch", conn, dev, {
+        **session, "device_memory_budget": OOM_BUDGET})
+    fresh_memory(dev)
+    cuda.reset_counts()
+    torch.cuda.set_per_process_memory_fraction(limit / total, dev)
+    try:
+        t0 = time.perf_counter()
+        got = runner.execute(q1).rows
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = memory_peaks(dev)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    ex = runner.executor
+    for k in KERNEL_NAMES:
+        launches_total[k] += cuda.launches.get(k, 0)
+    # the ladder must have absorbed the card's own error type, not some
+    # other RuntimeError that mentions memory
+    faults = [t.__qualname__ for t in ex.device_oom_faults]
+    ok = (ex.device_oom_retries >= 1 and same_rows(got, want)
+          and all(t is torch.cuda.OutOfMemoryError
+                  for t in ex.device_oom_faults))
+    log(f"oom: the card's own OOM, Q1 SF 10 eager, {OOM_PAGE_ROWS}-row "
+        f"pages, budget {OOM_BUDGET / 2**30:g} GiB, memory limit "
+        f"{limit / 2**30:.3f} GiB: device_oom_retries "
+        f"{ex.device_oom_retries} absorbing {faults}, final budget {ex._budget() / 2**30:g} "
+        f"GiB, rows {'==' if same_rows(got, want) else '!='} the plain "
+        f"run's, wall {wall:.4f} s, peak alloc {peak[0] / 2**30:.3f} GiB "
+        f"(reserved {peak[1] / 2**30:.3f} GiB)")
+    if not ok:
+        raise AssertionError(f"oom: the card's OOM was not absorbed "
+                             f"(faults {faults})")
+    fresh_memory(dev)
+    return launches_total
+
+
+def _scans(node):
+    """The TableScan nodes of a plan."""
+    from presto_tpu_torch.exec import plan as P
+
+    if isinstance(node, P.TableScan):
+        return [node]
+    return [s for c in node.children() for s in _scans(c)]
 
 
 # ------------------------------------------------------ the distributed path
@@ -1091,7 +1456,8 @@ def main() -> int:
     if "check" in phases:
         cpu_dispatch.update(phase_check(dev))
     # launches: the sum over the main paths that ran (the single-process
-    # scale runs and the distributed runs), each counted from 0
+    # scale runs, the distributed runs, the governed and the OOM-ladder
+    # runs), each counted from 0
     launches = {k: None for k in KERNEL_NAMES}
     cluster = None
     try:
@@ -1106,6 +1472,14 @@ def main() -> int:
         if "dist" in phases:
             dist = phase_dist(dev, cluster)
             launches = {k: (launches[k] or 0) + dist[k]
+                        for k in KERNEL_NAMES}
+        if "governed" in phases:
+            gov = phase_governed(dev)
+            launches = {k: (launches[k] or 0) + gov[k]
+                        for k in KERNEL_NAMES}
+        if "oom" in phases:
+            oom = phase_oom(dev)
+            launches = {k: (launches[k] or 0) + oom[k]
                         for k in KERNEL_NAMES}
         if "profile" in phases:
             phase_profile(dev, cluster)

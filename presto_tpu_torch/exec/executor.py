@@ -31,9 +31,18 @@ windowed generated join (``_generated_join_window_page``) resolves
 fact-to-fact joins on slot-structured tables (TPC-DS ticket and order
 numbers) by generating the other keys at each candidate slot.
 
-Left for later slices (ROADMAP): the cross-query launch batcher, late
-materialization, the memory governor, spill and partitioned
-joins/aggregations (the grace-partitioned semi pass with them), cross
+The scale paths: the device-memory governor (exec/membudget.py) sizes
+scan pages, fused chains, join outputs, join builds and aggregation
+state to shares of a byte budget; over their share, joins and grouped
+aggregations run in grace (hash-partition) passes, whose re-streamed
+intermediates live in exec/pagestore.py's device, host or disk tier;
+a hot join partition chunks by position on a boosted retry (skew
+rebalance). A device memory fault (exec/faults.py) re-enters the query
+under a halved budget (the device-OOM ladder of stream_fragment). Join
+chains may defer carried build columns as row-id indirections (late
+materialization, exec/latemat.py).
+
+Left for later slices (ROADMAP): the cross-query launch batcher, cross
 joins, windows, grouping sets, HLL and collect aggregates, and the
 result cache.
 
@@ -48,9 +57,11 @@ operator chains.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
 import time
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,9 +70,14 @@ from presto_tpu_torch import resolve_device
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors.base import Connector
 from presto_tpu_torch.exec import agg_states as S
+from presto_tpu_torch.exec import faults as FAULTS
 from presto_tpu_torch.exec import graphs
+from presto_tpu_torch.exec import latemat as LM
+from presto_tpu_torch.exec import membudget as MB
 from presto_tpu_torch.exec import plan as P
+from presto_tpu_torch.exec import prune as PR
 from presto_tpu_torch.exec import shapes as SH
+from presto_tpu_torch.exec.pagestore import PageStore, page_bytes
 from presto_tpu_torch.expr.eval import evaluate, evaluate_filter
 from presto_tpu_torch.expr.ir import InputRef
 from presto_tpu_torch.ops import agg as A
@@ -71,13 +87,20 @@ from presto_tpu_torch.ops import cuda_join as CJ
 from presto_tpu_torch.ops import hashing as H
 from presto_tpu_torch.ops import join as J
 from presto_tpu_torch.ops import keys as K
-from presto_tpu_torch.ops.compact import compact_page, concat_all, gather_rows
+from presto_tpu_torch.ops import u64
+from presto_tpu_torch.ops.compact import (compact_page, concat_all,
+                                          gather_rows, slice_page)
 from presto_tpu_torch.ops.sort import sort_page
 from presto_tpu_torch.page import Block, Dictionary, Page
 
 _next_pow2 = SH.bucket
 
 _MAX_ATTEMPTS = 6
+
+
+class MemoryBudgetExceeded(RuntimeError):
+    """Reference: ExceededMemoryLimitException — a page footprint past
+    query_max_memory_bytes fails the query rather than thrash."""
 
 
 class QueryDeadlineExceeded(RuntimeError):
@@ -155,8 +178,10 @@ def _canonical_join_cols(left_blocks: List[Block],
 class _FoldBuffer:
     """Bounded incremental merge of partial-state pages: buffered pages
     flush into one accumulator through a merge-only group-by whenever
-    flush_slots accumulate (reference: InMemoryHashAggregationBuilder
-    flushing under memory pressure)."""
+    flush_slots accumulate. Shared by the single-pass aggregation, the
+    multi-pass partitioned aggregation and the per-partition fold
+    accumulators (reference: InMemoryHashAggregationBuilder flushing
+    under memory pressure)."""
 
     def __init__(self, ex, merge_fn, pcap, max_iters, flush_slots):
         self.ex = ex
@@ -167,9 +192,13 @@ class _FoldBuffer:
         self.acc = None
         self.buf: list = []
         self.slots = 0
+        self.saw_input = False
 
     def add(self, page) -> None:
+        self.saw_input = True
         if self.buf and self.slots + page.capacity > self.flush_slots:
+            # pre-flush: the merge concat stays bounded by acc +
+            # flush_slots + one page (the governor's fold bound)
             self.flush()
         self.buf.append(page)
         self.slots += page.capacity
@@ -180,7 +209,9 @@ class _FoldBuffer:
         pages = ([self.acc] if self.acc is not None else []) + self.buf
         if not pages:
             return None
-        return concat_all(pages) if len(pages) > 1 else pages[0]
+        merged = concat_all(pages) if len(pages) > 1 else pages[0]
+        self.ex._account_page(merged)
+        return merged
 
     def flush(self) -> None:
         merged = self._merged()
@@ -252,6 +283,58 @@ class Executor:
         self.mesh_local_exchanges = 0
         self.stages_scheduled = 0
         self.release_skips = 0
+        # ---- memory governor, spill and the device-OOM ladder (the
+        # reference's session properties of the same names; runner.
+        # apply_session wires them). Page footprints are computed from
+        # static shapes (host arithmetic, never a device read): their
+        # high-water mark is peak_memory_bytes, and one past
+        # max_memory_bytes fails the query (MemoryBudgetExceeded)
+        self.max_memory_bytes: Optional[int] = None
+        self.peak_memory_bytes = 0
+        # grace partitioning: join builds / aggregation states whose
+        # estimate exceeds spill_bytes run in hash-partition passes;
+        # max_build_rows partitions joins on the build's row estimate
+        self.spill_bytes: Optional[int] = None
+        self.max_build_rows: Optional[int] = None
+        self.spill_partitions_used = 0
+        # restreamable intermediates of multi-pass operators
+        # (_source_stream): above host_spill_bytes they stage to host
+        # RAM, above disk_spill_bytes to files under spill_path
+        self.host_spill_bytes: Optional[int] = None
+        self.disk_spill_bytes: Optional[int] = None
+        self.spill_path: Optional[str] = None
+        self._stream_cache: Dict = {}
+        self.host_spill_pages = 0
+        self.host_spill_bytes_used = 0
+        self.disk_spill_pages = 0
+        # on boosted retries, inner grace-join partitions chunk their
+        # build rows by position (skew_chunks_used: most chunks of one
+        # partition)
+        self.join_skew_rebalance = True
+        self.skew_chunks_used = 0
+        # device-memory budget in bytes (0 = auto, exec/membudget.py);
+        # memory_chunked_pipelines: governed rewrites this attempt
+        self.device_memory_budget = 0
+        self._budget_resolved: Optional[Tuple] = None
+        self.memory_chunked_pipelines = 0
+        # device-OOM ladder: a device memory fault re-enters the query
+        # under a halved budget, up to device_oom_attempts times;
+        # inject_device_oom raises a synthetic fault on the next N
+        # attempts (tests, the chip check)
+        self.device_oom_attempts = 2
+        self.device_oom_retries = 0
+        # the type of each fault the ladder absorbed, in order
+        self.device_oom_faults: List[type] = []
+        self._oom_divisor = 1
+        self.inject_device_oom = 0
+        # late materialization (late_materialization_enabled): "auto"
+        # is on a CUDA executor; a raw Executor defaults to on, as the
+        # reference's does. gathers_deferred: per-page column gathers
+        # skipped at join output; gathers_materialized: per-page column
+        # gathers performed (lift + chain-boundary finish)
+        self.late_mat = True
+        self.gathers_deferred = 0
+        self.gathers_materialized = 0
 
     # --------------------------------------------------------------- types
     def output_types(self, node: P.PhysicalNode) -> List[T.SqlType]:
@@ -303,15 +386,25 @@ class Executor:
 
     # ------------------------------------------------------------- execute
     def pages(self, node: P.PhysicalNode) -> Iterator[Page]:
-        """Stream the pages of a node."""
+        """Stream the pages of a node, each accounted against the query's
+        memory limit (_account_page)."""
+        for page in self._pages_impl(node):
+            self._account_page(page)
+            yield page
+
+    def _pages_impl(self, node: P.PhysicalNode) -> Iterator[Page]:
         if isinstance(node, (P.Filter, P.Project, P.HashJoin)):
             fused = self._fused_stream(node)
             if fused is not None:
                 yield from fused
                 return
         if isinstance(node, P.TableScan):
+            # generation-chunked scan (membudget.py): the page shrinks
+            # so one generated buffer fits its budget share
             yield from self.catalogs[node.catalog].pages(
-                node.table, node.columns, target_rows=self.page_rows,
+                node.table, node.columns,
+                target_rows=self._governed_target_rows(
+                    self.output_types(node)),
                 constraint=node.constraint)
             return
         if isinstance(node, P.Filter):
@@ -397,8 +490,16 @@ class Executor:
         Runs the plan with no host synchronization, then reads the
         accumulated capacity-overflow flags once; on overflow the query
         re-runs with boosted capacities (the query-scope analog of the
-        reference engine's per-operator retry)."""
+        reference engine's per-operator retry), and on a device memory
+        fault under a halved memory budget (stream_fragment's ladder).
+        The governor's and spill's counters describe this query."""
         names = list(node.names) if isinstance(node, P.Output) else None
+        self.peak_memory_bytes = 0
+        self.spill_partitions_used = 0
+        self.host_spill_pages = 0
+        self.host_spill_bytes_used = 0
+        self.disk_spill_pages = 0
+        self.skew_chunks_used = 0
         rows: List[tuple] = []
         for page in self.stream_fragment(node, lambda page: page):
             rows.extend(page.to_pylist())
@@ -412,39 +513,198 @@ class Executor:
         return bool(torch.stack(
             [f.reshape(()) for f in self._pending_overflow]).any())
 
+    def _begin_attempt(self) -> None:
+        """Per-attempt reset shared by every attempt of the ladder:
+        deferred flags, materialized intermediates (they may embed an
+        overflow-truncated result) and the per-attempt counters."""
+        self._pending_overflow = []
+        self._release_stream_cache()
+        self.gathers_deferred = 0
+        self.gathers_materialized = 0
+        self.fused_partial_aggs = 0
+        self.program_launches = 0
+        self.splits_scanned = 0
+        self.memory_chunked_pipelines = 0
+
     def stream_fragment(self, node: P.PhysicalNode, emit,
                         cancelled=lambda: False,
                         on_attempt=None) -> List:
         """Stream a plan's pages through ``emit`` under the query-scope
-        overflow ladder that execute() runs too — the worker task
-        runtime spools results instead of materializing rows. Returns
-        the emit() results of the last (overflow-free) attempt; a
-        truncated page set never escapes because results publish only
-        per completed attempt. ``on_attempt`` runs at the
-        start of EVERY attempt, so a driver whose emit writes to a
-        spool resets it there and a boosted retry never double-
-        publishes."""
+        ladder that execute() runs too — the worker task runtime spools
+        results instead of materializing rows. Returns the emit()
+        results of the last (overflow-free) attempt; a truncated page
+        set never escapes because results publish only per completed
+        attempt. ``on_attempt`` runs at the start of EVERY attempt, so a
+        caller whose emit writes to a spool resets it there and a retry
+        never double-publishes.
+
+        Two kinds of retry: a capacity overflow re-runs at the next
+        boost rung (at most _MAX_ATTEMPTS attempts); a device memory
+        fault (exec/faults.py) re-runs under a halved device-memory
+        budget, so the governor re-plans the attempt chunked, up to
+        device_oom_attempts times. Before such a retry the failed
+        attempt's memory goes back to the card: its pages, the program
+        cache's captured graphs (their private pools) and the caching
+        allocator's free blocks."""
         self._capacity_boost = 1
         self.capacity_boost_retries = 0
-        for _ in range(_MAX_ATTEMPTS):
-            self._pending_overflow = []
-            self.fused_partial_aggs = 0
-            self.program_launches = 0
-            self.splits_scanned = 0
-            if on_attempt is not None:
-                on_attempt()
-            out: List = []
-            for page in self.pages(node):
-                if cancelled():
+        self.device_oom_retries = 0
+        self.device_oom_faults = []
+        self._oom_divisor = 1
+        oom_left = self.device_oom_attempts
+        try:
+            attempts = 0
+            while attempts < _MAX_ATTEMPTS:
+                self._begin_attempt()
+                if on_attempt is not None:
+                    on_attempt()
+                faulted = False
+                try:
+                    out, done = self._run_attempt(node, emit, cancelled)
+                except QueryDeadlineExceeded:
+                    raise
+                except Exception as e:  # noqa: BLE001 - the ladder gate
+                    oom_left = self._absorb_device_fault(e, oom_left)
+                    faulted = True
+                if faulted:
+                    # outside the handler: the exception's frames (and
+                    # the pages they hold) are gone by now
+                    self._release_device_memory()
+                    continue
+                if done:
                     return out
-                check_deadline(self.query_deadline, "in execution")
-                out.append(emit(page))
-            if not self._overflow_flagged():
-                return out
-            self._capacity_boost = SH.next_boost(self._capacity_boost)
-            self.capacity_boost_retries += 1
-        raise RuntimeError(
-            f"capacity overflow persisted after {_MAX_ATTEMPTS} attempts")
+                self._capacity_boost = SH.next_boost(self._capacity_boost)
+                self.capacity_boost_retries += 1
+                attempts += 1
+            raise RuntimeError(
+                f"capacity overflow persisted after {_MAX_ATTEMPTS} "
+                "attempts")
+        finally:
+            self._release_stream_cache()
+
+    def _run_attempt(self, node, emit, cancelled):
+        """One attempt of stream_fragment: (emit results, finished) —
+        finished is False when a deferred overflow flag tripped."""
+        self._maybe_inject_oom()
+        out: List = []
+        for page in self.pages(node):
+            if cancelled():
+                return out, True
+            check_deadline(self.query_deadline, "in execution")
+            out.append(emit(page))
+        return out, not self._overflow_flagged()
+
+    # ------------------------------------------- device-memory governor
+    # floor for OOM-tightened budgets: the sizing math stays sane however
+    # often the ladder halves; capped at the resolved budget, so an
+    # explicit tiny budget is never raised
+    _OOM_BUDGET_FLOOR = 1 << 20
+
+    def _budget(self) -> int:
+        """Resolved device-memory budget in bytes (membudget.py): an
+        explicit device_memory_budget wins; auto = the card's memory
+        minus headroom on CUDA, a generous cap on the CPU; a device-OOM
+        retry halves it. Cached per (setting, tightening)."""
+        key = (self.device_memory_budget, self._oom_divisor)
+        if self._budget_resolved is None or self._budget_resolved[0] != key:
+            resolved = MB.resolve_budget(self.device_memory_budget,
+                                         self.device)
+            floor = min(resolved, self._OOM_BUDGET_FLOOR)
+            self._budget_resolved = (
+                key, max(resolved // self._oom_divisor, floor))
+        return self._budget_resolved[1]
+
+    def _tighten_budget(self) -> None:
+        """Halve the resolved budget for the next attempt (the device
+        itself just proved the model optimistic)."""
+        self._oom_divisor = min(self._oom_divisor * 2, 1 << 10)
+
+    def _absorb_device_fault(self, e: BaseException, oom_left: int) -> int:
+        """The ladder's gate: absorb a device memory fault by tightening
+        the budget and return the decremented retry budget; re-raise
+        anything else, or anything once the budget is spent."""
+        if oom_left <= 0 or not FAULTS.is_device_fault(e):
+            raise e
+        self.device_oom_retries += 1
+        self.device_oom_faults.append(type(e))
+        self._tighten_budget()
+        return oom_left - 1
+
+    def _release_device_memory(self) -> None:
+        """Return a failed attempt's memory before the retry. On CUDA the
+        caching allocator keeps freed blocks and each captured graph
+        keeps a private pool, and both outlive the attempt: without this
+        the retry at a halved budget meets the same full card."""
+        gc.collect()
+        if self.device.type == "cuda":
+            graphs.clear()
+            torch.cuda.empty_cache()
+
+    def _maybe_inject_oom(self) -> None:
+        """Fault-injection hook: the device allocator's failure mode, so
+        the ladder runs where no card runs out of memory."""
+        if self.inject_device_oom > 0:
+            self.inject_device_oom -= 1
+            raise RuntimeError(
+                "RESOURCE_EXHAUSTED: injected device OOM (fault hook)")
+
+    def _governed_target_rows(self, types, count: bool = True,
+                              row_bytes: Optional[int] = None) -> int:
+        """Generation chunk (page) size for a scan of ``types``-typed
+        columns: page_rows, shrunk so ONE page buffer fits its budget
+        share. count=False lets the static audit ask without bumping the
+        rewrite counter; row_bytes overrides the width (fused chains
+        govern by their WIDEST row)."""
+        cap = MB.rows_cap(row_bytes or _row_bytes(types), self._budget(),
+                          MB.SCAN_SHARE_DIV)
+        if cap is None or self.page_rows <= cap:
+            return self.page_rows
+        if count:
+            self.memory_chunked_pipelines += 1
+        return max(cap, SH.LADDER_MIN)
+
+    def _join_parts(self, node: P.HashJoin, left_types, right_types,
+                    est_build: Optional[int] = None,
+                    row_b: Optional[int] = None):
+        """Grace-partition pass count for a materialized join build: the
+        session thresholds (spill_bytes, max_join_build_rows) and the
+        governor's sizing — one pass's build must fit its budget
+        share. Returns (parts, governed):
+        governed means the MODEL forced more passes than the thresholds.
+        Shared with the static audit (membudget.audit)."""
+        if not (self._keys_partitionable(right_types, node.right_keys)
+                and self._keys_partitionable(left_types, node.left_keys)):
+            return 1, False
+        if est_build is None:
+            est_build = self.estimate_rows(node.right)
+        if row_b is None:
+            row_b = _row_bytes(right_types)
+        parts = 1
+        if self.spill_bytes is not None:
+            parts = self._spill_partitions(est_build * row_b)
+        if self.max_build_rows:
+            parts = max(parts,
+                        _next_pow2(-(-est_build // self.max_build_rows)))
+        budget = self._budget()
+        # est_build * 2: a grace pass sizes its build chunks with 2x
+        # slack over the expected 1/parts occupancy, so the governed
+        # caps must hold for the slacked buffer
+        gparts = SH.parts_for(
+            est_build * 2, row_b, rows_cap=None,
+            bytes_cap=budget // MB.BUILD_SHARE_DIV if budget else None)
+        return max(parts, gparts), gparts > parts
+
+    def _account_page(self, page: Page) -> None:
+        """Track the largest page footprint; past max_memory_bytes the
+        query fails (reference: query.max-memory)."""
+        size = page_bytes(page)
+        self.peak_memory_bytes = max(self.peak_memory_bytes, size)
+        if (self.max_memory_bytes is not None
+                and size > self.max_memory_bytes):
+            raise MemoryBudgetExceeded(
+                f"page footprint {size} bytes exceeds query memory limit "
+                f"{self.max_memory_bytes} (reference: "
+                f"ExceededMemoryLimitException)")
 
     # ---------------------------------------------------------- exchange
     def _device_exchange_on(self) -> bool:
@@ -562,7 +822,14 @@ class Executor:
         scan_types = tuple(schema.column_type(c) for c in names)
         dicts = getattr(conn, "_dicts", {}).get(cur.table, {})
         scan_dicts = tuple(dicts.get(c) for c in names)
-        splits = conn.splits(cur.table, self.page_rows)
+        # generation-chunked splits (membudget.py): one split's padded
+        # buffer fits its budget share AT THE CHAIN'S WIDEST ROW — a
+        # generated-join chain emits left+right columns per slot
+        chain_row_b = max(_row_bytes(scan_types),
+                          _row_bytes(self.output_types(node)))
+        splits = conn.splits(
+            cur.table,
+            self._governed_target_rows(scan_types, row_bytes=chain_row_b))
         if cur.constraint:
             splits = conn.prune_splits(cur.table, splits, cur.constraint)
 
@@ -638,6 +905,10 @@ class Executor:
 
             page, flags = program("fused", n_pad, 1, build)(
                 [split.start_row], [split.row_count])
+            # the generation buffer lives inside the program and never
+            # passes _account_page: account it here
+            self.peak_memory_bytes = max(self.peak_memory_bytes,
+                                         n_pad * chain_row_b)
             self.program_launches += 1
             self.splits_scanned += 1
             self._pending_overflow.extend(flags)
@@ -653,7 +924,8 @@ class Executor:
         if len(live) > 1:
             n_pad_all = max(SH.bucket(s.row_count) for s in live)
             bmax = self._split_batch_max(n_pad_all,
-                                         scanned=agg_tail is not None)
+                                         scanned=agg_tail is not None,
+                                         row_bytes=chain_row_b)
         if bmax < 2:
             return stream_single()
 
@@ -730,6 +1002,12 @@ class Executor:
                 self.program_launches += 1
                 self.splits_scanned += len(chunk)
                 self._pending_overflow.extend(flags)
+                # a page-emitting batch generates B splits at once; an
+                # aggregation tail one split at a time
+                live_rows = (n_pad_all if agg_tail is not None
+                             else B * n_pad_all)
+                self.peak_memory_bytes = max(self.peak_memory_bytes,
+                                             live_rows * chain_row_b)
                 yield page
                 i += len(chunk)
 
@@ -771,12 +1049,14 @@ class Executor:
             functools.partial(_fused_merge_step, merge_raw, cap, max_iters),
         )
 
-    def _split_batch_max(self, n_pad: int, scanned: bool) -> int:
+    def _split_batch_max(self, n_pad: int, scanned: bool,
+                         row_bytes: int = 0) -> int:
         """Max splits per batched launch of one fused stream, or 0 when
         split batching is off. "auto" is on when the executor runs on a
         CUDA device; an int forces that max on any device. A page-
         emitting batch (scanned=False) materializes B * n_pad rows at
-        once and keeps them under SPLIT_BATCH_ROWS_MAX; an aggregation
+        once and keeps them under SPLIT_BATCH_ROWS_MAX and, governed, its
+        [B * n_pad] buffer within the scan budget share; an aggregation
         tail runs one split at a time and is exempt. Floored to a power
         of two, so full batches share one program and only the tail
         batch pads."""
@@ -791,6 +1071,10 @@ class Executor:
             cap = int(mode)
         if not scanned and n_pad > 0:
             cap = min(cap, SH.SPLIT_BATCH_ROWS_MAX // n_pad)
+            budget = self._budget()
+            if budget and row_bytes:
+                cap = min(cap, max((budget // MB.SCAN_SHARE_DIV)
+                                   // (n_pad * row_bytes), 1))
         if cap < 2:
             return 0
         return 1 << (cap.bit_length() - 1)
@@ -859,6 +1143,15 @@ class Executor:
                                     merged)
             return
 
+        can_partition = node.step == "single" and self._keys_partitionable(
+            self.output_types(node.source), node.group_channels)
+        if can_partition:
+            parts = self._agg_parts(node, in_types)
+            if parts > 1:
+                yield from self._exec_agg_partitioned(node, parts, in_types,
+                                                      layouts)
+                return
+
         cap = _next_pow2(node.capacity * self._capacity_boost)
         # optimistic clamp: the planner's capacity estimate has no
         # selectivity model; start tight and let the boost ladder grow it
@@ -868,12 +1161,13 @@ class Executor:
         # boosted retries also deepen the hash-probe iteration budget
         max_iters = 64 * self._capacity_boost
 
+        partial_fn, merge_fn, final_fn = self._agg_fns(node, layouts,
+                                                       in_types)
+
         def partial(page):
             # distinct groups <= rows: clip the capacity to the page
-            out, overflow = _partial_agg_page(
-                node.group_channels, node.aggregates, layouts, page,
-                min(cap, _next_pow2(page.capacity)), max_iters,
-                kernels=self.kernels)
+            out, overflow = partial_fn(
+                page, min(cap, _next_pow2(page.capacity)), max_iters)
             self._pending_overflow.append(overflow)
             return out
 
@@ -881,11 +1175,6 @@ class Executor:
             for page in self.pages(node.source):
                 yield partial(page)
             return
-
-        def merge_fn(merged, mcap, iters):
-            return _merge_partials_page(node.aggregates, layouts,
-                                        len(node.group_channels), merged,
-                                        mcap, iters)
 
         # incremental fold: partial pages merge into one bounded state
         # page instead of one giant concat
@@ -911,11 +1200,143 @@ class Executor:
             return
         fcap = min(_next_pow2(node.capacity * self._capacity_boost),
                    _next_pow2(merged.capacity))
-        out, overflow = _final_agg_page(
-            node.group_channels, node.aggregates, layouts, in_types, merged,
-            fcap, max_iters)
+        out, overflow = final_fn(merged, fcap, max_iters)
         self._pending_overflow.append(overflow)
         yield out
+
+    def _agg_parts(self, node: P.Aggregation, in_types) -> int:
+        """Hash-partition pass count of a grouped single-step
+        aggregation: the spill threshold's, or the governor's when the
+        merged state cannot fit its budget share."""
+        src_types = self.output_types(node.source)
+        est_rows = self.estimate_rows(node.source)
+        # boost-scaled: a fold-overflow retry must eventually cross into
+        # the partitioned path, the single path's only escape
+        cap_est = _next_pow2(max(node.capacity, 8) * self._capacity_boost)
+        n_pages = max(-(-est_rows // max(self.page_rows, 1)), 1)
+        state_types = [src_types[c] for c in node.group_channels]
+        for spec, in_t in zip(node.aggregates, in_types):
+            state_types.extend(
+                st.type for st in S.state_layout(spec.function, in_t))
+        merged_slots = min(est_rows, n_pages * cap_est)
+        if self._capacity_boost > 1:
+            # a boosted retry is evidence the estimates are low: stop an
+            # under-estimated est_rows from capping the decision
+            merged_slots = max(merged_slots, cap_est)
+        state_row_b = _row_bytes(state_types)
+        parts = 1
+        if self.spill_bytes is not None:
+            parts = self._spill_partitions(merged_slots * state_row_b)
+        budget = self._budget()
+        gparts = SH.parts_for(
+            merged_slots, state_row_b, rows_cap=None,
+            bytes_cap=budget // MB.BUILD_SHARE_DIV if budget else None)
+        if gparts > parts:
+            parts = gparts
+            self.memory_chunked_pipelines += 1
+        return parts
+
+    def _agg_fns(self, node: P.Aggregation, layouts, in_types):
+        """The (partial, merge, final) page functions of a grouped
+        aggregation, each ``fn(page, cap, max_iters) -> (page, flag)``."""
+        partial = functools.partial(
+            _partial_agg_page, node.group_channels, node.aggregates, layouts,
+            kernels=self.kernels)
+        merge = functools.partial(
+            _merge_partials_page, node.aggregates, layouts,
+            len(node.group_channels))
+        final = functools.partial(
+            _final_agg_page, node.group_channels, node.aggregates, layouts,
+            in_types)
+        return partial, merge, final
+
+    def _exec_agg_partitioned(self, node: P.Aggregation, parts: int,
+                              in_types, layouts) -> Iterator[Page]:
+        """Partition-wise grouped aggregation (the spill analog): group-
+        key hash partitions keep per-partition state ~1/P of the one-shot
+        size; partitions are disjoint, so the union of outputs is exact.
+        Up to 32 partitions: ONE source pass folding into P accumulators
+        (_exec_agg_partition_fold), unless that resident set exceeds the
+        query memory limit; beyond, one pass per partition re-streaming
+        the source (_source_stream) with an O(1/P) working set
+        (reference: SpillableHashAggregationBuilder)."""
+        if parts <= 32:
+            cap_est = _next_pow2(node.capacity * self._capacity_boost)
+            pcap_est = _next_pow2(max(cap_est // parts * 2, 1024))
+            src_types = self.output_types(node.source)
+            state_types = [src_types[c] for c in node.group_channels]
+            for layout in layouts:
+                state_types.extend(st.type for st in layout)
+            resident = 3 * parts * pcap_est * _row_bytes(state_types)
+            if (self.max_memory_bytes is None
+                    or resident <= self.max_memory_bytes):
+                yield from self._exec_agg_partition_fold(
+                    node, parts, in_types, layouts)
+                return
+        self.spill_partitions_used = max(self.spill_partitions_used, parts)
+        pfilter = self._partition_filter(node.group_channels, parts)
+        cap = _next_pow2(node.capacity * self._capacity_boost)
+        pcap = SH.chunk_bucket(cap, parts)
+        max_iters = 64 * self._capacity_boost
+        partial_fn, merge_fn, final_fn = self._agg_fns(node, layouts,
+                                                       in_types)
+        src_stream = self._source_stream(node.source)
+        for p in range(parts):
+            # per-pass memory is O(pcap): partial pages fold into one
+            # pcap-sized state page whenever they pile up
+            fold = _FoldBuffer(self, merge_fn, pcap, max_iters, 4 * pcap)
+            for page in src_stream():
+                f = pfilter(page, p)
+                out, overflow = partial_fn(
+                    f, min(pcap, _next_pow2(page.capacity)), max_iters)
+                self._pending_overflow.append(overflow)
+                fold.add(out)
+            if not fold.saw_input:
+                return
+            merged = fold.final_merged()
+            fcap = min(pcap, _next_pow2(merged.capacity))
+            out, overflow = final_fn(merged, fcap, max_iters)
+            self._pending_overflow.append(overflow)
+            yield out
+
+    def _exec_agg_partition_fold(self, node: P.Aggregation, parts: int,
+                                 in_types, layouts) -> Iterator[Page]:
+        """Single-pass partitioned aggregation: every source page is
+        partial-aggregated, split into P partitions by group-key hash of
+        the PARTIAL page's keys, compacted, and folded into
+        per-partition accumulators. Memory is O(P * pcap) with every
+        buffer ~3 * pcap, while the source (often a join) streams once."""
+        self.spill_partitions_used = max(self.spill_partitions_used, parts)
+        nkeys = len(node.group_channels)
+        # partial output pages carry the keys at channels 0..nkeys-1
+        pfilter = self._partition_filter(tuple(range(nkeys)), parts)
+        cap = _next_pow2(node.capacity * self._capacity_boost)
+        pcap = SH.chunk_bucket(cap, parts)
+        max_iters = 64 * self._capacity_boost
+        partial_fn, merge_fn, final_fn = self._agg_fns(node, layouts,
+                                                       in_types)
+        folds = [_FoldBuffer(self, merge_fn, pcap, max_iters, 2 * pcap)
+                 for _ in range(parts)]
+        for page in self._agg_source_pages(node):
+            out, overflow = partial_fn(
+                page, min(cap, _next_pow2(page.capacity)), max_iters)
+            self._pending_overflow.append(overflow)
+            piece_cap = min(
+                _next_pow2(max(out.capacity // parts * 2, 256)
+                           * self._capacity_boost),
+                _next_pow2(out.capacity))
+            for p in range(parts):
+                f = pfilter(out, p)
+                self._pending_overflow.append(f.num_rows() > piece_cap)
+                folds[p].add(compact_page(f, piece_cap))
+        for fold in folds:
+            merged = fold.final_merged()
+            if merged is None:
+                continue
+            fcap = min(pcap, _next_pow2(merged.capacity))
+            out, overflow = final_fn(merged, fcap, max_iters)
+            self._pending_overflow.append(overflow)
+            yield out
 
     def _exec_agg_final(self, node: P.Aggregation) -> Iterator[Page]:
         """Final step: merge partial-state pages."""
@@ -968,8 +1389,163 @@ class Executor:
         if acc is not None:
             yield acc
 
+    # ------------------------------------------------ spill / partitions
+    def estimate_rows(self, node: P.PhysicalNode) -> int:
+        """Static (host-only) row-count estimate for spill planning, from
+        connector row counts (no selectivity model, conservative)."""
+        if isinstance(node, P.TableScan):
+            return self.catalogs[node.catalog].row_count(node.table)
+        if isinstance(node, P.Values):
+            return len(node.rows)
+        if isinstance(node, P.Limit):
+            return min(node.count + node.offset,
+                       self.estimate_rows(node.source))
+        if isinstance(node, P.TopN):
+            return min(node.limit, self.estimate_rows(node.source))
+        if isinstance(node, P.Aggregation):
+            if not node.group_channels:
+                return 1
+            return min(node.capacity, self.estimate_rows(node.source))
+        if isinstance(node, P.HashJoin):
+            left = self.estimate_rows(node.left)
+            if node.join_type in ("semi", "anti"):
+                return left
+            return max(left, self.estimate_rows(node.right))
+        if isinstance(node, P.CrossJoin):
+            return self.estimate_rows(node.left) * max(
+                self.estimate_rows(node.right), 1)
+        if isinstance(node, P.Union):
+            return sum(self.estimate_rows(s) for s in node.sources)
+        if isinstance(node, P.GroupId):
+            return self.estimate_rows(node.source) * len(node.set_masks)
+        if isinstance(node, P.Unnest):
+            return self.estimate_rows(node.source) * 4
+        if isinstance(node, P.RemoteSource):
+            # an observed exchange row count beats any static estimate;
+            # else the producer's root, when it rides along
+            if node.est_rows is not None:
+                return max(int(node.est_rows), 1)
+            if node.origin is not None:
+                return self.estimate_rows(node.origin)
+            return 1
+        kids = node.children()
+        return self.estimate_rows(kids[0]) if kids else 1
+
+    def _partition_filter(self, keys, parts: int,
+                          keep_nulls: bool = False):
+        """Page transform keeping the rows whose key hash lands in
+        partition p: ``fn(page, p)``. It partitions on the HIGH 32 bits
+        of the 64-bit hash, because the group-by and join hash tables
+        bucket on the low bits: low-bit partitions would cluster every
+        pass's keys into cap/parts slots. keep_nulls routes null-key rows
+        into EVERY pass: a semi/anti join needs the global "the build
+        side holds a NULL" fact in each pass for NOT IN's three-valued
+        logic."""
+
+        def fn(page: Page, p: int) -> Page:
+            blocks = [page.block(c) for c in keys]
+            cols, nulls = K.block_key_columns(blocks)
+            h = H.hash_columns(cols, nulls)
+            keep = (u64.srl(h, 32) % parts) == p
+            if keep_nulls:
+                for b in blocks:
+                    if b.nulls is not None:
+                        keep = keep | b.nulls
+            return Page(blocks=page.blocks, valid=page.valid & keep)
+
+        return fn
+
+    def _spill_partitions(self, est_bytes: int) -> int:
+        if self.spill_bytes is None or est_bytes <= self.spill_bytes:
+            return 1
+        return min(_next_pow2(-(-est_bytes // self.spill_bytes)), 256)
+
+    def _keys_partitionable(self, types, keys) -> bool:
+        """Partition hashing is value-consistent only for non-dictionary
+        columns (dictionary codes are page-local): string keys keep the
+        operator single-pass."""
+        return not any(T.is_string(types[c]) for c in keys)
+
+    def _cheap_to_recompute(self, node: P.PhysicalNode) -> bool:
+        """Whether re-executing this subtree per pass is acceptable: pure
+        scan pipelines regenerate pages from row indices."""
+        if isinstance(node, (P.TableScan, P.Values)):
+            return True
+        if isinstance(node, (P.Filter, P.Project, P.Exchange, P.Limit,
+                             P.Output)):
+            return self._cheap_to_recompute(node.source)
+        if isinstance(node, P.Union):
+            return all(self._cheap_to_recompute(s) for s in node.sources)
+        return False
+
+    def _source_stream(self, node: P.PhysicalNode):
+        """A callable yielding a fresh page stream of ``node``, for
+        operators that read a source once per partition pass. An
+        expensive subtree materializes ONCE into a PageStore and
+        restreams from it (reference: PagesIndex /
+        FileSingleStreamSpiller): device-resident; in host RAM above
+        host_spill_bytes; on disk above disk_spill_bytes; and, with no
+        threshold crossed, governed — past half the budget to host RAM,
+        past several budgets' worth to disk."""
+        if self._cheap_to_recompute(node):
+            return lambda: self.pages(node)
+        # keyed by the (frozen, hashable) plan node: identical subtrees
+        # share one materialization
+        if node not in self._stream_cache:
+            # estimate_rows is a heuristic: a wrong device-tier pick
+            # costs device memory headroom, never correctness
+            est = self.estimate_rows(node) * _row_bytes(
+                self.output_types(node))
+            budget = self._budget()
+            store_share = budget // MB.STORE_SHARE_DIV if budget else None
+            if (self.disk_spill_bytes is not None
+                    and est > self.disk_spill_bytes):
+                tier = "disk"
+            elif (self.host_spill_bytes is not None
+                    and est > self.host_spill_bytes):
+                tier = "host"
+            elif store_share is not None and est > store_share:
+                tier = ("disk" if est > max(budget * 4, MB.CPU_BUDGET)
+                        else "host")
+                self.memory_chunked_pipelines += 1
+            else:
+                tier = "device"
+            store = PageStore(tier, spill_dir=self.spill_path,
+                              device=self.device)
+            for page in self.pages(node):
+                store.put(page)
+            if tier == "host":
+                self.host_spill_pages += store.page_count
+                self.host_spill_bytes_used += store.bytes
+            elif tier == "disk":
+                self.disk_spill_pages += store.page_count
+            self._stream_cache[node] = store
+        return self._stream_cache[node].stream
+
+    def _release_stream_cache(self) -> None:
+        """Close every materialized intermediate (a disk-tier store's
+        files go with it)."""
+        for store in self._stream_cache.values():
+            store.close()
+        self._stream_cache = {}
+
     # ---------------------------------------------------------------- join
     def _exec_join(self, node: P.HashJoin) -> Iterator[Page]:
+        """Page-level join execution: lazy (late-materialization) items
+        produced along the probe spine materialize HERE, at the chain
+        boundary — every deferred build column pays its one gather."""
+        for item in self._exec_join_items(node):
+            yield self._materialize_lazy(item)
+
+    def _exec_join_items(self, node: P.HashJoin, want_lazy: bool = False):
+        """Pages or latemat.LazyPage items of a join node. The
+        single-pass sort-join paths defer build sides (inner/left joins)
+        and consume the probe side through _lazy_pages, so chained joins
+        compose row-id indirections; every other path (generated, the
+        unique-key kernel, partitioned, semi/anti, right/full) yields
+        Pages. want_lazy: the consumer is a lazy-aware parent join, so
+        defer unconditionally; otherwise (the chain boundary) defer only
+        when the probe items are lazy themselves."""
         left_types = self.output_types(node.left)
         right_types = self.output_types(node.right)
         gj = self._generated_join_info(node, left_types)
@@ -982,18 +1558,222 @@ class Executor:
             P.scan_column_unique(node.right, k, self.catalogs)
             for k in node.right_keys
         )
+        parts, governed = self._join_parts(node, left_types, right_types)
+        if parts > 1:
+            if governed:
+                # the governor, not a session threshold, rewrote this
+                # join into grace passes sized to fit
+                self.memory_chunked_pipelines += 1
+            yield from self._exec_join_partitioned(
+                node, parts, left_types, right_types, unique_build)
+            return
         build_pages = list(self.pages(node.right))
         if not build_pages:
             build_pages = [_empty_page(right_types, self.device)]
         build_all = concat_all(build_pages)
         # capacity-based sizing, not row count: no host read mid-query
         build = compact_page(build_all, _next_pow2(build_all.capacity))
+        self._account_page(build)  # the query's largest materialization
         if self._unique_kernel_eligible(node, build, left_types,
                                         right_types):
             yield from self._unique_kernel_pass(node, build)
             return
-        yield from self._join_pass(node, build, self.pages(node.left),
-                                   left_types, unique_build=unique_build)
+        allow = self._late_mat_on() and node.join_type in ("inner", "left")
+        probe_src = (self._lazy_pages(node.left) if allow
+                     else self.pages(node.left))
+        defer = "never"
+        if allow:
+            defer = "always" if want_lazy else "chain"
+        yield from self._join_pass(node, build, probe_src, left_types,
+                                   unique_build=unique_build, defer=defer)
+
+    def _exec_join_partitioned(self, node: P.HashJoin, parts: int,
+                               left_types, right_types,
+                               unique_build: bool = False
+                               ) -> Iterator[Page]:
+        """Grace partition-wise join: P passes, each streaming both sides
+        filtered to partition p of the key hash, so a pass's build is
+        ~1/P of the single-pass one (and a build past the K3 range can
+        fall back within it). A skewed partition raises the deferred
+        overflow flag; on the boosted retry an inner join takes the
+        rebalancing path instead of growing buffers: a hot key cannot be
+        split by hash, so the hot partition's build rows chunk by
+        POSITION into unboosted-size passes, each probed by the whole
+        partition probe stream (every build row lives in exactly one
+        chunk, so the output is the disjoint union)."""
+        self.spill_partitions_used = max(self.spill_partitions_used, parts)
+        semi = node.join_type in ("semi", "anti")
+        bfilter = self._partition_filter(node.right_keys, parts,
+                                         keep_nulls=semi)
+        pfilter = self._partition_filter(node.left_keys, parts)
+        right_stream = self._source_stream(node.right)
+        left_stream = self._source_stream(node.left)
+        rebalance = (self.join_skew_rebalance and self._capacity_boost > 1
+                     and node.join_type == "inner")
+        for p in range(parts):
+            if rebalance:
+                yield from self._join_partition_rebalanced(
+                    node, p, parts, bfilter, pfilter, right_stream,
+                    left_stream, left_types, unique_build)
+                continue
+            build_pages = []
+            for pg in right_stream():
+                f = bfilter(pg, p)
+                # compact each filtered build page to ~pg/parts before
+                # the concat: this is where the memory shrinks
+                pc = min(_next_pow2(max(pg.capacity // parts * 2, 1024)
+                                    * self._capacity_boost),
+                         _next_pow2(pg.capacity))
+                self._pending_overflow.append(f.num_rows() > pc)
+                build_pages.append(compact_page(f, pc))
+            if not build_pages:
+                build_pages = [_empty_page(right_types, self.device)]
+            build_all = concat_all(build_pages)
+            build = compact_page(build_all, _next_pow2(build_all.capacity))
+            self._account_page(build)
+            probe_pages = (pfilter(pg, p) for pg in left_stream())
+            # partition-filtered probe pages are ~1/parts dense: output
+            # capacities scale down with them (density)
+            yield from self._join_pass(node, build, probe_pages,
+                                       left_types,
+                                       unique_build=unique_build,
+                                       density=parts)
+
+    def _join_partition_rebalanced(self, node: P.HashJoin, p: int,
+                                   parts: int, bfilter, pfilter,
+                                   right_stream, left_stream, left_types,
+                                   unique_build: bool) -> Iterator[Page]:
+        """One skew-rebalanced partition pass: exact per-page build counts
+        (host reads, admissible on a retry), pieces packed greedily into
+        chunks of at most the UNBOOSTED partition cap, oversized pieces
+        split by position, one probe pass per chunk."""
+        chunk_cap = 1024
+        pieces: List[Page] = []
+        for pg in right_stream():
+            chunk_cap = max(chunk_cap,
+                            min(SH.chunk_bucket(pg.capacity, parts),
+                                _next_pow2(pg.capacity)))
+            f = bfilter(pg, p)
+            n = int(f.num_rows())
+            if n:
+                pieces.append(compact_page(f, _next_pow2(max(n, 256))))
+        chunks: List[List[Page]] = [[]]
+        room = chunk_cap
+        for piece in pieces:
+            rows = piece.capacity  # compacted: capacity ~ rows
+            if rows > chunk_cap:
+                for off in range(0, rows, chunk_cap):
+                    chunks.append([slice_page(piece, off, chunk_cap)])
+                # the split chunks are full: later pieces start afresh
+                chunks.append([])
+                room = chunk_cap
+                continue
+            if rows > room:
+                chunks.append([])
+                room = chunk_cap
+            chunks[-1].append(piece)
+            room -= rows
+        chunks = [c for c in chunks if c]
+        if not chunks:
+            return  # an empty inner partition: no output
+        self.skew_chunks_used = max(self.skew_chunks_used, len(chunks))
+        for chunk in chunks:
+            build_all = concat_all(chunk)
+            build = compact_page(build_all, _next_pow2(build_all.capacity))
+            self._account_page(build)
+            probe_pages = (pfilter(pg, p) for pg in left_stream())
+            yield from self._join_pass(node, build, probe_pages,
+                                       left_types,
+                                       unique_build=unique_build,
+                                       density=parts)
+
+    # ----------------------------------------------- late materialization
+    def _late_mat_on(self) -> bool:
+        """late_materialization_enabled: "auto" is on a CUDA executor
+        (where the reference says "on TPU": gather bandwidth is the win);
+        "true"/"false" (or True/False) are explicit."""
+        mode = self.late_mat
+        if mode in (False, None, "false", "off"):
+            return False
+        if mode == "auto":
+            return self.device.type == "cuda"
+        return True
+
+    def _lazy_pages(self, node: P.PhysicalNode):
+        """A join's probe-side stream: latemat.LazyPage items when the
+        subtree is an eligible join-chain segment, Pages otherwise. A
+        fused chain (generated joins) wins over laziness — it has no
+        gathers to defer. Items bypass pages(), so each is accounted
+        here."""
+        if isinstance(node, P.HashJoin) and self._late_mat_on():
+            fused = self._fused_stream(node)
+            if fused is not None:
+                for page in fused:
+                    self._account_page(page)
+                    yield page
+                return
+            for item in self._exec_join_items(node, want_lazy=True):
+                self._account_page(item.reduced
+                                   if isinstance(item, LM.LazyPage)
+                                   else item)
+                yield item
+            return
+        if (isinstance(node, P.Filter) and self._late_mat_on()
+                and _filter_chain_has_join(node)):
+            fused = self._fused_stream(node)
+            if fused is not None:
+                for page in fused:
+                    self._account_page(page)
+                    yield page
+                return
+            yield from self._lazy_filter(node)
+            return
+        yield from self.pages(node)
+
+    def _lazy_filter(self, node: P.Filter):
+        """Filter over a lazy join chain: lift exactly the deferred
+        channels the predicate reads, remap the predicate onto the
+        reduced layout, and flip validity bits without materializing
+        anything else."""
+        refs = tuple(sorted(PR.expr_channels(node.predicate)))
+        for item in self._lazy_pages(node.source):
+            if isinstance(item, Page):
+                yield _replay_filter(node.predicate, item)
+                continue
+            lz = self._lazy_lift(item, refs)
+            pred = PR.remap_expr(node.predicate,
+                                 {c: lz.phys(c) for c in refs})
+            yield dataclasses.replace(
+                lz, reduced=_replay_filter(pred, lz.reduced))
+
+    def _lazy_lift(self, lz: LM.LazyPage, channels) -> LM.LazyPage:
+        """Materialize the named logical channels of a lazy page (one
+        gather each): downstream join keys and filter references."""
+        need = tuple(sorted(set(channels) - set(lz.mat)))
+        if not need:
+            return lz
+        self.gathers_materialized += len(need)
+        maps = tuple(s.channel_map for s in lz.sides)
+        reduced = LM.lift_page(lz.mat, maps, need, lz.reduced,
+                               *[s.build for s in lz.sides])
+        _, new_mat, new_maps, keep = LM.lift_layout(lz.mat, maps, need)
+        return LM.LazyPage(
+            reduced=reduced, width=lz.width, mat=new_mat,
+            sides=tuple(LM.LazySide(lz.sides[i].build, new_maps[i])
+                        for i in keep))
+
+    def _materialize_lazy(self, item):
+        """Chain-boundary materialization: every still-deferred column
+        gathers exactly once through its side's composed row ids."""
+        if isinstance(item, Page):
+            return item
+        if not item.sides:
+            return item.reduced  # mat covers every channel, in order
+        self.gathers_materialized += sum(len(s.channel_map)
+                                         for s in item.sides)
+        maps = tuple(s.channel_map for s in item.sides)
+        return LM.finish_page(item.mat, maps, item.width, item.reduced,
+                              *[s.build for s in item.sides])
 
     def _generated_join_info(self, node: P.HashJoin, left_types):
         """Eligibility for the build-free GENERATED join: the build side
@@ -1170,10 +1950,21 @@ class Executor:
                                             build, index)
 
     def _join_pass(self, node: P.HashJoin, build: Page, probe_pages,
-                   left_types, *, unique_build: bool = False):
-        """One build+probe pass. unique_build: <=1 match per probe row —
-        output sized to the probe page exactly. Semi and anti joins emit
-        each probe page with its match column (_semi_join_page)."""
+                   left_types, *, unique_build: bool = False,
+                   density: int = 1, defer: str = "never"):
+        """One build+probe pass (the whole join unless partitioned).
+
+        unique_build: <=1 match per probe row — output sized to the probe
+        page exactly. density: probe pages carry ~1/density real rows
+        (partition-filtered passes), so output capacity shrinks to match,
+        the deferred overflow flag and the boosted retry guarding skew.
+        defer: "always" emits the build side as a row-id indirection
+        (latemat.LazyPage) instead of gathering its columns; "chain"
+        defers only when the probe item is itself lazy; "never" is the
+        eager path. Lazy probe items' deferred keys lift here. A probe
+        page whose output would pass its budget share (membudget.py) is
+        probed in position slices. Semi and anti joins emit each probe
+        page with its match column (_semi_join_page)."""
         if node.join_type in ("semi", "anti"):
             for page in probe_pages:
                 yield _semi_join_page(node.left_keys, node.right_keys, page,
@@ -1184,21 +1975,40 @@ class Executor:
         use_unique = (not use_radix and unique_build
                       and node.join_type in ("inner", "left")
                       and self._capacity_boost == 1)
+        defer_allowed = (defer != "never"
+                         and node.join_type in ("inner", "left"))
         build_matched = torch.zeros(build.capacity, dtype=torch.bool,
                                     device=build.device)
+        n_right = len(build.blocks)
+        # governed output-capacity ceiling: a join output page claims at
+        # most its budget share
+        out_row_b = _row_bytes(left_types) + _row_bytes(
+            [b.type for b in build.blocks])
+        oc_cap = MB.rows_cap(out_row_b, self._budget(), MB.PAGE_SHARE_DIV)
+        chunk_counted = False
         # canonical key encodings depend on the probe page's
-        # dictionaries: one index per dictionary signature
+        # dictionaries: one index per (key channels, dictionaries)
         indexes: Dict = {}
-        for page in probe_pages:
-            sig = tuple(page.block(c).dictionary for c in node.left_keys)
+        for item in probe_pages:
+            if isinstance(item, LM.LazyPage):
+                # downstream-join-key liveness: lift exactly the key
+                # channels this probe needs as values
+                lz = self._lazy_lift(item, node.left_keys)
+                page = lz.reduced
+                pkeys = tuple(lz.phys(c) for c in node.left_keys)
+            else:
+                lz = None
+                page = item
+                pkeys = tuple(node.left_keys)
+            sig = (pkeys, tuple(page.block(c).dictionary for c in pkeys))
             if sig not in indexes:
                 if use_radix:
                     index, b_ovf = _build_radix_join_index(
-                        node.left_keys, node.right_keys, layout, page, build)
+                        pkeys, node.right_keys, layout, page, build)
                     self._pending_overflow.append(b_ovf)
                 else:
-                    index = _build_join_index(node.left_keys,
-                                              node.right_keys, page, build)
+                    index = _build_join_index(pkeys, node.right_keys, page,
+                                              build)
                 indexes[sig] = index
             index = indexes[sig]
             if unique_build:
@@ -1208,22 +2018,58 @@ class Executor:
                 if page.capacity <= 1 << 16:
                     oc = max(oc, build.capacity)
             oc = min(oc, max(4 * self.page_rows, 1 << 19))
+            if density > 1:
+                # 2x slack over the expected 1/density occupancy
+                oc = max(oc * 2 // density, 8192)
             oc = _next_pow2(max(oc, 8192) * self._capacity_boost)
-            if use_radix:
-                out, matched, overflow = _probe_radix_join_page(
-                    node.left_keys, node.right_keys, node.join_type, layout,
-                    page, build, index, oc)
-            elif use_unique:
-                out, matched, overflow = _probe_join_page_unique(
-                    node.left_keys, node.right_keys, node.join_type, page,
-                    build, index)
-            else:
-                out, matched, overflow = _probe_join_page(
-                    node.left_keys, node.right_keys, node.join_type, page,
-                    build, index, oc)
-            self._pending_overflow.append(overflow)
-            build_matched = build_matched | matched
-            yield out
+            slices = 1
+            if oc_cap is not None and oc > oc_cap:
+                # probe-side POSITION chunking (the governed rewrite):
+                # each slice keeps the full per-probe-row output
+                # allowance inside a cap-sized buffer; both factors are
+                # powers of two, so slice shapes stay on the ladder
+                slices = min(oc // oc_cap,
+                             max(page.capacity // SH.LADDER_MIN, 1))
+                oc = max(oc // slices, oc_cap)
+                if slices > 1 and not chunk_counted:
+                    self.memory_chunked_pipelines += 1
+                    chunk_counted = True
+            defer_item = defer_allowed and (defer == "always"
+                                            or lz is not None)
+            # ceil-divide: a concat-produced probe page's capacity need
+            # not be a multiple of the slice count
+            ccap = -(-page.capacity // max(slices, 1))
+            n_slices = -(-page.capacity // max(ccap, 1))
+            for si in range(n_slices):
+                chunk = (page if n_slices == 1
+                         else slice_page(page, si * ccap, ccap))
+                if use_radix:
+                    out, matched, overflow = _probe_radix_join_page(
+                        pkeys, node.right_keys, node.join_type, layout,
+                        defer_item, chunk, build, index, oc)
+                elif use_unique:
+                    out, matched, overflow = _probe_join_page_unique(
+                        pkeys, node.right_keys, node.join_type, defer_item,
+                        chunk, build, index)
+                else:
+                    out, matched, overflow = _probe_join_page(
+                        pkeys, node.right_keys, node.join_type, defer_item,
+                        chunk, build, index, oc)
+                self._pending_overflow.append(overflow)
+                build_matched = build_matched | matched
+                if not defer_item:
+                    yield out
+                    continue
+                width_l = lz.width if lz is not None else page.channel_count
+                mat = lz.mat if lz is not None else tuple(
+                    range(page.channel_count))
+                sides = (lz.sides if lz is not None else ()) + (
+                    LM.LazySide(build, tuple((width_l + j, j)
+                                             for j in range(n_right))),)
+                self.gathers_deferred += sum(len(sd.channel_map)
+                                             for sd in sides)
+                yield LM.LazyPage(reduced=out, width=width_l + n_right,
+                                  mat=mat, sides=sides)
         if node.join_type in ("right", "full"):
             # unmatched build rows with a null left side (reference:
             # LookupOuterOperator)
@@ -1723,6 +2569,16 @@ def _subtree_has_join(node: P.PhysicalNode) -> bool:
     return any(_subtree_has_join(c) for c in node.children())
 
 
+def _filter_chain_has_join(node: P.PhysicalNode) -> bool:
+    """Whether a Filter(-over-Filter...) chain sits directly on a
+    HashJoin — the shape _lazy_filter streams without
+    materializing."""
+    cur = node
+    while isinstance(cur, P.Filter):
+        cur = cur.source
+    return isinstance(cur, P.HashJoin)
+
+
 def _build_join_index(left_keys, right_keys, page: Page, build: Page):
     """One-shot sort-join build index. The probe page supplies the
     dictionary context for canonical key encodings."""
@@ -1732,21 +2588,23 @@ def _build_join_index(left_keys, right_keys, page: Page, build: Page):
     return J.build_join_index(rcols, rnulls, build.valid)
 
 
-def _probe_join_page(left_keys, right_keys, join_type, page: Page,
+def _probe_join_page(left_keys, right_keys, join_type, defer, page: Page,
                      build: Page, index, out_cap: int):
     lblocks = [page.block(c) for c in left_keys]
     rblocks = [build.block(c) for c in right_keys]
     lcols, lnulls, _rcols, _rnulls = _canonical_join_cols(lblocks, rblocks)
     m = J.hash_join_match(None, None, None, lcols, lnulls, page.valid,
                           out_cap, index=index)
-    return _assemble_join_output(join_type, page, build, m)
+    return _assemble_join_output(join_type, page, build, m, defer=defer)
 
 
-def _probe_join_page_unique(left_keys, right_keys, join_type, page: Page,
-                            build: Page, index):
+def _probe_join_page_unique(left_keys, right_keys, join_type, defer,
+                            page: Page, build: Page, index):
     """FK-join (unique build keys) sort-join probe: no match expansion —
     the output page IS the probe page plus gathered build columns; a u64
-    hash collision between distinct keys flags overflow."""
+    hash collision between distinct keys flags overflow. defer: the
+    build side rides as ONE int64 row-id column instead (late
+    materialization); the probe page's own indirections pass through."""
     lblocks = [page.block(c) for c in left_keys]
     rblocks = [build.block(c) for c in right_keys]
     lcols, lnulls, _rcols, _rnulls = _canonical_join_cols(lblocks, rblocks)
@@ -1761,6 +2619,13 @@ def _probe_join_page_unique(left_keys, right_keys, join_type, page: Page,
     # build_matched feeds only RIGHT/FULL emission, never served here
     matched = torch.zeros(build.capacity, dtype=torch.bool,
                           device=build.device)
+    if defer:
+        id_block = Block(data=bid, type=T.BIGINT,
+                         nulls=~found if join_type == "left" else None)
+        out_valid = page.valid if join_type == "left" else (
+            page.valid & found)
+        return (Page(blocks=page.blocks + (id_block,), valid=out_valid),
+                matched, collision)
     right_out = gather_rows(build, bid, found)
     if join_type == "left":
         right_blocks = tuple(
@@ -1790,7 +2655,8 @@ def _build_radix_join_index(left_keys, right_keys, layout, page: Page,
 
 
 def _probe_radix_join_page(left_keys, right_keys, join_type, layout,
-                           page: Page, build: Page, index, out_cap: int):
+                           defer, page: Page, build: Page, index,
+                           out_cap: int):
     """Probe one page through the hash-table kernel, then the shared
     verified expansion (J.expand_matches) — the same output contract as
     _probe_join_page; only the range finder differs."""
@@ -1804,28 +2670,37 @@ def _probe_radix_join_page(left_keys, right_keys, join_type, layout,
     start, cnt = CJ.probe_index(phash, packed, layout)
     m = J.expand_matches(bcols, bvalid, perm, pcols, pvalid,
                          start.clamp(min=0), cnt, out_cap)
-    return _assemble_join_output(join_type, page, build, m)
+    return _assemble_join_output(join_type, page, build, m, defer=defer)
 
 
 def _assemble_join_output(join_type, page: Page, build: Page,
-                          m: J.JoinMatches):
+                          m: J.JoinMatches, defer: bool = False):
     """Expand matches into the output page; LEFT/FULL append the
-    unmatched probe rows with a null build side."""
+    unmatched probe rows with a null build side. defer (inner/left
+    only): ONE int64 build row-id column instead of the gathered build
+    blocks — the probe columns, row-id indirections included, gather
+    through probe_idx, which composes the indirections (latemat.py)."""
     out_valid = m.match
     left_out = gather_rows(page, m.probe_idx, out_valid)
-    right_out = gather_rows(build, m.build_idx, out_valid)
-    out = Page(blocks=left_out.blocks + right_out.blocks, valid=out_valid)
+    if defer:
+        right_blocks = (Block(data=m.build_idx.to(torch.int64),
+                              type=T.BIGINT),)
+    else:
+        right_blocks = gather_rows(build, m.build_idx, out_valid).blocks
+    out = Page(blocks=left_out.blocks + right_blocks, valid=out_valid)
     if join_type in ("left", "full"):
         unmatched_valid = page.valid & (m.probe_match_count == 0)
         ones = torch.ones(page.capacity, dtype=torch.bool,
                           device=page.device)
-        null_right = [
-            b.with_data(b.data, nulls=ones)
-            for b in gather_rows(
-                build, torch.zeros(page.capacity, dtype=torch.int64,
-                                   device=page.device),
-                unmatched_valid).blocks
-        ]
+        zeros = torch.zeros(page.capacity, dtype=torch.int64,
+                            device=page.device)
+        if defer:
+            null_right = [Block(data=zeros, type=T.BIGINT, nulls=ones)]
+        else:
+            null_right = [
+                b.with_data(b.data, nulls=ones)
+                for b in gather_rows(build, zeros, unmatched_valid).blocks
+            ]
         pad = Page(blocks=page.blocks + tuple(null_right),
                    valid=unmatched_valid)
         out = concat_all([out, pad])

@@ -58,7 +58,7 @@ stats: Dict[str, float] = {"captures": 0, "capture_s": 0.0, "replays": 0}
 _stats_lock = threading.Lock()
 
 
-def _flatten(obj, leaves: List[torch.Tensor]):
+def flatten(obj, leaves: List[torch.Tensor]):
     """The tensors of an output structure (appended to ``leaves``) and
     its skeleton; host metadata (types, dictionaries) rides in the
     skeleton."""
@@ -66,39 +66,39 @@ def _flatten(obj, leaves: List[torch.Tensor]):
         leaves.append(obj)
         return _LEAF
     if isinstance(obj, Page):
-        return ("page", tuple(_flatten(b, leaves) for b in obj.blocks),
-                _flatten(obj.valid, leaves))
+        return ("page", tuple(flatten(b, leaves) for b in obj.blocks),
+                flatten(obj.valid, leaves))
     if isinstance(obj, Block):
-        return ("block", _flatten(obj.data, leaves),
-                _flatten(obj.nulls, leaves), obj.type, obj.dictionary)
+        return ("block", flatten(obj.data, leaves),
+                flatten(obj.nulls, leaves), obj.type, obj.dictionary)
     if isinstance(obj, tuple):
-        return ("tuple", tuple(_flatten(x, leaves) for x in obj))
+        return ("tuple", tuple(flatten(x, leaves) for x in obj))
     if obj is None:
         return None
     raise TypeError(f"a fused program returned {type(obj).__name__}")
 
 
-def _build(spec, leaves):
-    """Inverse of _flatten over an iterator of tensors."""
+def unflatten(spec, leaves):
+    """Inverse of flatten over an iterator of tensors."""
     if spec is None:
         return None
     if spec == _LEAF:
         return next(leaves)
     kind = spec[0]
     if kind == "page":
-        blocks = tuple(_build(b, leaves) for b in spec[1])
-        return Page(blocks=blocks, valid=_build(spec[2], leaves))
+        blocks = tuple(unflatten(b, leaves) for b in spec[1])
+        return Page(blocks=blocks, valid=unflatten(spec[2], leaves))
     if kind == "block":
-        data = _build(spec[1], leaves)
-        return Block(data=data, type=spec[3], nulls=_build(spec[2], leaves),
+        data = unflatten(spec[1], leaves)
+        return Block(data=data, type=spec[3], nulls=unflatten(spec[2], leaves),
                      dictionary=spec[4])
-    return tuple(_build(x, leaves) for x in spec[1])
+    return tuple(unflatten(x, leaves) for x in spec[1])
 
 
 def leaves_of(obj) -> List[torch.Tensor]:
     """Every tensor of a program's output, in a fixed order."""
     leaves: List[torch.Tensor] = []
-    _flatten(obj, leaves)
+    flatten(obj, leaves)
     return leaves
 
 
@@ -186,7 +186,7 @@ class Program:
             # made on the side stream, consumed on the caller's
             t.record_stream(current)
         self._outputs = []
-        self._spec = _flatten(static, self._outputs)
+        self._spec = flatten(static, self._outputs)
         self._launches = launched
         self._graph = graph
         self.capture_s = time.perf_counter() - t0
@@ -202,7 +202,7 @@ class Program:
         cuda.add_counts(cuda.launches, self._launches)
         with _stats_lock:
             stats["replays"] += 1
-        return _build(self._spec, iter([t.clone() for t in self._outputs]))
+        return unflatten(self._spec, iter([t.clone() for t in self._outputs]))
 
 
 _programs: "collections.OrderedDict[tuple, Program]" = \

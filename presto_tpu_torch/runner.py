@@ -18,7 +18,13 @@ NotImplementedError. The runner honours:
     forces split batching on any device) and ``tpu_offload_enabled``
     (false = nothing fuses);
   - ``device_exchange_enabled``, ``query_max_run_time`` and the
-    distribution knobs the stage-DAG path reads (dist/dcn.py).
+    distribution knobs the stage-DAG path reads (dist/dcn.py);
+  - the memory governor and spill: ``device_memory_budget``,
+    ``query_max_memory_bytes``, ``spill_threshold_bytes``,
+    ``max_join_build_rows``, ``host_spill_bytes``, ``disk_spill_bytes``,
+    ``spill_path``, ``join_skew_rebalance``, and
+    ``task_retry_attempts`` as the device-OOM retry budget;
+  - ``late_materialization_enabled`` ("auto" = on a CUDA device).
 
 Reference: presto-main testing/LocalQueryRunner.java.
 """
@@ -75,6 +81,20 @@ class LocalRunner:
         # forces that max batch
         ex.split_batch = int(sb) if sb.isdigit() else (
             "auto" if sb == "auto" else 0)
+        # memory governor, spill tiers and the device-OOM ladder, wired
+        # as presto_tpu/runner.py wires them (0 = off / auto)
+        ex.max_memory_bytes = int(s.get("query_max_memory_bytes")) or None
+        ex.spill_bytes = int(s.get("spill_threshold_bytes")) or None
+        ex.host_spill_bytes = int(s.get("host_spill_bytes")) or None
+        ex.disk_spill_bytes = int(s.get("disk_spill_bytes")) or None
+        ex.spill_path = s.get("spill_path") or None
+        ex.join_skew_rebalance = bool(s.get("join_skew_rebalance"))
+        ex.max_build_rows = int(s.get("max_join_build_rows")) or None
+        ex.device_memory_budget = int(s.get("device_memory_budget"))
+        ex.late_mat = s.get("late_materialization_enabled")
+        # the executor's device-OOM re-entries share the task retry
+        # budget (the same retry discipline extended inward)
+        ex.device_oom_attempts = int(s.get("task_retry_attempts"))
         ms = int(s.get("query_max_run_time"))
         ex.query_deadline = (time.monotonic() + ms / 1000.0) if ms > 0 \
             else None

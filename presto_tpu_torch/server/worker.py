@@ -51,19 +51,8 @@ from presto_tpu_torch import resolve_device
 from presto_tpu_torch.connectors.split_filter import SplitFilterConnector
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec import shapes as SH
-from presto_tpu_torch.exec.pagestore import PageStore
+from presto_tpu_torch.exec.pagestore import PageStore, page_bytes
 from presto_tpu_torch.page import Page
-
-
-def page_bytes(page) -> int:
-    """Static device footprint of a page (every tensor's bytes)."""
-    total = page.valid.numel() * page.valid.element_size()
-    for b in page.blocks:
-        for t in (b.data if isinstance(b.data, tuple) else (b.data,)):
-            total += t.numel() * t.element_size()
-        if b.nulls is not None:
-            total += b.nulls.numel()
-    return total
 
 
 def _trimmed(page, rows: int):

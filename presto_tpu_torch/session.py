@@ -9,10 +9,15 @@ the reference's except where the port runs a different mode by design:
   - ``pallas_join_enabled`` defaults to "true" (the reference's forced
     mode): the CUDA kernels engage on the card and their plain twins on
     the CPU, so the distributed path routes exchanges through K4;
-  - ``fused_partial_agg_enabled`` and ``split_batch_size`` resolve
-    "auto" to on when the executor runs on a CUDA device (the
-    reference: on TPU), where each fused program is a replayed CUDA
-    graph;
+  - ``fused_partial_agg_enabled``, ``split_batch_size`` and
+    ``late_materialization_enabled`` resolve "auto" to on when the
+    executor runs on a CUDA device (the reference: on TPU), where each
+    fused program is a replayed CUDA graph and join chains are gather
+    bound;
+  - ``device_memory_budget``'s auto is the card's memory minus 1/8 on a
+    CUDA executor (the reference: the TPU's HBM), and
+    ``task_retry_attempts`` bounds only the executor's device-OOM
+    ladder (DCN task re-dispatch is not ported);
   - ``stage_scheduler`` defaults to "true": the stage DAG is the only
     distributed plane ported;
   - ``mesh_exchange_mode``, ``adaptive_execution`` default to "false".
@@ -159,10 +164,86 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         ),
         PropertyMetadata(
             "task_retry_attempts",
-            "re-dispatches of a lost DCN task; the port runs the "
-            "reference's task_retry_attempts=0 model whatever the "
-            "value: the first task failure fails the query",
+            "bounds the executor's device-OOM re-entries, each under a "
+            "halved device-memory budget (0 = a device fault raises "
+            "through). Re-dispatch of a lost DCN task is not ported: "
+            "there the first task failure fails the query whatever the "
+            "value",
             int, 2,
+        ),
+        PropertyMetadata(
+            "query_max_memory_bytes",
+            "fail queries whose largest page footprint exceeds this many "
+            "bytes (0 = unlimited; reference: query.max-memory)",
+            int, 0,
+        ),
+        PropertyMetadata(
+            "spill_threshold_bytes",
+            "joins/aggregations whose state estimate exceeds this many "
+            "bytes run in hash-partition passes (grace-style spill; 0 = "
+            "disabled; reference: spill-enabled + revocable memory)",
+            int, 0,
+        ),
+        PropertyMetadata(
+            "max_join_build_rows",
+            "partition a join whenever the build-side row estimate "
+            "exceeds this many rows, regardless of the byte threshold "
+            "(0 = disabled)",
+            int, 0,
+        ),
+        PropertyMetadata(
+            "host_spill_bytes",
+            "materialized intermediates (multi-pass operator sources) "
+            "estimated above this many bytes stage to host RAM instead "
+            "of staying device-resident (0 = always device-resident; "
+            "reference: spiller/FileSingleStreamSpiller)",
+            int, 1 << 32,
+        ),
+        PropertyMetadata(
+            "disk_spill_bytes",
+            "materialized intermediates estimated above this many bytes "
+            "stage to DISK files instead of host RAM (0 = disabled; the "
+            "third spill tier)",
+            int, 1 << 36,
+        ),
+        PropertyMetadata(
+            "spill_path",
+            "directory for disk-spill files (empty = the system temp "
+            "dir; reference: spiller-spill-path config)",
+            str, "",
+        ),
+        PropertyMetadata(
+            "late_materialization_enabled",
+            "join chains defer carried build columns as row-id "
+            "indirections and gather values ONCE at the first consumer "
+            "that needs them (reference: DictionaryBlock outputs of "
+            "LookupJoinOperator); off gathers every carried column at "
+            "every join. auto = on when the executor runs on a CUDA "
+            "device, where the win is gather bandwidth; off on the CPU "
+            "(gathers_deferred / gathers_materialized counters)",
+            str, "auto",
+            validate=_tristate,
+        ),
+        PropertyMetadata(
+            "device_memory_budget",
+            "device-memory budget in bytes for the governor "
+            "(exec/membudget.py): pipelines whose planned footprint "
+            "exceeds their budget share rewrite into chunked form "
+            "(grace-partition join passes, probe-side position "
+            "chunking, generation-chunked scans, partitioned "
+            "aggregation, PageStore host/disk overflow) before anything "
+            "launches. 0 = auto: the card's memory minus 1/8 headroom "
+            "on a CUDA device, a generous cap on the CPU "
+            "(memory_chunked_pipelines / peak_memory_bytes counters)",
+            int, 0,
+        ),
+        PropertyMetadata(
+            "join_skew_rebalance",
+            "on boosted retries, rebalance hot grace-join partitions by "
+            "chunking build rows by position (buffers stay at the "
+            "unboosted size; one probe pass per chunk) instead of "
+            "growing every buffer",
+            bool, True,
         ),
         PropertyMetadata(
             "retry_backoff_ms",
