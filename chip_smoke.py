@@ -49,6 +49,21 @@ Phases:
            the card's LocalRunner == sqlite; then Q1 at SF 10, Q3 and Q5
            at SF 1 (page_rows 2^20): one warm-up and 3 timed runs each,
            rows == the single-process rows, and == again with K4 off
+  surface  the relational surface at size, under default and eager (one
+           warm-up, median of 3): the ten window shapes over orders SF 1
+           (== sqlite), count(DISTINCT) beside plain aggregates
+           (MarkDistinct, SF 1, == sqlite), ROLLUP over lineitem SF 10
+           (== the plain GROUP BY rolled up on the host; at SF 1 through
+           the stage DAG == the single process, and a rollup over
+           integer keys whose exchange repartitions through K4),
+           approx_distinct over lineitem SF 10 (within 4 standard errors
+           of 15,000,000), array_agg/approx_percentile/map_agg by
+           o_custkey at SF 1 with 64 slots a group (== sqlite, elements
+           sorted) and CROSS JOIN UNNEST of those arrays (== orders' own
+           pairs); walls, peaks, kernel launches and governor counters
+           beside the card's name and power limit.
+           The check and fused phases also run the relational surface at
+           SF 0.01 (presto_tpu_torch/queries.py WINDOW_SQL, SURFACE_SQL)
   governed Q3 and Q5 at SF 10, Q18 and TPC-DS Q64 at SF 1 on the eager
            session: unbounded, then under a small device_memory_budget
            and with the spill variants that reach the host and the disk
@@ -91,7 +106,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 
 ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
-              "governed", "oom")
+              "surface", "governed", "oom")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -475,22 +490,78 @@ def kernel_set(counts: dict) -> list:
     return sorted(k for k, v in counts.items() if v)
 
 
-def run_pair(suite, q, gpu, cpu, label):
-    """One query on the card and on the CPU: (card rows, CPU rows, card
-    kernel launches, CPU twin dispatches). The sets of kernels must be
-    equal: the same data, the same dispatch decisions."""
+def run_pair(suite, q, gpu, cpu, label, text=None):
+    """One query (``text``, else the suite's query ``q``) on the card and
+    on the CPU: (card rows, CPU rows, the kernels launched). The sets of
+    kernels must be equal: the same data, the same dispatch
+    decisions."""
     from presto_tpu_torch import cuda
 
+    text = text or sql(suite, q)
     cuda.reset_counts()
-    got = gpu.execute(sql(suite, q)).rows
+    got = gpu.execute(text).rows
     launched = kernel_set(cuda.launches)
     cuda.reset_counts()
-    want = cpu.execute(sql(suite, q)).rows
+    want = cpu.execute(text).rows
     dispatched = kernel_set(cuda.plain_calls)
     if launched != dispatched:
         raise AssertionError(f"{label}: the card launched {launched}, the "
                              f"CPU dispatched the twins of {dispatched}")
     return got, want, launched
+
+
+def same_bag(got, want) -> bool:
+    """Rows equal as multisets (same_rows after a sort that rounds
+    doubles, so two summation orders sort alike)."""
+    def key(row):
+        return repr(tuple(round(v, 6) if isinstance(v, float) else v
+                          for v in row))
+    return same_rows(sorted(got, key=key),
+                     sorted((tuple(r) for r in want), key=key))
+
+
+def run_slice(gpu, cpu, db, label, counters: bool = False) -> dict:
+    """The relational surface at SF 0.01 (presto_tpu_torch/queries.py:
+    the window cases, then SURFACE_SQL): card rows == CPU rows (in order
+    for the window cases, which order their rows; as multisets for the
+    rest) == sqlite where sqlite can express the query, with equal
+    kernel sets and, with ``counters``, equal fusion counters. Returns
+    the kernels launched per query."""
+    from presto_tpu_torch import queries as PQ
+
+    cases = [(f"window {i}", q, True, True)
+             for i, q in enumerate(PQ.WINDOW_SQL)]
+    cases += [(name, q, oracle, False)
+              for name, (q, oracle) in PQ.SURFACE_SQL.items()]
+    kernels = {}
+    for name, text, oracle, ordered in cases:
+        tag = f"{label} {name}"
+        gen0 = (gpu.executor.generated_joins_used,
+                cpu.executor.generated_joins_used)
+        got, want, launched = run_pair("tpch", None, gpu, cpu, tag,
+                                       text=text)
+        equal = same_rows(got, want) if ordered else same_bag(got, want)
+        if counters:
+            ctr = (fusion_counters(gpu.executor, gen0[0]),
+                   fusion_counters(cpu.executor, gen0[1]))
+            equal = equal and ctr[0] == ctr[1]
+        if not equal:
+            raise AssertionError(f"{tag}: card != CPU\n card {got[:3]}\n"
+                                 f" cpu  {want[:3]}")
+        if oracle is not None:
+            rows = db.execute(text if oracle is True else oracle).fetchall()
+            same = (same_rows(got, [tuple(r) for r in rows]) if ordered
+                    else same_bag(got, rows))
+            if not same:
+                raise AssertionError(f"{tag}: card != sqlite\n card "
+                                     f"{got[:3]}\n sqlite {rows[:3]}")
+        if not got:
+            raise AssertionError(f"{tag}: no rows")
+        kernels[name] = launched
+        log(f"{tag}: {len(got)} rows, card == CPU"
+            f"{' == sqlite' if oracle is not None else ''}; kernels "
+            f"{launched} on both")
+    return kernels
 
 
 def phase_check(dev) -> dict:
@@ -523,6 +594,11 @@ def phase_check(dev) -> dict:
             dispatched[(suite, q, sf, "check")] = kernels
             log(f"{label}: {len(got)} rows, card == CPU == sqlite; kernels "
                 f"{kernels} on both ({time.perf_counter() - t0:.1f} s)")
+        if suite == "tpch":
+            t0 = time.perf_counter()
+            run_slice(gpu, cpu, db, f"check: SF {sf}")
+            log(f"check: the relational surface in "
+                f"{time.perf_counter() - t0:.1f} s")
     return dispatched
 
 
@@ -626,6 +702,8 @@ def phase_fused(dev, cluster) -> dict:
             dispatched[(suite, q, sf, "fused")] = kernels
             log(f"{label}: {len(got)} rows, card == CPU (fusion forced) == "
                 f"sqlite; {counters}; kernels {kernels} on both")
+        if suite == "tpch":
+            run_slice(gpu, cpu, db, f"fused: SF {sf}", counters=True)
     # the distributed path under the default session: 4 worker threads
     # capture and replay the leaf fragments' programs on one card
     sf = 0.01
@@ -995,11 +1073,11 @@ GOVERNED = (
                                 "host_spill_bytes": 1},
                        "disk": {"device_memory_budget": 256 << 20,
                                 "disk_spill_bytes": 1}}),
+    # no disk variant here (58.9 s on an H100, PERF.md: the script's
+    # time limit); Q5 SF 10 and Q18 reach the disk tier
     ("tpcds", 64, 1.0, {"budget": {"device_memory_budget": 2 << 30},
                         "host": {"spill_threshold_bytes": 64 << 20,
-                                 "host_spill_bytes": 1},
-                        "disk": {"spill_threshold_bytes": 64 << 20,
-                                 "disk_spill_bytes": 1}}),
+                                 "host_spill_bytes": 1}}),
 )
 
 
@@ -1097,6 +1175,360 @@ def phase_governed(dev) -> dict:
                if not reached[t]]
     if missing:
         raise AssertionError(f"governed: never reached {missing}")
+    return launches_total
+
+
+# --------------------------------------------- the relational surface
+
+# the ten window shapes of tests/test_window.py over orders at SF 1
+# (1,500,000 rows, ~100,000 o_custkey partitions, one 2^21-slot merged
+# page), each folded into a checksum row so that neither side decodes
+# 1.5M rows per run; sqlite runs the same SQL
+SURFACE_WINDOWS = tuple(
+    f"select count(*), {sums} from (select {cols} from orders{where}) t"
+    for sums, cols, where in (
+        ("sum(rn), sum(rk), sum(drk)",
+         "row_number() over (partition by o_custkey order by o_orderdate, "
+         "o_orderkey) rn, rank() over (partition by o_custkey order by "
+         "o_orderdate) rk, dense_rank() over (partition by o_custkey "
+         "order by o_orderdate) drk", ""),
+        ("sum(rk), sum(drk)",
+         "rank() over (partition by o_custkey order by o_orderpriority) "
+         "rk, dense_rank() over (partition by o_custkey order by "
+         "o_orderstatus) drk", ""),
+        ("sum(c), sum(s), sum(mn), sum(mx)",
+         "count(*) over (partition by o_custkey) c, sum(o_totalprice) over "
+         "(partition by o_custkey) s, min(o_orderdate) over (partition by "
+         "o_custkey) mn, max(o_orderdate) over (partition by o_custkey) mx",
+         ""),
+        ("sum(s), sum(c), sum(mn), sum(mx)",
+         "sum(o_totalprice) over (partition by o_custkey order by "
+         "o_orderdate) s, count(*) over (partition by o_custkey order by "
+         "o_orderdate) c, min(o_totalprice) over (partition by o_custkey "
+         "order by o_orderdate) mn, max(o_totalprice) over (partition by "
+         "o_custkey order by o_orderdate) mx", ""),
+        ("sum(a), sum(b), sum(c), sum(d), count(a), count(c)",
+         "lag(o_orderkey) over (partition by o_custkey order by "
+         "o_orderdate, o_orderkey) a, lead(o_orderkey) over (partition by "
+         "o_custkey order by o_orderdate, o_orderkey) b, lag(o_orderkey, 2) "
+         "over (partition by o_custkey order by o_orderdate, o_orderkey) c, "
+         "first_value(o_orderkey) over (partition by o_custkey order by "
+         "o_orderdate, o_orderkey) d", ""),
+        ("sum(rk), max(s), min(s)",
+         "rank() over (order by o_orderdate) rk, sum(o_totalprice) over "
+         "(order by o_orderdate) s", ""),
+        ("sum(s)",
+         "sum(o_totalprice) over (partition by o_orderpriority order by "
+         "o_orderkey) s", " where o_custkey % 5 = 0"),
+        ("sum(nt), sum(pr), sum(cd)",
+         "ntile(4) over (partition by o_custkey order by o_orderkey) nt, "
+         "percent_rank() over (partition by o_custkey order by "
+         "o_orderdate) pr, cume_dist() over (partition by o_custkey order "
+         "by o_orderdate) cd", ""),
+        ("sum(s), sum(mn), sum(mx), count(mx), sum(c)",
+         "sum(o_totalprice) over (partition by o_custkey order by "
+         "o_orderkey rows between 2 preceding and current row) s, "
+         "min(o_totalprice) over (partition by o_custkey order by "
+         "o_orderkey rows between 1 preceding and 1 following) mn, "
+         "max(o_totalprice) over (partition by o_custkey order by "
+         "o_orderkey rows between 3 preceding and 1 preceding) mx, "
+         "count(*) over (partition by o_custkey order by o_orderkey rows "
+         "between current row and unbounded following) c", ""),
+        ("sum(nv), count(nv), sum(lv)",
+         "nth_value(o_orderkey, 2) over (partition by o_custkey order by "
+         "o_orderkey rows between unbounded preceding and unbounded "
+         "following) nv, last_value(o_orderkey) over (partition by "
+         "o_custkey order by o_orderdate range between unbounded "
+         "preceding and unbounded following) lv", ""),
+    ))
+SURFACE_ROLLUP = (
+    "select l_returnflag, l_linestatus, sum(l_quantity), "
+    "sum(l_extendedprice), count(*) from lineitem "
+    "group by rollup(l_returnflag, l_linestatus)")
+SURFACE_ROLLUP_PLAIN = (
+    "select l_returnflag, l_linestatus, sum(l_quantity), "
+    "sum(l_extendedprice), count(*) from lineitem "
+    "group by l_returnflag, l_linestatus")
+# the fragmenter degrades a repartition on dictionary-coded keys to a
+# gather (codes are page-local), so SURFACE_ROLLUP's stage DAG gathers
+# its partial states; this rollup over integer keys repartitions them,
+# through K4
+SURFACE_ROLLUP_INT = (
+    "select l_linenumber, l_shipdate, count(*), sum(l_quantity) "
+    "from lineitem group by rollup(l_linenumber, l_shipdate)")
+SURFACE_DISTINCT = (
+    "select o_orderpriority, count(distinct o_custkey), count(*), "
+    "sum(o_totalprice) from orders group by o_orderpriority")
+SURFACE_HLL = "select approx_distinct(l_orderkey) from lineitem"
+SURFACE_COLLECT = (
+    "select o_custkey, array_agg(o_orderkey), "
+    "approx_percentile(o_totalprice, 0.5), map_agg(o_orderkey, "
+    "o_totalprice) from orders group by o_custkey")
+SURFACE_UNNEST = ("select count(*), sum(x), sum(c * x) from aggs "
+                  "cross join unnest(a) as u(x)")
+SURFACE_UNNEST_ROWS = "select c, x from aggs cross join unnest(a) as u(x)"
+SURFACE_MODES = ("default", "eager")
+# the collect rung's slots per group. The reference's design sizes
+# collect state by group CAPACITY (the planner's 1,500,000-group
+# estimate, 2^18 slots after the optimistic clamp), not by the ~100,000
+# real groups: at the default 1,024 slots a 2^18-group partial page
+# holds 2 GiB per collect column, 12 GiB for this query's six, and
+# grace passes (a 2 MiB spill threshold: 64 passes) keep every pass's
+# output until the attempt ends, 2^21 groups x 5 result columns x 8 KiB
+# = 80 GiB: an 80 GB card runs out (PERF.md §6). 64 slots hold every
+# customer's orders at SF 1 (a group past them re-runs the query with
+# the slots doubled)
+COLLECT_SESSION = {"array_agg_max_elements": 64}
+SURFACE_PAGE_ROWS = 1 << 18
+
+
+def _timed(runner, text):
+    """One warm-up and TIMED_RUNS timed runs: (rows, walls, peak
+    allocated, peak reserved), the peaks over all four runs."""
+    fresh_memory(runner.executor.device)
+    res = runner.execute(text)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        res = runner.execute(text)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (res.rows, walls) + memory_peaks(runner.executor.device)
+
+
+def _rollup_on_host(rows):
+    """ROLLUP(flag, status) of plain GROUP BY rows, in exact integers."""
+    out = {}
+    for f, st, q, p, c in rows:
+        for key in ((f, st), (f, None), (None, None)):
+            cur = out.get(key, (0, 0, 0))
+            out[key] = (cur[0] + q, cur[1] + p, cur[2] + c)
+    return [k + v for k, v in out.items()]
+
+
+# the scale of the surface's sqlite oracles (orders)
+SURFACE_ORACLE_SF = 1.0
+
+
+def _surface_oracles(sf: float) -> dict:
+    """Every sqlite answer the surface phase compares with, from orders
+    at ``sf`` generated on the CPU. It runs in a child process beside
+    the card runs: on a thread its Python work would hold the GIL that
+    the timed runs' host side needs."""
+    from presto_tpu_torch import queries as PQ
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    db = PQ.load_sqlite(make_conn("tpch", sf, "cpu"), ["orders"])
+    out = {"load_s": time.perf_counter() - t0}
+    out["windows"] = [[tuple(r) for r in db.execute(text).fetchall()]
+                      for text in SURFACE_WINDOWS]
+    out["distinct"] = db.execute(SURFACE_DISTINCT).fetchall()
+    out["collect"] = _collect_oracle(db)
+    out["pairs"] = sorted(db.execute(
+        "select o_custkey, o_orderkey from orders").fetchall())
+    out["total_s"] = time.perf_counter() - t0
+    db.close()
+    return out
+
+
+def _collect_oracle(db):
+    """Per o_custkey from sqlite: the sorted orderkeys, the lower 0.5
+    percentile of o_totalprice (index ceil(p n) - 1 of the sorted
+    values) and the sorted (orderkey, totalprice) pairs."""
+    groups = collections.defaultdict(list)
+    for c, k, p in db.execute(
+            "select o_custkey, o_orderkey, o_totalprice from orders"):
+        groups[c].append((k, p))
+    out = {}
+    for c, pairs in groups.items():
+        prices = sorted(p for _, p in pairs)
+        out[c] = (tuple(sorted(k for k, _ in pairs)),
+                  prices[math.ceil(0.5 * len(prices)) - 1],
+                  tuple(sorted(pairs)))
+    return out
+
+
+def load_memory_connector():
+    """The test suite's memory connector (tests/torch_memory.py), loaded
+    from its file: a ``tests`` package installed on the machine may
+    shadow the checkout's."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "torch_memory.py")
+    spec = importlib.util.spec_from_file_location("torch_memory", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.MemoryConnector
+
+
+def phase_surface(dev, cluster: "DistCluster") -> dict:
+    """The relational surface at the size users run it, each rung under
+    default and eager (one warm-up, median of 3): the window shapes,
+    MarkDistinct and the collect aggregates over orders SF 1, ROLLUP and
+    approx_distinct over lineitem SF 10, and CROSS JOIN UNNEST of the
+    collected arrays, each against its oracle (sqlite, the plain GROUP
+    BY rolled up on the host, the exact distinct count, orders' own
+    pairs). The ROLLUP also runs through the stage DAG at SF 1 (4
+    workers), beside an integer-key rollup whose exchange launches K4.
+    The sqlite oracles run in a child process meanwhile. Prints every
+    rung's walls, peaks, kernel launches and governor counters beside
+    the card's name and power limit; returns the kernel launches of the
+    rungs' runs."""
+    import concurrent.futures
+    import multiprocessing
+
+    MemoryConnector = load_memory_connector()
+    card = card_line()
+    t_phase = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        oracle_future = pool.submit(_surface_oracles, SURFACE_ORACLE_SF)
+        return _surface_rungs(dev, cluster, card, oracle_future,
+                              MemoryConnector, t_phase)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _surface_rungs(dev, cluster, card, oracle_future, MemoryConnector,
+                   t_phase) -> dict:
+    """phase_surface's rungs, with the oracles' future."""
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.runner import LocalRunner
+
+    sf1, sf10 = cluster.catalogs[_catalog(1.0)], \
+        cluster.catalogs[_catalog(10.0)]
+    launches_total = {k: 0 for k in KERNEL_NAMES}
+    readings = {}
+
+    def rung(name, conn, text, session=None):
+        """The query under each surface mode over ``conn`` (the catalog
+        "tpch", or "mem" for a memory connector): rows equal across
+        modes; returns the first mode's rows."""
+        catalog = "mem" if isinstance(conn, MemoryConnector) else "tpch"
+        first = None
+        for mode in SURFACE_MODES:
+            runner = LocalRunner({catalog: conn}, catalog, session={
+                "page_rows": SURFACE_PAGE_ROWS, **SCALE_MODES[mode],
+                **(session or {})}, device=dev)
+            cuda.reset_counts()
+            rows, walls, peak, reserved = _timed(runner, text)
+            counts = {k: cuda.launches.get(k, 0) for k in KERNEL_NAMES}
+            for k in KERNEL_NAMES:
+                launches_total[k] += counts[k]
+            gov = governor_counters(runner.executor)
+            readings.setdefault(name, {})[mode] = dict(
+                wall_s=walls, median_s=statistics.median(walls),
+                peak_bytes=peak, reserved_bytes=reserved, launches=counts,
+                **gov)
+            log(f"surface: {name} {mode}: rows {len(rows)}, wall s "
+                f"{[round(w, 4) for w in walls]} (median "
+                f"{statistics.median(walls):.4f}), peak alloc "
+                f"{peak / 2**30:.3f} GiB (reserved {reserved / 2**30:.3f} "
+                f"GiB), launches per 4 runs {counts}, governor {gov}, "
+                f"boost retries {runner.executor.capacity_boost_retries}; "
+                f"{card}")
+            if first is None:
+                first = rows
+            elif not same_bag(rows, first):
+                raise AssertionError(f"surface: {name} {mode}: rows differ "
+                                     f"from {SURFACE_MODES[0]}")
+        return first
+
+    # windows and MarkDistinct: held to sqlite below, when its thread
+    # is done
+    windows = [rung(f"window {i}", sf1, text)
+               for i, text in enumerate(SURFACE_WINDOWS)]
+    distinct = rung("distinct", sf1, SURFACE_DISTINCT)
+    # ROLLUP at SF 10: the plain GROUP BY rolled up on the host, then the
+    # stage DAG
+    got = rung("rollup", sf10, SURFACE_ROLLUP)
+    plain = rung("rollup oracle (plain group by)", sf10,
+                 SURFACE_ROLLUP_PLAIN)
+    if not same_bag(got, _rollup_on_host(plain)):
+        raise AssertionError(f"surface: rollup: card {sorted(got, key=repr)}"
+                             f" != host rollup of the plain GROUP BY")
+    # the stage DAG at SF 1: a partial step emits one input-sized state
+    # page per input page (the reference's design: a rollup's partial
+    # states take no dense path), so at SF 10 its exchanges would carry
+    # 3 x 60M slots
+    coord = cluster.coordinator(1.0, SURFACE_PAGE_ROWS, FUSED_DIST_SESSION)
+    single = {}
+    for name, text in (("rollup dist", SURFACE_ROLLUP),
+                       ("rollup dist (integer keys)", SURFACE_ROLLUP_INT)):
+        cuda.reset_counts()
+        drows, dwall, spooled = _dist_run(coord, text)
+        dcounts = {k: cuda.launches.get(k, 0) for k in KERNEL_NAMES}
+        for k in KERNEL_NAMES:
+            launches_total[k] += dcounts[k]
+        kinds = [f.output_kind for f in coord.last_scheduler.dag.fragments]
+        readings[name] = dict(wall_s=dwall, launches=dcounts,
+                              spooled_pages=spooled[0],
+                              exchange_rows=spooled[1], edges=kinds)
+        log(f"surface: {name} x{N_WORKERS} workers: rows {len(drows)}, "
+            f"wall {dwall:.4f} s, edges {kinds}, spooled pages "
+            f"{spooled[0]}, exchange rows {spooled[1]}, launches "
+            f"{dcounts}; {card}")
+        if text not in single:
+            single[text] = cluster.local(1.0, SURFACE_PAGE_ROWS, {}) \
+                .execute(text).rows
+        if not same_bag(drows, single[text]):
+            raise AssertionError(f"surface: {name} != single process")
+    if "repartition" not in kinds or dcounts["part_ids"] <= 0:
+        raise AssertionError("surface: the integer-key dist rollup did not "
+                             "repartition through K4")
+    # approx_distinct at SF 10: within 4 standard errors of the exact count
+    got = rung("hll", sf10, SURFACE_HLL)
+    exact = sf10.row_count("orders")
+    if abs(got[0][0] - exact) > 4 * 0.065 * exact:
+        raise AssertionError(f"surface: hll: estimate {got[0][0]} vs "
+                             f"exact {exact}")
+    log(f"surface: hll: estimate {got[0][0]} vs exact distinct "
+        f"l_orderkey {exact} ({got[0][0] / exact - 1:+.4%})")
+    # the collect aggregates: sqlite, elements sorted
+    got = rung("collect", sf1, SURFACE_COLLECT, COLLECT_SESSION)
+    oracle = oracle_future.result()
+    log(f"surface: sqlite oracle (orders SF {SURFACE_ORACLE_SF:g} loaded "
+        f"in {oracle['load_s']:.1f} s) done in {oracle['total_s']:.1f} "
+        f"s, in a child process beside the card runs")
+    for i, (g, w) in enumerate(zip(windows, oracle["windows"])):
+        if not same_rows(g, w):
+            raise AssertionError(f"surface: window {i}: card {g} != "
+                                 f"sqlite {w}")
+    if not same_bag(distinct, oracle["distinct"]):
+        raise AssertionError("surface: distinct: card != sqlite")
+    want = oracle["collect"]
+    if len(got) != len(want):
+        raise AssertionError(f"surface: collect: {len(got)} groups vs "
+                             f"{len(want)}")
+    for c, arr, pct, mp in got:
+        w = want[c]
+        if (tuple(sorted(arr)), pct, tuple(sorted(mp))) != w:
+            raise AssertionError(f"surface: collect: group {c}: "
+                                 f"{arr} {pct} != sqlite {w[:2]}")
+    # CROSS JOIN UNNEST of the collected arrays (a collect result feeds
+    # no device expression, in the reference too: it comes back through
+    # a host table)
+    mem = MemoryConnector(device=dev)
+    mem.create_table("aggs", ["c", "a"], [T.BIGINT, T.ArrayType(T.BIGINT)],
+                     [(c, tuple(a)) for c, a, _, _ in got])
+    rung("unnest", mem, SURFACE_UNNEST)
+    pairs = sorted(LocalRunner({"mem": mem}, "mem", session={
+        "page_rows": SURFACE_PAGE_ROWS}, device=dev).execute(
+            SURFACE_UNNEST_ROWS).rows)
+    if pairs != oracle["pairs"]:
+        raise AssertionError("surface: unnest: pairs != orders' pairs")
+    log(f"surface: unnest: {len(pairs)} (o_custkey, o_orderkey) pairs == "
+        f"orders' own")
+    if launches_total["segsum"] <= 0:
+        raise AssertionError("surface: K1 never launched")
+    log("surface: " + json.dumps({"card": card, "readings": readings}))
+    log(f"surface: phase wall {time.perf_counter() - t_phase:.1f} s")
+    fresh_memory(dev)
     return launches_total
 
 
@@ -1461,7 +1893,7 @@ def main() -> int:
     launches = {k: None for k in KERNEL_NAMES}
     cluster = None
     try:
-        if phases & {"fused", "dist", "profile"}:
+        if phases & {"fused", "dist", "surface", "profile"}:
             cluster = DistCluster(dev, (0.01, 1.0, 10.0))
         # fused before scale: the scale runs' required kernels come from
         # the check and fused phases' CPU runs
@@ -1472,6 +1904,10 @@ def main() -> int:
         if "dist" in phases:
             dist = phase_dist(dev, cluster)
             launches = {k: (launches[k] or 0) + dist[k]
+                        for k in KERNEL_NAMES}
+        if "surface" in phases:
+            sur = phase_surface(dev, cluster)
+            launches = {k: (launches[k] or 0) + sur[k]
                         for k in KERNEL_NAMES}
         if "governed" in phases:
             gov = phase_governed(dev)

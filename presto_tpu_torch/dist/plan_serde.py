@@ -16,7 +16,8 @@ tagged-JSON walker covers the whole IR:
     non-finite -> {"$fl": "nan" | "inf" | "-inf"}
     None/bool/int/str/finite float -> JSON natives
 
-The class registry is the port's IR modules' own dataclasses; a class
+The class registry is the port's IR modules' own dataclasses (with
+SortKey and the window nodes' WindowFunc); a class
 outside it raises on encode and on decode.
 """
 
@@ -38,6 +39,7 @@ def _reg() -> Dict[str, type]:
         from presto_tpu_torch.exec import plan as P
         from presto_tpu_torch.expr import ir as E
         from presto_tpu_torch.ops.sort import SortKey
+        from presto_tpu_torch.ops.window import WindowFunc
 
         for mod in (T, P, E):
             for name in dir(mod):
@@ -45,6 +47,7 @@ def _reg() -> Dict[str, type]:
                 if isinstance(cls, type) and dataclasses.is_dataclass(cls):
                     _REG[name] = cls
         _REG["SortKey"] = SortKey
+        _REG["WindowFunc"] = WindowFunc
     return _REG
 
 

@@ -2,11 +2,13 @@
 segmented reductions of presto_tpu_torch.ops.agg, with exact wide-decimal
 sums.
 
-Port of presto_tpu/exec/agg_states.py for the aggregates the slice runs
-(count, count(*), sum, avg, min, max, any, bool_or/bool_and, the
-variance family). 128-bit decimal sums split each unscaled i64 into
-(v >> 32, v & 0xFFFFFFFF) and sum the halves separately; hi*2^32 + lo
-reconstructs the exact total as a long-decimal limb Block.
+Port of presto_tpu/exec/agg_states.py: count, count(*), sum, avg, min,
+max, any, bool_or/bool_and, the variance family, approx_distinct's HLL
+words and the collect states of array_agg, map_agg and
+approx_percentile (plugin aggregates are not ported). 128-bit decimal
+sums split each unscaled i64 into (v >> 32, v & 0xFFFFFFFF) and sum the
+halves separately; hi*2^32 + lo reconstructs the exact total as a
+long-decimal limb Block.
 
 Reference: presto-main operator/aggregation/* (DecimalSumAggregation +
 UnscaledDecimal128Arithmetic for the 128-bit state).
@@ -38,8 +40,8 @@ class StateCol:
     pre: Optional[str] = None  # None | 'hi32' | 'lo32' | 'sq'
 
 
-# collect-state aggregates (array_agg/map_agg/approx_percentile) wait for
-# a later slice; the planner consults the name set
+# collect-state aggregate markers (handled by the executor's collect
+# branches against ops/collect.py, never by ops/agg.aggregate)
 COLLECT = "collect"
 COLLECT_FNS = frozenset({"array_agg", "map_agg", "approx_percentile"})
 
@@ -83,10 +85,37 @@ def state_layout(function: str,
             StateCol("sum", A.SUM, A.SUM, T.DOUBLE),
             StateCol("sumsq", A.SUM, A.SUM, T.DOUBLE, pre="sq"),
         ]
-    raise NotImplementedError(
-        f"aggregate {function!r} is not ported to presto_tpu_torch yet "
-        "(ROADMAP queue 1, slice B)"
-    )
+    if function == "approx_distinct":
+        # one tuple-data state column of packed HLL register words
+        # (ops/hll.py; the executor special-cases insert/merge/estimate)
+        return [StateCol("hll", A.HLL_INSERT, A.HLL_MERGE, T.HLL_STATE)]
+    elem = in_type if in_type is not None else T.UNKNOWN
+    if function == "approx_percentile":
+        # [cap, K] collected-value matrix + used-slot count (exact
+        # within the array_agg_max_elements bound)
+        return [
+            StateCol("vals", COLLECT, COLLECT, T.CollectStateType(elem)),
+            StateCol("count", A.COUNT, A.SUM, T.BIGINT),
+        ]
+    if function == "array_agg":
+        # value matrix + element-null-flag matrix + used-slot count
+        return [
+            StateCol("vals", COLLECT, COLLECT, T.CollectStateType(elem)),
+            StateCol("vnulls", COLLECT, COLLECT,
+                     T.CollectStateType(T.UNKNOWN)),
+            StateCol("count", A.COUNT, A.SUM, T.BIGINT),
+        ]
+    if function == "map_agg":
+        # collected keys + values + value-null flags + count
+        return [
+            StateCol("kvals", COLLECT, COLLECT, T.CollectStateType(elem)),
+            StateCol("vvals", COLLECT, COLLECT,
+                     T.CollectStateType(T.UNKNOWN)),
+            StateCol("vnulls", COLLECT, COLLECT,
+                     T.CollectStateType(T.UNKNOWN)),
+            StateCol("count", A.COUNT, A.SUM, T.BIGINT),
+        ]
+    raise ValueError(f"unknown aggregate function: {function}")
 
 
 def is_plugin_aggregate(name: str) -> bool:
@@ -101,9 +130,17 @@ def result_type(
 ) -> T.SqlType:
     """Reference: FunctionRegistry aggregate signatures — sum(bigint) ->
     bigint, sum(decimal(p,s)) -> decimal(38,s), avg(decimal(p,s)) ->
-    decimal(p,s), count -> bigint."""
+    decimal(p,s), count -> bigint. ``extra`` carries additional input
+    types (map_agg's value column)."""
     if function in ("count", "count_star", "approx_distinct"):
         return T.BIGINT
+    if function == "array_agg":
+        return T.ArrayType(in_type if in_type is not None else T.UNKNOWN)
+    if function == "map_agg":
+        return T.MapType(in_type if in_type is not None else T.UNKNOWN,
+                         extra[0] if extra else T.UNKNOWN)
+    if function == "approx_percentile":
+        return in_type
     if function in ("min", "max", "any"):
         return in_type
     if function in ("bool_or", "bool_and"):
@@ -120,10 +157,7 @@ def result_type(
         return T.DOUBLE
     if function in VARIANCE_FNS:
         return T.DOUBLE
-    raise NotImplementedError(
-        f"aggregate {function!r} is not ported to presto_tpu_torch yet "
-        "(ROADMAP queue 1, slice B)"
-    )
+    raise ValueError(f"unknown aggregate function: {function}")
 
 
 def pre_transform(pre, data: torch.Tensor) -> torch.Tensor:
@@ -204,6 +238,4 @@ def finalize(
         if function.startswith("stddev"):
             var = torch.sqrt(var)
         return Block(data=var, type=T.DOUBLE, nulls=nulls)
-    raise NotImplementedError(
-        f"aggregate {function!r} is not ported to presto_tpu_torch yet"
-    )
+    raise ValueError(f"unknown aggregate function: {function}")

@@ -42,8 +42,15 @@ under a halved budget (the device-OOM ladder of stream_fragment). Join
 chains may defer carried build columns as row-id indirections (late
 materialization, exec/latemat.py).
 
-Left for later slices (ROADMAP): the cross-query launch batcher, cross
-joins, windows, grouping sets, HLL and collect aggregates, and the
+The relational surface: Values, Union, CrossJoin (a capped build with
+the deferred overflow flag), MarkDistinct (count(DISTINCT a) beside
+plain aggregates), GroupId (one replica per grouping set, aggregated
+over (keys..., gid) through the grouped path), Window (ops/window.py),
+Unnest over dictionary-coded arrays, approx_distinct (ops/hll.py) and
+the collect aggregates array_agg, map_agg and approx_percentile
+(ops/collect.py).
+
+Left for later slices (ROADMAP): the cross-query launch batcher and the
 result cache.
 
 Deferred-sync discipline, as in the reference: overflow flags stay
@@ -81,13 +88,16 @@ from presto_tpu_torch.exec.pagestore import PageStore, page_bytes
 from presto_tpu_torch.expr.eval import evaluate, evaluate_filter
 from presto_tpu_torch.expr.ir import InputRef
 from presto_tpu_torch.ops import agg as A
+from presto_tpu_torch.ops import collect as CL
 from presto_tpu_torch.ops import consts
 from presto_tpu_torch.ops import cuda_agg as CA
 from presto_tpu_torch.ops import cuda_join as CJ
 from presto_tpu_torch.ops import hashing as H
+from presto_tpu_torch.ops import hll as HLL
 from presto_tpu_torch.ops import join as J
 from presto_tpu_torch.ops import keys as K
 from presto_tpu_torch.ops import u64
+from presto_tpu_torch.ops import window as W
 from presto_tpu_torch.ops.compact import (compact_page, concat_all,
                                           gather_rows, slice_page)
 from presto_tpu_torch.ops.sort import sort_page
@@ -123,6 +133,8 @@ def _row_bytes(types) -> int:
     for t in types:
         if isinstance(t, T.DecimalType) and not t.is_short:
             total += 16
+        elif isinstance(t, T.HllStateType):
+            total += 8 * HLL.WORDS  # packed register words
         elif T.is_string(t):
             total += 4  # dictionary codes
         else:
@@ -242,6 +254,9 @@ class Executor:
         # optimistic group-capacity clamp (presto_tpu's session default
         # agg_optimistic_rows)
         self.agg_optimistic_rows = 1 << 18
+        # collect-state slots per group (array_agg_max_elements), scaled
+        # by the capacity boost on a retry (_collect_k_eff)
+        self.collect_k = 1024
         self._pending_overflow: List[torch.Tensor] = []
         self._capacity_boost = 1
         self.capacity_boost_retries = 0
@@ -375,14 +390,30 @@ class Executor:
                 # the probe page plus the match column the planner filters
                 return left + [T.BOOLEAN]
             return left + self.output_types(node.right)
-        if isinstance(node, P.UniqueId):
+        if isinstance(node, P.CrossJoin):
+            return self.output_types(node.left) + self.output_types(
+                node.right)
+        if isinstance(node, (P.UniqueId, P.GroupId)):
             return self.output_types(node.source) + [T.BIGINT]
-        if isinstance(node, P.RemoteSource):
+        if isinstance(node, (P.RemoteSource, P.Values)):
             return list(node.types)
-        raise NotImplementedError(
-            f"plan node not ported to presto_tpu_torch yet: "
-            f"{type(node).__name__}"
-        )
+        if isinstance(node, P.MarkDistinct):
+            return self.output_types(node.source) + [
+                T.BOOLEAN for _ in node.mark_channel_sets]
+        if isinstance(node, P.Window):
+            src = self.output_types(node.source)
+            return src + [
+                W.result_type(fn, None if fn.arg_channel is None
+                              else src[fn.arg_channel])
+                for fn in node.functions]
+        if isinstance(node, P.Unnest):
+            out = self.output_types(node.source) + [node.element_type]
+            if node.with_ordinality:
+                out.append(T.BIGINT)
+            return out
+        if isinstance(node, P.Union):
+            return self.output_types(node.sources[0])
+        raise TypeError(f"unknown node: {node!r}")
 
     # ------------------------------------------------------------- execute
     def pages(self, node: P.PhysicalNode) -> Iterator[Page]:
@@ -479,10 +510,67 @@ class Executor:
             if buf:
                 yield concat_all(buf)
             return
-        raise NotImplementedError(
-            f"plan node not ported to presto_tpu_torch yet: "
-            f"{type(node).__name__}"
-        )
+        if isinstance(node, P.Values):
+            cols = (list(zip(*node.rows)) if node.rows
+                    else [[] for _ in node.types])
+            yield Page.from_arrays([list(c) for c in cols],
+                                   list(node.types), device=self.device)
+            return
+        if isinstance(node, P.Union):
+            for src in node.sources:
+                yield from self.pages(src)
+            return
+        if isinstance(node, P.CrossJoin):
+            right_pages = list(self.pages(node.right))
+            if not right_pages:
+                return
+            build_all = concat_all(right_pages)
+            # a modest static build capacity (the output is probe_cap x
+            # build_cap); dropped rows raise the deferred overflow flag
+            # and the query re-runs with a boosted capacity
+            bcap = min(_next_pow2(build_all.capacity),
+                       _next_pow2(4096 * self._capacity_boost))
+            self._pending_overflow.append(build_all.num_rows() > bcap)
+            build = compact_page(build_all, bcap)
+            for page in self.pages(node.left):
+                yield _cross_join_page(page, build)
+            return
+        if isinstance(node, P.Unnest):
+            for page in self.pages(node.source):
+                yield _unnest_page(node.array_channel, node.element_type,
+                                   node.with_ordinality, page)
+            return
+        if isinstance(node, P.GroupId):
+            # one replica per grouping set: absent keys nulled, the gid
+            # channel appended (reference: GroupIdOperator)
+            for page in self.pages(node.source):
+                for si, mask in enumerate(node.set_masks):
+                    yield _group_id_page(node.key_channels, mask, si, page)
+            return
+        if isinstance(node, P.MarkDistinct):
+            pages = list(self.pages(node.source))
+            if not pages:
+                return
+            merged = concat_all(pages)
+            self._account_page(merged)
+            # the boost deepens the probe budget on a retry
+            out, overflow = _mark_distinct_page(
+                node.mark_channel_sets, merged,
+                _next_pow2(merged.capacity), 64 * self._capacity_boost)
+            self._pending_overflow.append(overflow)
+            yield out
+            return
+        if isinstance(node, P.Window):
+            pages = list(self.pages(node.source))
+            if not pages:
+                return
+            merged = concat_all(pages)
+            out_types = tuple(self.output_types(node)[
+                len(merged.blocks):])
+            yield W.window_page(node.partition_channels, node.order_keys,
+                                node.functions, out_types, merged)
+            return
+        raise TypeError(f"unknown node: {node!r}")
 
     def execute(self, node: P.PhysicalNode):
         """Materialize results: (column_names, list of row tuples).
@@ -1040,9 +1128,11 @@ class Executor:
             return None
         raw = functools.partial(_partial_agg_page, node.group_channels,
                                 node.aggregates, layouts_t,
-                                kernels=self.kernels)
+                                kernels=self.kernels,
+                                collect_k=self._collect_k_eff)
         merge_raw = functools.partial(_merge_partials_page, node.aggregates,
-                                      layouts_t, len(node.group_channels))
+                                      layouts_t, len(node.group_channels),
+                                      collect_k=self._collect_k_eff)
         return (
             "aggflag",
             functools.partial(_fused_agg_step, raw, cap, max_iters),
@@ -1097,6 +1187,20 @@ class Executor:
                 "final-step aggregation must consume a partial-step one")
         return src
 
+    @property
+    def _collect_k_eff(self) -> int:
+        """Collect-state slots per group this attempt: the session bound
+        scaled by the capacity boost, so a group past
+        array_agg_max_elements takes the same boosted-retry ladder as
+        every other capacity."""
+        return self.collect_k * self._capacity_boost
+
+    def _agg_extra_types(self, node: P.Aggregation):
+        """Per-aggregate extra input types (map_agg's value column)."""
+        src = self.output_types(node.source)
+        return tuple(tuple(src[c] for c in spec.extra_channels)
+                     for spec in node.aggregates)
+
     def _layouts(self, node: P.Aggregation, in_types):
         return tuple(
             tuple(S.state_layout(s.function, t))
@@ -1118,7 +1222,8 @@ class Executor:
             fused = None if tail is None else self._fused_stream(
                 node.source, agg_tail=tail,
                 key_extra=("partial", node.group_channels, node.aggregates,
-                           pcap, 64 * self._capacity_boost))
+                           pcap, 64 * self._capacity_boost,
+                           self._collect_k_eff))
             if fused is not None:
                 yield from fused
                 return
@@ -1138,7 +1243,8 @@ class Executor:
                 return
             merged = (concat_all(partials) if partials
                       else _empty_state_page(node.aggregates, layouts,
-                                             self.device))
+                                             self.device,
+                                             self._collect_k_eff))
             yield _final_global_agg(node.aggregates, layouts, in_types,
                                     merged)
             return
@@ -1188,7 +1294,7 @@ class Executor:
         fused = None if tail is None else self._fused_stream(
             node.source, agg_tail=tail,
             key_extra=("single", node.group_channels, node.aggregates, cap,
-                       max_iters))
+                       max_iters, self._collect_k_eff))
         if fused is not None:
             for out in fused:
                 fold.add(out)
@@ -1239,15 +1345,17 @@ class Executor:
     def _agg_fns(self, node: P.Aggregation, layouts, in_types):
         """The (partial, merge, final) page functions of a grouped
         aggregation, each ``fn(page, cap, max_iters) -> (page, flag)``."""
+        k = self._collect_k_eff
         partial = functools.partial(
             _partial_agg_page, node.group_channels, node.aggregates, layouts,
-            kernels=self.kernels)
+            kernels=self.kernels, collect_k=k)
         merge = functools.partial(
             _merge_partials_page, node.aggregates, layouts,
-            len(node.group_channels))
+            len(node.group_channels), collect_k=k)
         final = functools.partial(
             _final_agg_page, node.group_channels, node.aggregates, layouts,
-            in_types)
+            in_types, collect_k=k,
+            extra_types=self._agg_extra_types(node))
         return partial, merge, final
 
     def _exec_agg_partitioned(self, node: P.Aggregation, parts: int,
@@ -1340,13 +1448,15 @@ class Executor:
 
     def _exec_agg_final(self, node: P.Aggregation) -> Iterator[Page]:
         """Final step: merge partial-state pages."""
-        in_types = self._agg_in_types(self._partial_origin(node))
+        origin = self._partial_origin(node)
+        in_types = self._agg_in_types(origin)
         layouts = self._layouts(node, in_types)
         pages = list(self.pages(node.source))
         if not node.group_channels:
             merged = (concat_all(pages) if pages
                       else _empty_state_page(node.aggregates, layouts,
-                                             self.device))
+                                             self.device,
+                                             self._collect_k_eff))
             yield _final_global_agg(node.aggregates, layouts, in_types,
                                     merged)
             return
@@ -1357,7 +1467,9 @@ class Executor:
                    _next_pow2(merged.capacity))
         out, overflow = _final_agg_page(
             node.group_channels, node.aggregates, layouts, in_types, merged,
-            fcap, 64 * self._capacity_boost)
+            fcap, 64 * self._capacity_boost,
+            collect_k=self._collect_k_eff,
+            extra_types=self._agg_extra_types(origin))
         self._pending_overflow.append(overflow)
         yield out
 
@@ -2379,11 +2491,206 @@ def _apply_agg_mask(spec, page: Page, blk: Optional[Block]):
                  dictionary=blk.dictionary)
 
 
-def _check_aggregate_ported(spec) -> None:
-    if spec.function in S.COLLECT_FNS or spec.function == "approx_distinct":
+def _mark_distinct_page(mark_channel_sets, page: Page, cap, max_iters):
+    """Append first-occurrence marks per key set (MarkDistinctOperator):
+    group ids over the key set, then True at each group's
+    representative row."""
+    blocks: List[Block] = []
+    overflow = torch.zeros((), dtype=torch.bool, device=page.device)
+    for chans in mark_channel_sets:
+        groups = _group_ids(chans, page, cap, max_iters)
+        rep = groups.rep_index
+        if rep is None:
+            # the dense path keeps no representative rows (its keys come
+            # from the group id): each group's first valid row
+            out_cap = groups.group_valid.shape[0]
+            rep = A._scatter_min(
+                out_cap + 1, page.capacity,
+                torch.where(groups.row_valid, groups.group_ids, out_cap),
+                torch.arange(page.capacity, dtype=torch.int64,
+                             device=page.device))[:out_cap]
+        mark = torch.zeros(page.capacity + 1, dtype=torch.bool,
+                           device=page.device)
+        mark[torch.where(groups.group_valid, rep, page.capacity)] = True
+        blocks.append(Block(data=mark[:page.capacity], type=T.BOOLEAN))
+        overflow = overflow | groups.overflow
+    return (Page(blocks=page.blocks + tuple(blocks), valid=page.valid),
+            overflow)
+
+
+def _hll_hashes(blk: Block) -> torch.Tensor:
+    """One u64 hash per row over the block's equality encoding (SQL-equal
+    values hash equal, dictionary canonicalization included)."""
+    cols = K.equality_encoding(blk)
+    return H.hash_columns(cols, [None] * len(cols))
+
+
+def _hll_contributing(groups, blk: Optional[Block]):
+    contributing = groups.row_valid
+    if blk is not None and blk.nulls is not None:
+        contributing = contributing & ~blk.nulls
+    return contributing
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2.0 ** k for integer-valued float64 k in [-2044, 2046], as the
+    product of two powers built from their exponent bits: exact on
+    every device, where a library exp2 may be an ulp off."""
+    k = k.to(torch.int64)
+    half = torch.div(k, 2, rounding_mode="floor")
+
+    def bits(j):
+        return ((j.clamp(-1022, 1023) + 1023) << 52).view(torch.float64)
+
+    return bits(half) * bits(k - half)
+
+
+def _collect_encode(blk: Block) -> torch.Tensor:
+    """A block's values as int64 collect slots: integers, dates,
+    booleans and short decimals directly, dictionary codes as they are
+    (the dictionary rides the state Block).
+
+    Floats take the reference's arithmetic sign/exponent/mantissa pack
+    (log2/floor, two correction steps), not a bit view: the pack is
+    ORDER-PRESERVING (int64 order == float order), so approx_percentile
+    needs no float case. NaN encodes as the largest int64. The
+    mantissa scales by an exact power of two (_pow2), where the
+    reference's XLA exp2 is a few ulp off, so the port's round trip is
+    exact and its words sit within a few code steps of the
+    reference's."""
+    data = blk.data
+    if isinstance(data, tuple):
         raise NotImplementedError(
-            f"aggregate {spec.function!r} is not ported to "
-            "presto_tpu_torch yet (ROADMAP queue 1, slice B)")
+            "array_agg/map_agg over long-decimal (p>18) inputs is not "
+            "supported")
+    if not data.is_floating_point():
+        return data.to(torch.int64)
+    x = data.to(torch.float64)
+    ax = x.abs()
+    safe = torch.where(ax > 0, ax, 1.0)
+    e = torch.floor(torch.log2(safe))
+    # power-of-two scaling is exact; two correction steps absorb any
+    # log2 boundary imprecision
+    m = safe * _pow2(-e - 1.0)
+    for _ in range(2):
+        hi = m >= 1.0
+        lo = m < 0.5
+        e = e + hi.to(torch.float64) - lo.to(torch.float64)
+        m = torch.where(hi, m * 0.5, torch.where(lo, m * 2.0, m))
+    frac = ((m - 0.5) * float(2 ** 53)).to(torch.int64).clamp(
+        0, (1 << 52) - 1)
+    mag = ((e.to(torch.int64) + 1100).clamp(0, 2047) << 52) | frac
+    enc = torch.where(ax == 0, 0, torch.where(x < 0, -mag, mag))
+    return torch.where(torch.isnan(x), torch.iinfo(torch.int64).max, enc)
+
+
+def _collect_float_decode_device(enc: torch.Tensor) -> torch.Tensor:
+    """Inverse of the float pack: value = sign * 2^(e+1) * (0.5 + frac *
+    2^-53)."""
+    mag = enc.abs()
+    e = ((mag >> 52) - 1100).to(torch.float64)
+    frac = (mag & ((1 << 52) - 1)).to(torch.float64)
+    val = (0.5 + frac * float(2.0 ** -53)) * _pow2(e + 1.0)
+    val = torch.where(enc < 0, -val, val)
+    return torch.where(enc == 0, 0.0, val)
+
+
+def _collect_partial_blocks(spec, layout, page, groups, out_cap,
+                            collect_k):
+    """Partial-step collect state, with the reference's null semantics:
+    array_agg INCLUDES null elements (a parallel null-flag matrix rides
+    the state); map_agg skips null KEYS but keeps null values;
+    approx_percentile ignores nulls. A DISTINCT mask always excludes
+    unmarked rows."""
+    blk = page.block(spec.channel)
+    contributing = groups.row_valid
+    if spec.mask is not None:
+        contributing = contributing & page.block(spec.mask).data
+    fn = spec.function
+    if fn == "map_agg":
+        if blk.nulls is not None:  # null keys are skipped
+            contributing = contributing & ~blk.nulls
+        vblk = page.block(spec.extra_channels[0])
+        if vblk.dictionary is not None:
+            raise NotImplementedError(
+                "map_agg with dictionary-coded (varchar/complex) VALUE "
+                "columns is not supported; keys may be any type")
+        sources = [(blk, None), (vblk, None), (None, vblk.nulls)]
+    elif fn == "approx_percentile":
+        if blk.nulls is not None:  # percentile ignores nulls
+            contributing = contributing & ~blk.nulls
+        sources = [(blk, None)]
+    else:  # array_agg: null elements included
+        sources = [(blk, None), (None, blk.nulls)]
+    blocks: List[Block] = []
+    overflow = torch.zeros((), dtype=torch.bool, device=page.device)
+    for (vb, null_src), st in zip(sources, layout):
+        if vb is not None:
+            enc, dic = _collect_encode(vb), vb.dictionary
+        else:
+            enc = (null_src.to(torch.int64) if null_src is not None
+                   else torch.zeros(page.capacity, dtype=torch.int64,
+                                    device=page.device))
+            dic = None
+        vals, ovf = CL.insert(groups.group_ids, contributing, out_cap, enc,
+                              collect_k)
+        overflow = overflow | ovf
+        blocks.append(Block(data=vals, type=st.type, dictionary=dic))
+    cnt, _ = A.aggregate(
+        groups, A.COUNT, out_cap,
+        torch.zeros(page.capacity, dtype=torch.int64, device=page.device),
+        ~contributing)
+    blocks.append(Block(data=cnt, type=T.BIGINT))
+    return blocks, overflow
+
+
+def _collect_merge_blocks(layout, merged, groups, out_cap, ch, collect_k):
+    """Merge partial collect states grouped by output key: per collected
+    column, member rows' slot vectors concatenate in row order; the
+    count column sums."""
+    n_collect = len(layout) - 1
+    counts = merged.block(ch + n_collect).data
+    blocks: List[Block] = []
+    overflow = torch.zeros((), dtype=torch.bool, device=merged.device)
+    for i in range(n_collect):
+        blk = merged.block(ch + i)
+        vals, ovf = CL.merge(groups.group_ids, groups.row_valid, out_cap,
+                             blk.data, counts, collect_k)
+        overflow = overflow | ovf
+        blocks.append(Block(data=vals, type=layout[i].type,
+                            dictionary=blk.dictionary))
+    ncnt, _ = A.aggregate(groups, A.SUM, out_cap, counts, None)
+    blocks.append(Block(data=ncnt, type=T.BIGINT))
+    return blocks, overflow
+
+
+def _collect_finalize_block(spec, in_t, extra_t, state_blocks) -> Block:
+    """Merged collect state -> the SQL result Block. Arrays and maps
+    carry TUPLE data ((vals2d, nulls2d, counts) for arrays; (k2d, v2d,
+    vnulls2d, counts) for maps), decoded on the host at the client
+    boundary (page.to_pylist): as in the reference, a collect result
+    feeds no further device expression."""
+    if spec.function == "approx_percentile":
+        vals_blk, cnt_blk = state_blocks
+        frac = float(spec.params[0]) if spec.params else 0.5
+        picked = CL.percentile_select(vals_blk.data, cnt_blk.data, frac,
+                                      vals_blk.data.shape[1])
+        if T.is_floating(in_t):
+            picked = _collect_float_decode_device(picked)
+        return Block(data=picked.to(in_t.device_dtype), type=in_t,
+                     nulls=cnt_blk.data == 0)
+    if spec.function == "map_agg":
+        # value columns are non-dictionary (checked at partial), so the
+        # Block's one dictionary slot carries the keys'
+        k_blk, v_blk, vn_blk, cnt_blk = state_blocks
+        return Block(
+            data=(k_blk.data, v_blk.data, vn_blk.data, cnt_blk.data),
+            type=T.MapType(in_t, extra_t[0] if extra_t else T.UNKNOWN),
+            nulls=cnt_blk.data == 0, dictionary=k_blk.dictionary)
+    vals_blk, vn_blk, cnt_blk = state_blocks
+    return Block(data=(vals_blk.data, vn_blk.data, cnt_blk.data),
+                 type=T.ArrayType(in_t), nulls=cnt_blk.data == 0,
+                 dictionary=vals_blk.dictionary)
 
 
 def _agg_keys_page(src: Page, group_channels, groups) -> Page:
@@ -2408,19 +2715,32 @@ def _agg_keys_page(src: Page, group_channels, groups) -> Page:
 
 def _partial_agg_page(group_channels, aggregates, layouts, page: Page,
                       cap: int, max_iters: int = 64,
-                      kernels: bool = False):
+                      kernels: bool = False, collect_k: int = 1024):
     """Partial step over one page. With kernels on, the supported
     aggregates go to K1 (ops/cuda_agg); the others delegate back to
-    ops/agg inside CA.aggregate, so one dispatch covers the layout."""
+    ops/agg inside CA.aggregate, so one dispatch covers the layout.
+    Collect and HLL states take their own branches (ops/collect.py,
+    ops/hll.py)."""
     agg_fn = CA.aggregate if kernels else A.aggregate
     groups = _group_ids(group_channels, page, cap, max_iters)
     out_cap = groups.group_valid.shape[0]
     keys_page = _agg_keys_page(page, group_channels, groups)
     state_blocks: List[Block] = []
     for spec, layout in zip(aggregates, layouts):
-        _check_aggregate_ported(spec)
+        if spec.function in S.COLLECT_FNS:
+            blocks, c_ovf = _collect_partial_blocks(
+                spec, layout, page, groups, out_cap, collect_k)
+            state_blocks.extend(blocks)
+            groups.overflow = groups.overflow | c_ovf
+            continue
         blk = None if spec.channel is None else page.block(spec.channel)
         blk = _apply_agg_mask(spec, page, blk)
+        if spec.function == "approx_distinct":
+            words = HLL.insert(groups.group_ids,
+                               _hll_contributing(groups, blk), out_cap,
+                               _hll_hashes(blk))
+            state_blocks.append(Block(data=words, type=T.HLL_STATE))
+            continue
         for st in layout:
             vals, out_nulls, dic = _state_reduce(
                 st, blk, st.input_kind, True,
@@ -2434,7 +2754,8 @@ def _partial_agg_page(group_channels, aggregates, layouts, page: Page,
 
 
 def _merge_partials_page(aggregates, layouts, nkeys, merged: Page,
-                         cap: int, max_iters: int = 64):
+                         cap: int, max_iters: int = 64,
+                         collect_k: int = 1024):
     """Merge partial-state pages into one partial-state page (group by
     keys, merge_kind reductions, no finalize)."""
     key_channels = tuple(range(nkeys))
@@ -2444,6 +2765,19 @@ def _merge_partials_page(aggregates, layouts, nkeys, merged: Page,
     out_blocks: List[Block] = []
     ch = nkeys
     for spec, layout in zip(aggregates, layouts):
+        if spec.function in S.COLLECT_FNS:
+            blocks, c_ovf = _collect_merge_blocks(
+                layout, merged, groups, out_cap, ch, collect_k)
+            out_blocks.extend(blocks)
+            groups.overflow = groups.overflow | c_ovf
+            ch += len(layout)
+            continue
+        if spec.function == "approx_distinct":
+            words = HLL.merge(groups.group_ids, groups.row_valid, out_cap,
+                              merged.block(ch).data)
+            ch += 1
+            out_blocks.append(Block(data=words, type=T.HLL_STATE))
+            continue
         for st in layout:
             blk = merged.block(ch)
             ch += 1
@@ -2459,7 +2793,8 @@ def _merge_partials_page(aggregates, layouts, nkeys, merged: Page,
 
 
 def _final_agg_page(group_channels, aggregates, layouts, in_types,
-                    merged: Page, cap: int, max_iters: int = 64):
+                    merged: Page, cap: int, max_iters: int = 64,
+                    collect_k: int = 1024, extra_types=()):
     nkeys = len(group_channels)
     key_channels = tuple(range(nkeys))
     groups = _group_ids(key_channels, merged, cap, max_iters)
@@ -2467,7 +2802,24 @@ def _final_agg_page(group_channels, aggregates, layouts, in_types,
     keys_page = _agg_keys_page(merged, key_channels, groups)
     out_blocks: List[Block] = []
     ch = nkeys
-    for spec, layout, in_t in zip(aggregates, layouts, in_types):
+    for idx, (spec, layout, in_t) in enumerate(
+            zip(aggregates, layouts, in_types)):
+        if spec.function in S.COLLECT_FNS:
+            blocks, c_ovf = _collect_merge_blocks(
+                layout, merged, groups, out_cap, ch, collect_k)
+            groups.overflow = groups.overflow | c_ovf
+            ch += len(layout)
+            ext = extra_types[idx] if idx < len(extra_types) else ()
+            out_blocks.append(_collect_finalize_block(spec, in_t, ext,
+                                                      blocks))
+            continue
+        if spec.function == "approx_distinct":
+            words = HLL.merge(groups.group_ids, groups.row_valid, out_cap,
+                              merged.block(ch).data)
+            ch += 1
+            out_blocks.append(Block(data=HLL.estimate(words),
+                                    type=T.BIGINT))
+            continue
         states = []
         state_dic = None
         for st in layout:
@@ -2494,9 +2846,16 @@ def _partial_global_agg(aggregates, layouts, page: Page,
     agg_fn = CA.global_aggregate if kernels else A.global_aggregate
     blocks = []
     for spec, layout in zip(aggregates, layouts):
-        _check_aggregate_ported(spec)
         blk = None if spec.channel is None else page.block(spec.channel)
         blk = _apply_agg_mask(spec, page, blk)
+        if spec.function == "approx_distinct":
+            contributing = page.valid
+            if blk.nulls is not None:
+                contributing = contributing & ~blk.nulls
+            blocks.append(Block(
+                data=HLL.global_insert(contributing, _hll_hashes(blk)),
+                type=T.HLL_STATE))
+            continue
         for st in layout:
             vals, is_null, dic = _state_reduce(
                 st, blk, st.input_kind, True,
@@ -2513,6 +2872,12 @@ def _final_global_agg(aggregates, layouts, in_types, merged: Page) -> Page:
     out_blocks = []
     ch = 0
     for spec, layout, in_t in zip(aggregates, layouts, in_types):
+        if spec.function == "approx_distinct":
+            words = HLL.global_merge(merged.valid, merged.block(ch).data)
+            ch += 1
+            out_blocks.append(Block(data=HLL.estimate(words),
+                                    type=T.BIGINT))
+            continue
         states = []
         state_dic = None
         for st in layout:
@@ -2531,13 +2896,25 @@ def _final_global_agg(aggregates, layouts, in_types, merged: Page) -> Page:
                 valid=torch.ones(1, dtype=torch.bool, device=merged.device))
 
 
-def _empty_state_page(aggregates, layouts, device) -> Page:
-    blocks = [
-        Block(data=torch.zeros(1, dtype=st.type.device_dtype, device=device),
-              type=st.type,
-              nulls=torch.ones(1, dtype=torch.bool, device=device))
-        for layout in layouts for st in layout
-    ]
+def _empty_state_page(aggregates, layouts, device,
+                      collect_k: int = 1024) -> Page:
+    blocks = []
+    for layout in layouts:
+        for st in layout:
+            if isinstance(st.type, T.CollectStateType):
+                blocks.append(Block(data=torch.zeros(
+                    (1, collect_k), dtype=torch.int64, device=device),
+                    type=st.type))
+            elif isinstance(st.type, T.HllStateType):
+                blocks.append(Block(data=tuple(
+                    torch.zeros(1, dtype=torch.int64, device=device)
+                    for _ in range(HLL.WORDS)), type=st.type))
+            else:
+                blocks.append(Block(
+                    data=torch.zeros(1, dtype=st.type.device_dtype,
+                                     device=device),
+                    type=st.type,
+                    nulls=torch.ones(1, dtype=torch.bool, device=device)))
     return Page(blocks=tuple(blocks),
                 valid=torch.zeros(1, dtype=torch.bool, device=device))
 
@@ -2718,3 +3095,82 @@ def _limit_with_count(count, offset, page: Page, consumed):
     rank = torch.cumsum(page.valid.to(torch.int64), 0) - 1 + consumed
     keep = page.valid & (rank >= offset) & (rank < offset + count)
     return page.with_valid(keep), consumed + page.num_rows()
+
+
+def _unnest_page(array_channel, elem_type, with_ordinality,
+                 page: Page) -> Page:
+    """Static-shape UNNEST: output capacity = input capacity x L, L the
+    longest array in the channel's dictionary. Element values gather
+    from a flat host lut per dictionary (ops/consts.lut); shorter arrays
+    mask out their padding (reference: UnnestOperator's per-row element
+    loop, vectorized)."""
+    blk = page.block(array_channel)
+    dic = blk.dictionary
+    vals = [tuple(v) for v in (dic.values if dic is not None else [])]
+    n = max(len(vals), 1)
+    L = max((len(v) for v in vals), default=0) or 1
+    lens = np.zeros(n, np.int64)
+    string_elem = elem_type.is_dictionary_encoded
+    if string_elem:
+        uniq: dict = {}
+        for v in vals:
+            for x in v:
+                if x is not None:
+                    uniq.setdefault(x, len(uniq))
+        edic = Dictionary(list(uniq))
+        flat = np.zeros((n, L), np.int32)
+    else:
+        edic = None
+        flat = np.zeros((n, L), np.dtype(elem_type.numpy_dtype))
+    enull = np.ones((n, L), bool)
+    for vi, v in enumerate(vals):
+        lens[vi] = len(v)
+        for k, x in enumerate(v):
+            if x is None:
+                continue
+            enull[vi, k] = False
+            flat[vi, k] = uniq[x] if string_elem else x
+    dev = page.device
+    idx = torch.arange(page.capacity * L, dtype=torch.int64, device=dev)
+    i, k = idx // L, idx % L
+    codes = blk.data.to(torch.int64).clamp(0, n - 1)[i]
+    valid = page.valid[i] & (k < consts.lut(lens, dev)[codes])
+    if blk.nulls is not None:
+        valid = valid & ~blk.nulls[i]
+    src = gather_rows(page, i, valid)
+    pos = codes * L + k
+    eblock = Block(data=consts.lut(flat.reshape(-1), dev)[pos],
+                   type=elem_type,
+                   nulls=consts.lut(enull.reshape(-1), dev)[pos],
+                   dictionary=edic)
+    blocks = src.blocks + (eblock,)
+    if with_ordinality:
+        blocks += (Block(data=k + 1, type=T.BIGINT),)
+    return Page(blocks=blocks, valid=valid)
+
+
+def _group_id_page(key_channels, mask, set_index, page: Page) -> Page:
+    """One grouping-set replica: keys absent from the set nulled, the
+    constant gid channel appended."""
+    blocks = list(page.blocks)
+    ones = torch.ones(page.capacity, dtype=torch.bool, device=page.device)
+    for kc, keep in zip(key_channels, mask):
+        if not keep:
+            b = blocks[kc]
+            blocks[kc] = Block(data=b.data, type=b.type, nulls=ones,
+                               dictionary=b.dictionary)
+    gid = Block(data=torch.full((page.capacity,), set_index,
+                                dtype=torch.int64, device=page.device),
+                type=T.BIGINT)
+    return Page(blocks=tuple(blocks) + (gid,), valid=page.valid)
+
+
+def _cross_join_page(page: Page, build: Page) -> Page:
+    nb = build.capacity
+    idx = torch.arange(page.capacity * nb, dtype=torch.int64,
+                       device=page.device)
+    li, ri = idx // nb, idx % nb
+    valid = page.valid[li] & build.valid[ri]
+    left = gather_rows(page, li, valid)
+    right = gather_rows(build, ri, valid)
+    return Page(blocks=left.blocks + right.blocks, valid=valid)

@@ -133,10 +133,14 @@ def output_types(node: P.PhysicalNode, catalogs: Dict) -> List[T.SqlType]:
     if isinstance(node, P.Union):
         return output_types(node.sources[0], catalogs)
     if isinstance(node, P.Window):
-        raise NotImplementedError(
-            "window functions are not ported to presto_tpu_torch yet "
-            "(ROADMAP queue 1, slice B)"
-        )
+        from presto_tpu_torch.ops import window as W
+
+        src = output_types(node.source, catalogs)
+        out = list(src)
+        for fn in node.functions:
+            in_t = None if fn.arg_channel is None else src[fn.arg_channel]
+            out.append(W.result_type(fn, in_t))
+        return out
     if isinstance(node, P.MarkDistinct):
         return output_types(node.source, catalogs) + [
             T.BOOLEAN for _ in node.mark_channel_sets

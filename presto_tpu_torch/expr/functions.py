@@ -17,9 +17,12 @@ constants), so a pattern runs over a dictionary once per process, and
 its table reaches the device through ``ops/consts.lut`` (a CUDA graph
 capture may not copy from host memory).
 
-Not ported here (ROADMAP queue 1, item 10): the complex-type functions
-and functions_ext/functions_more; an unported name raises a KeyError
-that says so.
+The complex-type functions (cardinality, element_at, contains,
+array_min/array_max, map_keys/map_values, map, row) work the same way:
+ARRAY/MAP/ROW values are dictionary-coded host tuples.
+
+Not ported here (ROADMAP queue 1, item 10): functions_ext and
+functions_more; an unported name raises a KeyError that says so.
 """
 
 from __future__ import annotations
@@ -1062,3 +1065,184 @@ def _impl_ts_part(part: str):
 
 for _part in _TS_PART:
     register(_part, lambda a: T.BIGINT, _impl_ts_part(_part))
+
+
+# ------------------------------------------------------------ complex types
+# ARRAY/MAP/ROW values are dictionary-coded (host tuples, int32 codes):
+# per-distinct-value work on the host, one gather per row, as for
+# strings (reference: spi/block/{Array,Map,Row}Block +
+# operator/scalar/{Array,Map}Functions).
+
+
+def _cardinality_resolve(args):
+    if not isinstance(args[0], (T.ArrayType, T.MapType)):
+        raise TypeError(f"cardinality over {args[0]}")
+    return T.BIGINT
+
+
+register("cardinality", _cardinality_resolve,
+         lambda ctx, rt, vals: _dict_int(ctx, vals[0], ("cardinality",),
+                                         len))
+
+
+def _elem_result_val(ctx: Ctx, col: Val, key: tuple, fn,
+                     elem_t: T.SqlType) -> Val:
+    """``fn`` over each distinct value (None = NULL) -> a typed Val:
+    dictionary-coded element types get a new dictionary; the others
+    gather from a typed lut."""
+    d = _dict_of(col)
+
+    def build():
+        results = [fn(v) for v in d.values]
+        isnull = np.array([r is None for r in results] or [True], bool)
+        if elem_t.is_dictionary_encoded:
+            return isnull, Dictionary(
+                ["" if r is None else r for r in results])
+        lut = np.zeros(max(len(results), 1), np.dtype(elem_t.numpy_dtype))
+        for i, r in enumerate(results):
+            if r is not None:
+                lut[i] = r
+        return isnull, lut
+
+    isnull, table = _dict_cached(d, ("elem",) + key, build)
+    nulls = union_nulls(col.nulls, _dict_gather(ctx, col, isnull))
+    if elem_t.is_dictionary_encoded:
+        return Val(col.data, nulls, elem_t, table)
+    return Val(_dict_gather(ctx, col, table), nulls, elem_t)
+
+
+def _impl_element_at(ctx: Ctx, rt, vals: List[Val]) -> Val:
+    """element_at(array, index) / element_at(map, key) / element_at(row,
+    ordinal). Array/row indices are 1-based; out-of-range indices and
+    missing map keys yield NULL (reference: MapFunctions.elementAt /
+    ArrayFunctions)."""
+    col = vals[0]
+    k = _const(vals, 1, "element_at key/index")
+    t = col.type
+    if isinstance(t, T.MapType):
+        def get(v):
+            for mk, mv in v:
+                if mk == k:
+                    return mv
+            return None
+
+        return _elem_result_val(ctx, col, ("element_at", k), get, t.value)
+    idx = int(k)  # array / row: 1-based ordinal
+    elem_t = (t.element if isinstance(t, T.ArrayType)
+              else (t.fields[idx - 1] if isinstance(t, T.RowType)
+                    and 1 <= idx <= len(t.fields) else T.UNKNOWN))
+    return _elem_result_val(
+        ctx, col, ("element_at", idx),
+        lambda v: v[idx - 1] if 1 <= idx <= len(v) else None, elem_t)
+
+
+def _element_at_resolve(args):
+    t = args[0]
+    if isinstance(t, T.ArrayType):
+        return t.element
+    if isinstance(t, T.MapType):
+        return t.value
+    if isinstance(t, T.RowType):
+        return T.UNKNOWN  # refined at eval; constants resolve later
+    raise TypeError(f"element_at over {t}")
+
+
+register("element_at", _element_at_resolve, _impl_element_at)
+
+
+def _impl_contains(ctx: Ctx, rt, vals: List[Val]) -> Val:
+    k = _const(vals, 1, "contains() value")
+    return _dict_predicate(ctx, vals[0], ("contains", k), lambda v: k in v)
+
+
+register("contains", lambda a: T.BOOLEAN, _impl_contains)
+
+
+def _impl_array_minmax(which):
+    f = min if which == "min" else max
+
+    def impl(ctx: Ctx, rt, vals: List[Val]) -> Val:
+        col = vals[0]
+
+        def get(v):
+            xs = [x for x in v if x is not None]
+            return f(xs) if xs else None
+
+        return _elem_result_val(ctx, col, ("array_" + which,), get,
+                                col.type.element)
+
+    return impl
+
+
+def _array_elem_resolve(args):
+    if not isinstance(args[0], T.ArrayType):
+        raise TypeError(f"array function over {args[0]}")
+    return args[0].element
+
+
+register("array_min", _array_elem_resolve, _impl_array_minmax("min"))
+register("array_max", _array_elem_resolve, _impl_array_minmax("max"))
+
+
+def _impl_map_keys_values(which):
+    i = 0 if which == "keys" else 1
+
+    def impl(ctx: Ctx, rt, vals: List[Val]) -> Val:
+        col = vals[0]
+        t = col.type
+        elem = t.key if which == "keys" else t.value
+        return _dict_map(ctx, col, ("map_" + which,),
+                         lambda v: tuple(pair[i] for pair in v),
+                         T.ArrayType(elem))
+
+    return impl
+
+
+def _map_arr_resolve(which):
+    def resolve(args):
+        t = args[0]
+        if not isinstance(t, T.MapType):
+            raise TypeError(f"map function over {t}")
+        return T.ArrayType(t.key if which == "keys" else t.value)
+
+    return resolve
+
+
+register("map_keys", _map_arr_resolve("keys"),
+         _impl_map_keys_values("keys"))
+register("map_values", _map_arr_resolve("values"),
+         _impl_map_keys_values("values"))
+
+
+def _complex_const(ctx: Ctx, t: T.SqlType, value) -> Val:
+    """A complex constant as a one-entry dictionary value."""
+    return Val(torch.zeros((), dtype=torch.int32, device=ctx.device), None,
+               t, Dictionary([value]), py_value=value)
+
+
+def _impl_map_ctor(ctx: Ctx, rt, vals: List[Val]) -> Val:
+    """map(key_array, value_array) over constant arrays."""
+    ka, va = vals[0], vals[1]
+    if not (ka.is_const and va.is_const):
+        raise TypeError("map() arguments must be constant arrays")
+    return _complex_const(ctx, T.MapType(ka.type.element, va.type.element),
+                          tuple(zip(ka.py_value, va.py_value)))
+
+
+def _map_ctor_resolve(args):
+    if len(args) != 2 or not all(isinstance(a, T.ArrayType) for a in args):
+        raise TypeError("map() takes two array arguments")
+    return T.MapType(args[0].element, args[1].element)
+
+
+register("map", _map_ctor_resolve, _impl_map_ctor)
+
+
+def _impl_row_ctor(ctx: Ctx, rt, vals: List[Val]) -> Val:
+    if not all(v.is_const for v in vals):
+        raise TypeError("row() arguments must be constants")
+    return _complex_const(ctx, T.RowType(tuple(v.type for v in vals)),
+                          tuple(v.py_value for v in vals))
+
+
+register("row", lambda a: T.RowType(tuple(a)), _impl_row_ctor)

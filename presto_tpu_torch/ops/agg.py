@@ -37,6 +37,10 @@ MAX = "max"
 ANY = "any"  # arbitrary non-null value (grouped key passthrough)
 BOOL_OR = "bool_or"
 BOOL_AND = "bool_and"
+# HyperLogLog kinds: tuple-data states, handled by the executor against
+# ops/hll.py (never by aggregate() below)
+HLL_INSERT = "hll_insert"
+HLL_MERGE = "hll_merge"
 
 # group capacity below which the reference aggregates on its MXU tier
 # and the port on the K1 kernel; the executor sizes its paths by it
@@ -417,6 +421,15 @@ def aggregate(
     raise ValueError(f"unknown aggregation kind: {kind}")
 
 
+def global_sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of an ungrouped SUM: the reference's ``jnp.sum`` widens
+    narrower integers to int64 (numpy's rule) and keeps float dtypes.
+    Grouped sums keep the input dtype in both engines."""
+    if dtype.is_floating_point or dtype == torch.bool:
+        return dtype
+    return torch.int64
+
+
 def global_aggregate(
     kind: str,
     valid: torch.Tensor,
@@ -438,7 +451,8 @@ def global_aggregate(
     if kind == COUNT:
         return n, false
     if kind == SUM:
-        return torch.where(contributing, data, 0).sum(dtype=data.dtype), empty
+        return (torch.where(contributing, data, 0).sum(
+            dtype=global_sum_dtype(data.dtype)), empty)
     if kind in (MIN, MAX):
         ident = _minmax_identity(data.dtype, kind == MIN)
         filled = torch.where(contributing, data,

@@ -246,5 +246,5 @@ def global_aggregate(
     sums, counts = segsum(None, values, contributing, 1)
     empty = counts[0] == 0
     if kind == A.SUM:
-        return sums[0].to(data.dtype), empty
+        return sums[0].to(A.global_sum_dtype(data.dtype)), empty
     return _bool_result(kind, sums[0], counts[0], empty)

@@ -17,6 +17,7 @@ at join builds and blocking operators (presto_tpu_torch.ops.compact).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -281,12 +282,57 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _collect_elem_decoder(elem_t, dictionary):
+    """int64 collect-state slot -> Python element value (the inverse of
+    exec/executor._collect_encode)."""
+    if dictionary is not None:
+        values = dictionary.values
+        return lambda v: values[int(np.clip(v, 0, len(values) - 1))]
+    if isinstance(elem_t, (T.DoubleType, T.RealType)):
+        def dec_float(v):
+            v = int(v)
+            if v == 0:
+                return 0.0
+            mag = abs(v)
+            out = math.ldexp(0.5 + (mag & ((1 << 52) - 1)) * 2.0 ** -53,
+                             (mag >> 52) - 1100 + 1)
+            return -out if v < 0 else out
+        return dec_float
+    if isinstance(elem_t, T.BooleanType):
+        return lambda v: bool(v)
+    return lambda v: int(v)
+
+
+def _decode_collect(blk: Block, rows_idx: np.ndarray) -> list:
+    """A collect result: (vals2d, elem-null-flags2d, counts) for
+    array_agg, (k2d, v2d, value-null-flags2d, counts) for map_agg."""
+    *mats, counts = blk.data
+    mats = [_host(m)[rows_idx] for m in mats]
+    counts = _host(counts)[rows_idx]
+    if isinstance(blk.type, T.ArrayType):
+        dec = _collect_elem_decoder(blk.type.element, blk.dictionary)
+        return [tuple(None if nf else dec(v)
+                      for v, nf in zip(mats[0][i, :int(c)],
+                                       mats[1][i, :int(c)]))
+                for i, c in enumerate(counts)]
+    kdec = _collect_elem_decoder(blk.type.key, blk.dictionary)
+    vdec = _collect_elem_decoder(blk.type.value, None)
+    return [tuple((kdec(k), None if nf else vdec(v))
+                  for k, v, nf in zip(mats[0][i, :int(c)],
+                                      mats[1][i, :int(c)],
+                                      mats[2][i, :int(c)]))
+            for i, c in enumerate(counts)]
+
+
 def _decode_block(blk: Block, rows_idx: np.ndarray) -> list:
     """Selected rows of one block as Python values (presto_tpu's
-    page._decode_block for the slice's types: long-decimal limbs,
-    dictionary codes, booleans, integers, floats)."""
+    page._decode_block: collect results, long-decimal limbs, dictionary
+    codes, booleans, integers, floats)."""
     nulls = _host(blk.nulls) if blk.nulls is not None else None
-    if isinstance(blk.data, tuple):
+    if (isinstance(blk.type, (T.ArrayType, T.MapType))
+            and isinstance(blk.data, tuple)):
+        vals = _decode_collect(blk, rows_idx)
+    elif isinstance(blk.data, tuple):
         hi = _host(blk.data[0])[rows_idx].astype(object)
         lo = _host(blk.data[1])[rows_idx].astype(object)
         vals = [(int(h) << 64) | (int(l) & ((1 << 64) - 1))

@@ -1405,6 +1405,183 @@ limit 100
 }
 
 
+# ------------------------------------------------- the relational surface
+# the window cases of tests/test_window.py, then its two subqueries;
+# sqlite runs the same SQL (tables nation, orders, customer)
+
+WINDOW_SQL = (
+    """select n_regionkey, n_name,
+              row_number() over (partition by n_regionkey order by n_name),
+              rank() over (partition by n_regionkey order by n_nationkey),
+              dense_rank() over (partition by n_regionkey order by n_nationkey)
+       from nation order by n_regionkey, n_name""",
+    """select o_custkey, o_orderkey,
+              rank() over (partition by o_custkey order by o_orderdate),
+              dense_rank() over (partition by o_custkey order by o_orderdate),
+              row_number() over (partition by o_custkey order by o_orderdate, o_orderkey)
+       from orders order by o_custkey, o_orderkey limit 200""",
+    """select n_regionkey, n_nationkey,
+              count(*) over (partition by n_regionkey),
+              sum(n_nationkey) over (partition by n_regionkey),
+              min(n_name) over (partition by n_regionkey),
+              max(n_name) over (partition by n_regionkey)
+       from nation order by n_nationkey""",
+    """select o_custkey, o_orderkey,
+              sum(o_totalprice) over (partition by o_custkey order by o_orderdate),
+              count(*) over (partition by o_custkey order by o_orderdate),
+              min(o_totalprice) over (partition by o_custkey order by o_orderdate),
+              max(o_totalprice) over (partition by o_custkey order by o_orderdate)
+       from orders order by o_custkey, o_orderkey limit 200""",
+    """select o_custkey, o_orderkey,
+              lag(o_orderkey) over (partition by o_custkey order by o_orderdate, o_orderkey),
+              lead(o_orderkey) over (partition by o_custkey order by o_orderdate, o_orderkey),
+              lag(o_orderkey, 2) over (partition by o_custkey order by o_orderdate, o_orderkey),
+              first_value(o_orderkey) over (partition by o_custkey order by o_orderdate, o_orderkey)
+       from orders order by o_custkey, o_orderkey limit 200""",
+    """select n_name, rank() over (order by n_regionkey),
+              sum(n_nationkey) over (order by n_regionkey)
+       from nation order by n_name""",
+    """select o_orderkey,
+              sum(o_totalprice) over (partition by o_orderpriority
+                                      order by o_orderkey)
+       from orders where o_custkey % 5 = 0
+       order by o_orderkey limit 100""",
+    """select o_custkey, o_orderkey,
+              ntile(4) over (partition by o_custkey order by o_orderkey),
+              percent_rank() over (partition by o_custkey
+                                   order by o_orderdate),
+              cume_dist() over (partition by o_custkey
+                                order by o_orderdate)
+       from orders order by o_custkey, o_orderkey limit 200""",
+    """select o_custkey, o_orderkey,
+              sum(o_totalprice) over (partition by o_custkey
+                  order by o_orderkey
+                  rows between 2 preceding and current row),
+              min(o_totalprice) over (partition by o_custkey
+                  order by o_orderkey
+                  rows between 1 preceding and 1 following),
+              max(o_totalprice) over (partition by o_custkey
+                  order by o_orderkey
+                  rows between 3 preceding and 1 preceding),
+              count(*) over (partition by o_custkey order by o_orderkey
+                  rows between current row and unbounded following)
+       from orders order by o_custkey, o_orderkey limit 200""",
+    """select o_custkey, o_orderkey,
+              nth_value(o_orderkey, 2) over (partition by o_custkey
+                  order by o_orderkey
+                  rows between unbounded preceding
+                           and unbounded following),
+              last_value(o_orderkey) over (partition by o_custkey
+                  order by o_orderdate
+                  range between unbounded preceding
+                            and unbounded following)
+       from orders order by o_custkey, o_orderkey limit 200""",
+    """select * from (
+               select n_name, n_regionkey,
+                      row_number() over (partition by n_regionkey
+                                         order by n_name) rn
+               from nation) t
+             where rn = 1 order by n_regionkey""",
+    """select o_custkey, total,
+                    rank() over (order by total desc, o_custkey)
+             from (select o_custkey, sum(o_totalprice) total
+                   from orders group by o_custkey) t
+             order by total desc, o_custkey limit 50""",
+)
+
+# the other relational cases of the test suite over TPC-H: name ->
+# (engine SQL, oracle). The oracle is sqlite SQL (grouping sets: their
+# UNION ALL of plain GROUP BYs), True for the engine SQL itself, or None
+# where sqlite has no counterpart (approx_distinct, the collect
+# aggregates, arrays and maps) and the engine is held to itself on
+# another device; rows compare as multisets
+SURFACE_SQL = {
+    "rollup": (
+        "select n_regionkey, n_nationkey, count(*), sum(n_nationkey) "
+        "from nation group by rollup(n_regionkey, n_nationkey)",
+        "select n_regionkey, n_nationkey, count(*), sum(n_nationkey) "
+        "from nation group by n_regionkey, n_nationkey "
+        "union all select n_regionkey, null, count(*), sum(n_nationkey) "
+        "from nation group by n_regionkey "
+        "union all select null, null, count(*), sum(n_nationkey) "
+        "from nation"),
+    "cube": (
+        "select o_orderpriority, o_orderstatus, count(*) from orders "
+        "group by cube(o_orderpriority, o_orderstatus)",
+        "select o_orderpriority, o_orderstatus, count(*) from orders "
+        "group by o_orderpriority, o_orderstatus "
+        "union all select o_orderpriority, null, count(*) from orders "
+        "group by o_orderpriority "
+        "union all select null, o_orderstatus, count(*) from orders "
+        "group by o_orderstatus "
+        "union all select null, null, count(*) from orders"),
+    "grouping_sets": (
+        "select o_orderstatus, o_orderpriority, count(*) from orders "
+        "group by grouping sets ((o_orderstatus), (o_orderpriority), ())",
+        "select o_orderstatus, null, count(*) from orders "
+        "group by o_orderstatus "
+        "union all select null, o_orderpriority, count(*) from orders "
+        "group by o_orderpriority "
+        "union all select null, null, count(*) from orders"),
+    "rollup_lineitem": (
+        "select l_returnflag, l_linestatus, sum(l_quantity), "
+        "sum(l_extendedprice), count(*) from lineitem "
+        "group by rollup(l_returnflag, l_linestatus)",
+        "select l_returnflag, l_linestatus, sum(l_quantity), "
+        "sum(l_extendedprice), count(*) from lineitem "
+        "group by l_returnflag, l_linestatus "
+        "union all select l_returnflag, null, sum(l_quantity), "
+        "sum(l_extendedprice), count(*) from lineitem "
+        "group by l_returnflag "
+        "union all select null, null, sum(l_quantity), "
+        "sum(l_extendedprice), count(*) from lineitem"),
+    "distinct_mixed": (
+        "select count(distinct o_custkey), count(*), sum(o_totalprice) "
+        "from orders", True),
+    "distinct_grouped": (
+        "select o_orderpriority, count(distinct o_custkey), count(*), "
+        "sum(o_totalprice) from orders group by o_orderpriority", True),
+    "distinct_columns": (
+        "select count(distinct n_regionkey), count(distinct n_name) "
+        "from nation", True),
+    "union_distinct": (
+        "select n_regionkey from nation union select r_regionkey "
+        "from region", True),
+    "union_all_limit": (
+        "select o_orderkey from orders union all select o_orderkey "
+        "from orders order by o_orderkey limit 3", True),
+    "cross_join": (
+        "select count(*), sum(n_nationkey + r_regionkey) from nation "
+        "cross join region", True),
+    "approx_distinct": (
+        "select o_orderpriority, approx_distinct(o_custkey) from orders "
+        "group by o_orderpriority", None),
+    "approx_distinct_global": (
+        "select approx_distinct(l_orderkey), approx_distinct(l_comment) "
+        "from lineitem", None),
+    "collect": (
+        "select n_regionkey, array_agg(n_name), map_agg(n_nationkey, "
+        "n_regionkey), approx_percentile(n_nationkey, 0.5) from nation "
+        "group by n_regionkey", None),
+    "percentile": (
+        "select o_orderpriority, approx_percentile(o_totalprice, 0.5), "
+        "approx_percentile(o_orderdate, 0.9) from orders "
+        "group by o_orderpriority", None),
+    "unnest": (
+        "select r_name, x from region cross join unnest(array[1,2]) "
+        "as t(x)", None),
+    "unnest_ordinality": (
+        "select x, o from unnest(array['a','b']) with ordinality "
+        "as t(x, o)", None),
+    "array_functions": (
+        "select cardinality(array[1,2,3]), element_at(array[10,20,30], 2), "
+        "contains(array[1,2,3], 2), array_min(array[3,1,2]), "
+        "element_at(map(array['a','b'], array[1,2]), 'b'), "
+        "map_keys(map(array['a','b'], array[1,2])), "
+        "element_at(row(7, 'x'), 2) from region", None),
+}
+
+
 def compare_tpch(q: int, engine_rows, oracle_rows, modes) -> None:
     """The TPC-H suite's comparison: a multiset of rows in the same
     order; "r" columns bucketed to ints on both sides, "f" columns to a

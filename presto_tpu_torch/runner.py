@@ -7,6 +7,8 @@ come as a plain dict, validated through the port's property registry
 NotImplementedError. The runner honours:
 
   - ``page_rows``: target rows per generated page (split granularity);
+  - ``array_agg_max_elements``: the collect aggregates' slots per
+    group (the executor's ``collect_k``);
   - ``pallas_join_enabled``: "true" (default) engages the CUDA
     kernels (K1 aggregation, K2/K3 join probes, K4 exchange partition
     ids) at the reference's Pallas dispatch points, "false" keeps every
@@ -71,6 +73,7 @@ class LocalRunner:
         the query deadline (query_max_run_time) at the call."""
         s, ex = self.session, self.executor
         ex.page_rows = int(s.get("page_rows"))
+        ex.collect_k = int(s.get("array_agg_max_elements"))
         ex.kernels = s.get("pallas_join_enabled") == "true"
         ex.device_exchange = s.get("device_exchange_enabled")
         ex.offload = bool(s.get("tpu_offload_enabled"))

@@ -110,6 +110,14 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             int, 1 << 18,
         ),
         PropertyMetadata(
+            "array_agg_max_elements",
+            "per-group value-slot bound for array_agg/map_agg/"
+            "approx_percentile collect state; a group past it re-runs "
+            "the query with the bound scaled up the capacity-boost "
+            "ladder",
+            int, 1024,
+        ),
+        PropertyMetadata(
             "hash_partition_count",
             "devices used for repartitioned stages (0 = whole mesh); "
             "only 0 is ported (the mesh plane is not)",
