@@ -64,6 +64,17 @@ Phases:
            beside the card's name and power limit.
            The check and fused phases also run the relational surface at
            SF 0.01 (presto_tpu_torch/queries.py WINDOW_SQL, SURFACE_SQL)
+           and the extended function families (FUNCTIONS_SQL, card == CPU)
+  statements  the SQL surface's statements at size: CREATE TABLE AS
+           copies of TPC-H SF 1 in the memory connector, timed; BASELINE
+           config 1, Q1 over the memory copy of lineitem (==
+           val_q1_sf1.json), and Q6, Q3, Q5 over the copies (== the same
+           queries over tpch) under default and eager, with the kernels
+           each launches (K1 on Q1 and Q6, hash probes on Q3 and Q5); DELETE,
+           UPDATE, INSERT, DROP TABLE and SHOW TABLES, each held to its
+           predicate over tpch (Q1 again after the DELETE); a view, a
+           prepared statement and EXPLAIN; FUNCTIONS_SQL over tpch SF 1,
+           card == CPU port
   governed Q3 and Q5 at SF 10, Q18 and TPC-DS Q64 at SF 1 on the eager
            session: unbounded, then under a small device_memory_budget
            and with the spill variants that reach the host and the disk
@@ -106,7 +117,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 
 ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
-              "surface", "governed", "oom")
+              "surface", "statements", "governed", "oom")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -522,7 +533,8 @@ def same_bag(got, want) -> bool:
 
 def run_slice(gpu, cpu, db, label, counters: bool = False) -> dict:
     """The relational surface at SF 0.01 (presto_tpu_torch/queries.py:
-    the window cases, then SURFACE_SQL): card rows == CPU rows (in order
+    the window cases, SURFACE_SQL, then FUNCTIONS_SQL, the extended
+    function families): card rows == CPU rows (in order
     for the window cases, which order their rows; as multisets for the
     rest) == sqlite where sqlite can express the query, with equal
     kernel sets and, with ``counters``, equal fusion counters. Returns
@@ -533,6 +545,8 @@ def run_slice(gpu, cpu, db, label, counters: bool = False) -> dict:
              for i, q in enumerate(PQ.WINDOW_SQL)]
     cases += [(name, q, oracle, False)
               for name, (q, oracle) in PQ.SURFACE_SQL.items()]
+    cases += [(f"functions {name}", q, None, False)
+              for name, q in PQ.FUNCTIONS_SQL.items()]
     kernels = {}
     for name, text, oracle, ordered in cases:
         tag = f"{label} {name}"
@@ -764,8 +778,10 @@ SCALE_RUNS = (tuple(("tpch", q, sf) for q, sf in BASE_SCALE)
               + tuple(("tpch", q, 1.0) for q in NEW_TPCH)
               + tuple(("tpcds", q, 1.0) for q in NEW_TPCDS)
               + tuple(("tpch", q, sf) for q, sf in STATED_SCALE))
-# the reference's row checksums at SF 10 (rows, checksum_crc32)
-VALIDATED = {(1, 10.0): "val_q1_sf10.json", (6, 10.0): "val_q6_sf10.json"}
+# the reference's row checksums (rows, checksum_crc32); Q1 at SF 1 is
+# BASELINE config 1, run over the memory copies (statements)
+VALIDATED = {(1, 10.0): "val_q1_sf10.json", (6, 10.0): "val_q6_sf10.json",
+             (1, 1.0): "val_q1_sf1.json"}
 
 
 def scale_modes(suite: str, q: int, sf: float) -> tuple:
@@ -1032,6 +1048,226 @@ def governor_counters(ex) -> dict:
                 disk_spill_pages=ex.disk_spill_pages,
                 skew_chunks_used=ex.skew_chunks_used,
                 device_oom_retries=ex.device_oom_retries)
+
+
+# ------------------------------------------------------- the statements
+
+# BASELINE config 1 (BASELINE.md: TPC-H SF 1 Q1 on the memory connector)
+# and its neighbours over the memory copies of TPC-H SF 1
+STATEMENTS_SF = 1.0
+STATEMENTS_QUERIES = (1, 6, 3, 5)
+STATEMENTS_MODES = ("default", "eager")
+STATEMENTS_PAGE_ROWS = 1 << 20
+# the kernel families each memory rung must launch at SF 1: K1 on the
+# dense grouping and the global sum; a hash probe on the joins (the
+# CTAS copies keep TPC-H's declared keys, so K2's unique-key path takes
+# the single-key joins of unique builds, K3 the others; which layout a
+# probe takes depends on its build's size)
+STATEMENTS_REQUIRED = {1: ("segsum",), 6: ("segsum",), 3: ("probe",),
+                       5: ("probe",)}
+
+
+def _memory_catalogs(sf: float, dev) -> dict:
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+
+    return {"tpch": TpchConnector(sf, device=dev),
+            "memory": MemoryConnector(device=dev)}
+
+
+def _statements_runner(catalogs, dev, mode: str, catalog: str = "memory"):
+    from presto_tpu_torch.runner import LocalRunner
+
+    return LocalRunner(catalogs, catalog, session={
+        "page_rows": STATEMENTS_PAGE_ROWS, **SCALE_MODES[mode]}, device=dev)
+
+
+def _load_memory_copies(runner) -> dict:
+    """CREATE TABLE AS memory.<t> of every statement table: seconds each
+    (the query on the card, the host decode and the store)."""
+    from presto_tpu_torch import queries as PQ
+
+    walls = {}
+    for t in PQ.STATEMENT_TABLES:
+        t0 = time.perf_counter()
+        n = runner.execute(PQ.STATEMENT_SQL["ctas"].format(t=t)).rows[0][0]
+        walls[t] = (time.perf_counter() - t0, n)
+        want = runner.execute(f"select count(*) from tpch.{t}").rows[0][0]
+        if n != want:
+            raise AssertionError(f"statements: CTAS {t}: {n} rows, tpch "
+                                 f"has {want}")
+    return walls
+
+
+def _memory_dispatches() -> dict:
+    """The kernel twins the same memory rungs dispatch on the CPU over
+    memory copies of TPC-H SF 0.01: per (query, mode)."""
+    from presto_tpu_torch import cuda
+
+    cats = _memory_catalogs(0.01, "cpu")
+    _load_memory_copies(_statements_runner(cats, "cpu", "eager"))
+    out = {}
+    for q in STATEMENTS_QUERIES:
+        for mode in STATEMENTS_MODES:
+            cuda.reset_counts()
+            _statements_runner(cats, "cpu", mode).execute(sql("tpch", q))
+            out[q, mode] = kernel_set(cuda.plain_calls)
+    return out
+
+
+def phase_statements(dev) -> dict:
+    """The SQL surface's statements at size on the card. CREATE TABLE AS
+    copies TPC-H SF 1 into the memory connector (lineitem 6,001,215 rows
+    x 16 columns, orders, customer, supplier, nation, region); then
+    BASELINE config 1, Q1 over the memory copy (== val_q1_sf1.json), and
+    Q6, Q3 and Q5 over the copies (== the same queries over tpch), each
+    under default and eager (one warm-up, median of 3, peaks), with the
+    kernels each must launch; DELETE, UPDATE, INSERT and DROP at size,
+    each held to its predicate over tpch, and Q1 again after the DELETE;
+    a view over Q1, a prepared statement against its literal query and
+    EXPLAIN of Q5 against the CPU port's text; and queries.FUNCTIONS_SQL
+    over tpch SF 1, card == CPU port. Returns the kernel launches of
+    the memory rungs' runs."""
+    from presto_tpu_torch import cuda
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    cpu_kernels = _memory_dispatches()
+    log(f"statements: kernel twins the memory rungs dispatch on the CPU "
+        f"at SF 0.01: { {f'Q{q} {m}': k for (q, m), k in cpu_kernels.items()} }")
+    cats = _memory_catalogs(STATEMENTS_SF, dev)
+    runner = _statements_runner(cats, dev, "default")
+    walls = _load_memory_copies(runner)
+    log("statements: CTAS at SF 1: " + ", ".join(
+        f"{t} {n} rows {w:.4f} s" for t, (w, n) in walls.items())
+        + f"; {card}")
+    readings = {"ctas": walls}
+    launches_total = {k: 0 for k in KERNEL_NAMES}
+    on_tpch = _statements_runner(cats, dev, "default", catalog="tpch")
+    for q in STATEMENTS_QUERIES:
+        text = sql("tpch", q)
+        want = on_tpch.execute(text).rows
+        for mode in STATEMENTS_MODES:
+            run = _statements_runner(cats, dev, mode)
+            cuda.reset_counts()
+            rows, ws, peak, reserved = _timed(run, text)
+            counts = {k: cuda.launches.get(k, 0) for k in KERNEL_NAMES}
+            for k in KERNEL_NAMES:
+                launches_total[k] += counts[k]
+            # the same kernel families as the CPU run at SF 0.01 (which
+            # probe layout a join takes depends on its build's size)
+            launched = sorted({FAMILY[k] for k in kernel_set(counts)})
+            dispatched = sorted({FAMILY[k] for k in cpu_kernels[q, mode]})
+            if launched != dispatched:
+                raise AssertionError(
+                    f"statements: memory Q{q} {mode}: the card launched "
+                    f"{launched}, the CPU dispatched the twins of "
+                    f"{dispatched}")
+            for k in STATEMENTS_REQUIRED[q]:
+                if k not in launched:
+                    raise AssertionError(f"statements: memory Q{q} {mode}: "
+                                         f"no {k} kernel launched")
+            if not same_rows(rows, want):
+                raise AssertionError(f"statements: memory Q{q} {mode}: rows "
+                                     f"!= tpch\n mem {rows[:3]}\n tpch "
+                                     f"{want[:3]}")
+            note = check_validated(q, STATEMENTS_SF, rows)
+            readings[f"Q{q} {mode}"] = dict(
+                wall_s=ws, median_s=statistics.median(ws), peak_bytes=peak,
+                reserved_bytes=reserved, launches=counts)
+            log(f"statements: memory Q{q} SF 1 {mode}: rows {len(rows)} (== "
+                f"tpch{note}), wall s {[round(w, 4) for w in ws]} (median "
+                f"{statistics.median(ws):.4f}), peak alloc "
+                f"{peak / 2**30:.3f} GiB (reserved {reserved / 2**30:.3f} "
+                f"GiB), launches per 4 runs {counts}; {card}")
+    _statements_dml(runner, cats, card, readings)
+    t0 = time.perf_counter()
+    _statements_functions(cats["tpch"], dev, card)
+    readings["functions_s"] = time.perf_counter() - t0
+    log(f"statements: phase {time.perf_counter() - t_phase:.1f} s; "
+        + json.dumps({"readings": readings}, default=str))
+    return launches_total
+
+
+def _statements_dml(runner, cats, card, readings) -> None:
+    """DELETE, UPDATE, INSERT, DROP, a view, a prepared statement and
+    EXPLAIN over the memory copies, each against its oracle."""
+    from presto_tpu_torch import queries as PQ
+    from presto_tpu_torch.runner import LocalRunner
+
+    S = PQ.STATEMENT_SQL
+
+    def timed(text):
+        t0 = time.perf_counter()
+        res = runner.execute(text)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    res, w = timed(S["delete"])
+    want = runner.execute(S["delete_count"]).rows[0][0]
+    if res.rows != [(want,)] or res.update_type != "DELETE":
+        raise AssertionError(f"statements: DELETE removed {res.rows}, the "
+                             f"predicate holds on {want} tpch rows")
+    q1 = runner.execute(sql("tpch", 1)).rows
+    note = check_validated(1, STATEMENTS_SF, q1)
+    log(f"statements: DELETE {want} lineitem rows in {w:.4f} s; Q1 after "
+        f"it{note}; {card}")
+    readings["delete_s"] = w
+    res, w = timed(S["update"])
+    matched, total = runner.execute(S["update_oracle"]).rows[0]
+    got_total = runner.execute(S["update_sum"]).rows[0][0]
+    if res.rows != [(matched,)] or got_total != total:
+        raise AssertionError(f"statements: UPDATE matched {res.rows}, sum "
+                             f"{got_total}; tpch says {matched}, {total}")
+    log(f"statements: UPDATE {matched} orders rows in {w:.4f} s; "
+        f"sum(o_totalprice) {got_total} == tpch's; {card}")
+    readings["update_s"] = w
+    runner.execute(S["view"].format(q1=sql("tpch", 1)))
+    if not same_rows(runner.execute(S["view_query"]).rows, q1):
+        raise AssertionError("statements: the view over Q1 != Q1")
+    runner.execute(S["prepare"])
+    got, want = (runner.execute(S[k]).rows for k in ("execute", "literal"))
+    if got != want:
+        raise AssertionError(f"statements: EXECUTE {got} != literal {want}")
+    text = S["explain"].format(q5=sql("tpch", 5))
+    plan = runner.execute(text).rows
+    if plan != LocalRunner(cats, "memory", device="cpu").execute(text).rows:
+        raise AssertionError("statements: EXPLAIN Q5 != the CPU port's")
+    res, w = timed(S["insert"])
+    count = runner.execute(S["region_count"]).rows
+    if res.rows != [(5,)] or count != [(10,)]:
+        raise AssertionError(f"statements: INSERT {res.rows}, count {count}")
+    runner.execute(S["drop"])
+    tables = [t for (t,) in runner.execute(S["show_tables"]).rows]
+    if "region" in tables or "lineitem" not in tables:
+        raise AssertionError(f"statements: SHOW TABLES after DROP: {tables}")
+    readings["insert_s"] = w
+    log(f"statements: view == Q1; EXECUTE p USING 24 == literal {got}; "
+        f"EXPLAIN Q5 ({len(plan)} lines) == CPU port; INSERT 5 region rows "
+        f"in {w:.4f} s (count 10), DROP, SHOW TABLES {tables}")
+
+
+def _statements_functions(tpch_card, dev, card) -> None:
+    """queries.FUNCTIONS_SQL over tpch SF 1: card rows == CPU port rows
+    (as multisets), each timed on the card (its host work runs once per
+    distinct value)."""
+    from presto_tpu_torch import queries as PQ
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+
+    cats_cpu = {"tpch": TpchConnector(STATEMENTS_SF, device="cpu")}
+    gpu = _statements_runner({"tpch": tpch_card}, dev, "default", "tpch")
+    cpu = _statements_runner(cats_cpu, "cpu", "default", "tpch")
+    for name, text in PQ.FUNCTIONS_SQL.items():
+        t0 = time.perf_counter()
+        got = gpu.execute(text).rows
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = cpu.execute(text).rows
+        if not got or not same_bag(got, want):
+            raise AssertionError(f"statements: functions {name} SF 1: card "
+                                 f"!= CPU\n card {got[:2]}\n cpu {want[:2]}")
+        log(f"statements: functions {name} SF 1: {len(got)} rows, card == "
+            f"CPU port, first run {wall:.4f} s on the card; {card}")
 
 
 # ----------------------------------------------------- the governed paths
@@ -1350,20 +1586,6 @@ def _collect_oracle(db):
     return out
 
 
-def load_memory_connector():
-    """The test suite's memory connector (tests/torch_memory.py), loaded
-    from its file: a ``tests`` package installed on the machine may
-    shadow the checkout's."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "tests", "torch_memory.py")
-    spec = importlib.util.spec_from_file_location("torch_memory", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.MemoryConnector
-
-
 def phase_surface(dev, cluster: "DistCluster") -> dict:
     """The relational surface at the size users run it, each rung under
     default and eager (one warm-up, median of 3): the window shapes,
@@ -1380,7 +1602,8 @@ def phase_surface(dev, cluster: "DistCluster") -> dict:
     import concurrent.futures
     import multiprocessing
 
-    MemoryConnector = load_memory_connector()
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+
     card = card_line()
     t_phase = time.perf_counter()
     pool = concurrent.futures.ProcessPoolExecutor(
@@ -1798,9 +2021,11 @@ def phase_dist(dev, cluster: "DistCluster") -> dict:
 
 def phase_profile(dev, cluster: "DistCluster") -> None:
     """Where the time goes: each scale query under each session of
-    SCALE_MODES, and each dist query, once more under torch.profiler —
-    the device's busy share of the wall time, the number of device
-    kernels, and device time by kernel name."""
+    SCALE_MODES, each dist query, and the statements phase's memory
+    rungs (Q1, Q6, Q3, Q5 over CTAS copies of TPC-H SF 1), once more
+    under torch.profiler — the device's busy share of the wall time, the
+    number of device kernels, device time by kernel name, and the time
+    of the host-to-device copies (a memory scan stages every split)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1810,6 +2035,11 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
             for q, sf in BASE_SCALE for mode, props in SCALE_MODES.items()]
     runs += [("dist", q, sf, "dist", cluster.coordinator(sf, 1 << 20))
              for q, sf in DIST_SCALE]
+    mem_cats = _memory_catalogs(STATEMENTS_SF, dev)
+    _load_memory_copies(_statements_runner(mem_cats, dev, "default"))
+    runs += [("memory", q, STATEMENTS_SF, mode,
+              _statements_runner(mem_cats, dev, mode))
+             for q in STATEMENTS_QUERIES for mode in STATEMENTS_MODES]
     for path, q, sf, mode, runner in runs:
         graphs.clear()
         runner.execute(sql("tpch", q))  # warm-up (and graph captures)
@@ -1833,10 +2063,12 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
                 e.time_range.elapsed_us()
             calls[e.name] = calls.get(e.name, 0) + 1
         busy = sum(by_name.values())
+        h2d = sum(us for name, us in by_name.items() if "HtoD" in name)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         log(f"profile: {path} Q{q} SF {sf:g} {mode}: wall "
             f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-            f"({100 * busy / wall_us:.1f}%), {n_kernels} device kernels, "
+            f"({100 * busy / wall_us:.1f}%), host-to-device copies "
+            f"{h2d / 1e3:.2f} ms, {n_kernels} device kernels, "
             f"{replays} graph replays; top: " + "; ".join(
                 f"{name[:60]} {us / 1e3:.2f} ms" for name, us in top))
         # the port's kernels as the profiler sees them on the path: device
@@ -1908,6 +2140,10 @@ def main() -> int:
         if "surface" in phases:
             sur = phase_surface(dev, cluster)
             launches = {k: (launches[k] or 0) + sur[k]
+                        for k in KERNEL_NAMES}
+        if "statements" in phases:
+            st = phase_statements(dev)
+            launches = {k: (launches[k] or 0) + st[k]
                         for k in KERNEL_NAMES}
         if "governed" in phases:
             gov = phase_governed(dev)

@@ -581,6 +581,16 @@ class Executor:
         reference engine's per-operator retry), and on a device memory
         fault under a halved memory budget (stream_fragment's ladder).
         The governor's and spill's counters describe this query."""
+        names, pages = self.execute_pages(node)
+        rows: List[tuple] = []
+        for page in pages:
+            rows.extend(page.to_pylist())
+        return names, rows
+
+    def execute_pages(self, node: P.PhysicalNode):
+        """execute() without the row decode: (column_names, the result
+        pages of the last attempt), whose selected rows in page order
+        are execute()'s rows. Table writes store from these."""
         names = list(node.names) if isinstance(node, P.Output) else None
         self.peak_memory_bytes = 0
         self.spill_partitions_used = 0
@@ -588,10 +598,7 @@ class Executor:
         self.host_spill_bytes_used = 0
         self.disk_spill_pages = 0
         self.skew_chunks_used = 0
-        rows: List[tuple] = []
-        for page in self.stream_fragment(node, lambda page: page):
-            rows.extend(page.to_pylist())
-        return names, rows
+        return names, self.stream_fragment(node, lambda page: page)
 
     def _overflow_flagged(self) -> bool:
         """OR-reduce the attempt's deferred overflow flags — the ONE

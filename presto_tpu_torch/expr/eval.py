@@ -56,10 +56,18 @@ def _eval(ctx: F.Ctx, node: ir.RowExpression, page: Page) -> Val:
     if isinstance(node, ir.InputRef):
         blk = page.block(node.channel)
         return Val(blk.data, blk.nulls, blk.type, blk.dictionary)
+    if isinstance(node, ir.ParamRef):
+        # lambda parameter over the element page a higher-order
+        # function builds per distinct collection value
+        blk = page.block(node.index)
+        return Val(blk.data, blk.nulls, blk.type, blk.dictionary)
     if isinstance(node, ir.Constant):
         return _const_val(ctx, node)
     if isinstance(node, ir.Call):
-        vals = [_eval(ctx, a, page) for a in node.args]
+        # lambda arguments pass through unevaluated; the higher-order
+        # function's implementation evaluates the body itself
+        vals = [a if isinstance(a, ir.Lambda) else _eval(ctx, a, page)
+                for a in node.args]
         return F.eval_call(ctx, node.name, node.type, vals)
     if isinstance(node, ir.SpecialForm):
         return _eval_special(ctx, node, page)

@@ -21,8 +21,11 @@ The complex-type functions (cardinality, element_at, contains,
 array_min/array_max, map_keys/map_values, map, row) work the same way:
 ARRAY/MAP/ROW values are dictionary-coded host tuples.
 
-Not ported here (ROADMAP queue 1, item 10): functions_ext and
-functions_more; an unported name raises a KeyError that says so.
+The extended families (JSON, TRY/TRY_CAST, bitwise, URL, array/map
+utilities, lambdas, varbinary codecs and hashes, regexp and string
+distances) live in functions_ext.py and functions_more.py, imported at
+the end of this module: they register themselves on import, so the
+registry holds the reference's names.
 """
 
 from __future__ import annotations
@@ -74,13 +77,15 @@ def register(name: str, resolve, impl, propagate_nulls: bool = True):
     _REGISTRY[name] = FunctionDef(name, resolve, impl, propagate_nulls)
 
 
+def registered_names() -> list:
+    """All installed scalar functions (reference: FunctionRegistry.list())."""
+    return list(_REGISTRY)
+
+
 def lookup(name: str) -> FunctionDef:
     fn = _REGISTRY.get(name)
     if fn is None:
-        raise KeyError(
-            f"unknown function: {name} (not ported to presto_tpu_torch "
-            "yet; ROADMAP queue 1, slice B)"
-        )
+        raise KeyError(f"unknown function: {name}")
     return fn
 
 
@@ -90,10 +95,12 @@ def resolve_type(name: str, arg_types: Sequence[T.SqlType]) -> T.SqlType:
 
 def eval_call(ctx: Ctx, name: str, result_type: T.SqlType, vals: List[Val]):
     fn = lookup(name)
-    vals = [broadcast_val(v, ctx.capacity) for v in vals]
+    # non-Val arguments are ir.Lambda nodes, passed as they are
+    vals = [broadcast_val(v, ctx.capacity) if isinstance(v, Val) else v
+            for v in vals]
     out = fn.impl(ctx, result_type, vals)
     if fn.propagate_nulls:
-        extra = union_nulls(*(v.nulls for v in vals))
+        extra = union_nulls(*(v.nulls for v in vals if isinstance(v, Val)))
         out = Val(out.data, union_nulls(out.nulls, extra), out.type,
                   out.dictionary, py_value=out.py_value)
     return out
@@ -1246,3 +1253,8 @@ def _impl_row_ctor(ctx: Ctx, rt, vals: List[Val]) -> Val:
 
 
 register("row", lambda a: T.RowType(tuple(a)), _impl_row_ctor)
+
+
+# the extended builtin families register themselves on import
+from presto_tpu_torch.expr import functions_ext  # noqa: E402,F401  isort:skip
+from presto_tpu_torch.expr import functions_more  # noqa: E402,F401  isort:skip

@@ -1582,6 +1582,153 @@ SURFACE_SQL = {
 }
 
 
+# the extended function families (expr/functions_ext.py and
+# functions_more.py) over TPC-H columns, so each family's host work runs
+# over a real dictionary: name -> engine SQL. Lambdas and the pair
+# universe take low-cardinality columns (p_type, p_mfgr, p_brand,
+# c_mktsegment); the per-value families take the wide ones (p_name,
+# p_comment, c_phone, o_comment). No sqlite counterpart: the card is
+# held to the CPU port, and the CPU tests hold the port to presto_tpu.
+# Rows compare as multisets
+FUNCTIONS_SQL = {
+    "json": (
+        "select json_extract_scalar('{\"t\": \"' || p_type || '\"}', "
+        "'$.t'), json_array_length('[\"' || replace(p_type, ' ', "
+        "'\",\"') || '\"]'), json_extract('{\"a\": [' || "
+        "p_container || ']}', '$.a'), json_size('{\"a\": {\"b\": \"' "
+        "|| p_mfgr || '\"}}', '$.a'), count(*) from part "
+        "group by 1, 2, 3, 4"),
+    "try_cast": (
+        "select cast(substr(c_phone, 1, 2) as integer), "
+        "try_cast(substr(c_phone, 4, 3) as bigint) % 7, "
+        "try_cast(c_mktsegment as double), try(cast(substr(c_phone, 4, 3) "
+        "as bigint) / (c_nationkey - 3)), count(*) from customer "
+        "group by 1, 2, 3, 4"),
+    "bitwise": (
+        "select sum(bitwise_and(o_orderkey, 255)), sum(bit_count(o_custkey)),"
+        " sum(bitwise_xor(o_orderkey, o_custkey) % 1000), "
+        "sum(bitwise_or(o_custkey, 7) % 100), sum(bitwise_not(o_custkey)), "
+        "sum(bitwise_left_shift(o_custkey, o_shippriority + 3)), "
+        "sum(bitwise_right_shift(o_custkey - 75000, 58)), "
+        "sum(bitwise_right_shift_arithmetic(-o_custkey, 2)), "
+        "sum(bit_count(cast(o_totalprice * 100 as bigint), 20)) "
+        "from orders"),
+    "url": (
+        "select url_extract_host('http://' || lower(c_mktsegment) || "
+        "'.example.com:8080/a/b?k=v&m=x#f'), url_extract_port('http://h:' "
+        "|| substr(c_phone, 1, 2) || '/p'), url_extract_parameter("
+        "'http://h/p?seg=' || c_mktsegment, 'seg'), url_extract_path("
+        "'http://h/' || c_mktsegment || '/q'), url_extract_protocol("
+        "'ftp://' || c_mktsegment), url_encode(c_mktsegment || ' &'), "
+        "url_decode(url_encode(c_mktsegment || '/')), count(*) "
+        "from customer group by 1, 2, 3, 4, 5, 6, 7"),
+    "arrays": (
+        "select array_join(array_sort(array_distinct(split(p_type, ' '))), "
+        "'-'), cardinality(slice(split(p_name, ' '), 2, 3)), "
+        "array_position(split(p_type, ' '), 'BRASS'), "
+        "array_remove(split(p_mfgr, '#'), 'Manufacturer'), "
+        "reverse(split(p_container, ' ')), slice(split(p_type, ' '), -2, "
+        "2), count(*) from part group by 1, 2, 3, 4, 5, 6"),
+    "lambdas": (
+        "select transform(split(p_type, ' '), x -> lower(x)), "
+        "filter(split(p_type, ' '), x -> length(x) > 5), "
+        "any_match(split(p_type, ' '), x -> x = 'BRASS'), "
+        "all_match(split(p_type, ' '), x -> length(x) > 3), "
+        "none_match(split(p_container, ' '), x -> x = 'BOX'), "
+        "reduce(split(p_type, ' '), 0, (s, x) -> s + length(x), s -> s), "
+        "count(*) from part group by 1, 2, 3, 4, 5, 6"),
+    "maps": (
+        "select transform_values(split_to_map('m=' || c_mktsegment, ',', "
+        "'='), (k, v) -> v || '!'), map_filter(split_to_map("
+        "'m=' || c_mktsegment, ',', '='), (k, v) -> v <> 'BUILDING'), "
+        "transform_keys(split_to_map('m=' || c_mktsegment, ',', '='), "
+        "k -> upper(k)), map_entries(split_to_map('cc=' || substr(c_phone, "
+        "1, 2), ',', '=')), map_concat(split_to_map('m=' || "
+        "c_mktsegment, ',', '='), split_to_map('s=' || substr("
+        "c_mktsegment, 1, 3), ',', '=')), count(*) from customer "
+        "group by 1, 2, 3, 4, 5"),
+    "varbinary": (
+        "select sum(crc32(to_utf8(c_phone)) % 1000), "
+        "sum(from_big_endian_64(xxhash64(to_utf8(c_phone))) % 1000), "
+        "sum(from_big_endian_32(sha512(to_utf8(c_name))) % 1000), "
+        "sum(from_big_endian_32(hmac_sha256(to_utf8(c_phone), 'k')) % 1000),"
+        " sum(from_big_endian_32(hmac_md5(to_utf8(c_name), 'k')) % 1000), "
+        "sum(bit_length(c_name)), count(distinct md5(c_phone)), "
+        "count(distinct sha1(c_name)), count(distinct to_hex(c_phone)), "
+        "count(distinct from_utf8(to_utf8(c_mktsegment))), "
+        "count(distinct from_base64(to_base64(c_mktsegment))) "
+        "from customer"),
+    "regexp": (
+        "select sum(regexp_count(p_comment, '[aeiou]')), "
+        "sum(regexp_position(p_comment, 'ly')), "
+        "sum(cardinality(regexp_extract_all(p_comment, '[a-z]+'))), "
+        "sum(cardinality(regexp_split(p_comment, ' '))), "
+        "sum(levenshtein_distance(p_container, 'LG BOX')), "
+        "sum(coalesce(hamming_distance(p_container, 'SM CASE'), -1)), "
+        "count(distinct soundex(p_name)), count(distinct translate(p_name, "
+        "'aeiou', 'AEI')) from part"),
+    "wide_dictionaries": (
+        "select sum(regexp_count(o_comment, 'the')), "
+        "sum(case when starts_with(o_comment, 'f') then 1 else 0 end), "
+        "sum(case when luhn_check(regexp_replace(substr(o_comment, 1, 6), "
+        "'[^0-9]', '')) then 1 else 0 end) from orders"),
+    "pairs": (
+        "select array_union(split(p_mfgr, '#'), split(p_brand, '#')), "
+        "array_intersect(split(p_mfgr, '#'), split(p_brand, '#')), "
+        "array_except(split(p_brand, '#'), split(p_mfgr, '#')), "
+        "arrays_overlap(split(p_mfgr, '#'), split(p_brand, '#')), "
+        "zip(split(p_mfgr, '#'), split(p_brand, '#')), "
+        "zip_with(split(p_mfgr, '#'), split(p_brand, '#'), "
+        "(x, y) -> length(x) + length(y)), "
+        "levenshtein_distance(p_mfgr, p_brand), "
+        "hamming_distance(p_mfgr, p_brand), count(*) from part "
+        "group by 1, 2, 3, 4, 5, 6, 7, 8"),
+    "misc": (
+        "select starts_with(p_name, 'a'), translate(p_brand, '#', '-'), "
+        "normalize(p_mfgr), typeof(p_size), chr(65), to_hex(p_mfgr), "
+        "from_hex(to_hex(p_container)), sha256(p_mfgr), count(*) "
+        "from part group by 1, 2, 3, 4, 5, 6, 7, 8"),
+    "dates": (
+        "select last_day_of_month(o_orderdate), year(date_parse('199' || "
+        "substr(o_orderpriority, 1, 1) || '-03-05', '%Y-%m-%d')), "
+        "month(date_parse(substr(o_orderpriority, 1, 1) || '/1998', "
+        "'%c/%Y')), count(*) from orders group by 1, 2, 3"),
+}
+
+
+# the statements phase's script (chip_smoke.py): CREATE TABLE AS copies
+# of the TPC-H tables in the memory catalog, the DML held to the same
+# predicates over tpch, a view, a prepared statement and EXPLAIN
+STATEMENT_TABLES = ("lineitem", "orders", "customer", "supplier",
+                    "nation", "region")
+STATEMENT_SQL = {
+    "ctas": "create table memory.{t} as select * from tpch.{t}",
+    "delete": "delete from memory.lineitem "
+              "where l_shipdate > date '1998-09-02'",
+    "delete_count": "select count(*) from tpch.lineitem "
+                    "where l_shipdate > date '1998-09-02'",
+    "update": "update memory.orders set o_totalprice = o_totalprice + 1 "
+              "where o_orderpriority = '1-URGENT'",
+    "update_sum": "select sum(o_totalprice) from memory.orders",
+    "update_oracle": "select sum(case when o_orderpriority = '1-URGENT' "
+                     "then 1 else 0 end), sum(case when o_orderpriority = "
+                     "'1-URGENT' then o_totalprice + 1 else o_totalprice "
+                     "end) from tpch.orders",
+    "insert": "insert into memory.region select * from tpch.region",
+    "region_count": "select count(*) from memory.region",
+    "drop": "drop table memory.region",
+    "show_tables": "show tables from memory",
+    "view": "create view memory.q1_view as {q1}",
+    "view_query": "select * from memory.q1_view",
+    "prepare": "prepare p from select count(*) from memory.lineitem "
+               "where l_quantity < ?",
+    "execute": "execute p using 24",
+    "literal": "select count(*) from memory.lineitem "
+               "where l_quantity < 24",
+    "explain": "explain {q5}",
+}
+
+
 def compare_tpch(q: int, engine_rows, oracle_rows, modes) -> None:
     """The TPC-H suite's comparison: a multiset of rows in the same
     order; "r" columns bucketed to ints on both sides, "f" columns to a

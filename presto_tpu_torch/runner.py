@@ -1,10 +1,22 @@
 """LocalRunner: the full parse -> plan -> prune -> execute pipeline in one
 process, on one device.
 
-Port of presto_tpu/runner.py for SELECT statements. Session properties
-come as a plain dict, validated through the port's property registry
-(session.py); a property that asks for a plane the port lacks raises
-NotImplementedError. The runner honours:
+Port of presto_tpu/runner.py. ``execute`` runs queries and the
+reference runner's other statements: EXPLAIN, CREATE / DROP VIEW
+(stored as SQL text, expanded at analysis), PREPARE / EXECUTE /
+DEALLOCATE (per user), SET / SHOW SESSION, SHOW TABLES, and CREATE
+TABLE AS, INSERT, DELETE, UPDATE (a rewrite through SELECT plus a table
+replace) and DROP TABLE on a connector that stores tables (the memory
+connector). Not ported, each raising NotImplementedError: EXPLAIN
+ANALYZE (per-node statistics, ROADMAP queue 3) and the system catalog
+(queue 5). Access control, the result cache and query tracing are not
+ported either (queues 3 and 5): the runner takes no plugins, and their
+session properties are unknown to the port.
+
+Session properties come as a plain dict (or SET SESSION), validated
+through the port's property registry (session.py); a property that asks
+for a plane the port lacks raises NotImplementedError. The runner
+honours:
 
   - ``page_rows``: target rows per generated page (split granularity);
   - ``array_agg_max_elements``: the collect aggregates' slots per
@@ -35,7 +47,9 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec.executor import Executor
@@ -51,6 +65,7 @@ from presto_tpu_torch.sql.planner import Planner
 class QueryResult:
     column_names: List[str]
     rows: List[tuple]
+    update_type: Optional[str] = None
     column_types: Optional[List[str]] = None
 
 
@@ -64,8 +79,12 @@ class LocalRunner:
         self.catalogs = dict(catalogs)
         self.default_catalog = default_catalog
         self.session = Session(default_catalog, session)
-        self.session.check_ported()
         self.executor = Executor(self.catalogs, device=device)
+        # (catalog, name) -> view SQL text, expanded at analysis
+        self.views: Dict[tuple, str] = {}
+        # prepared statements keyed by user: one user can neither
+        # EXECUTE nor DEALLOCATE another's
+        self.prepared: Dict[str, Dict[str, str]] = {}
         self.apply_session()
 
     def apply_session(self) -> None:
@@ -123,27 +142,420 @@ class LocalRunner:
             # plan-time scalar subqueries execute during planning
             return self.executor.execute(node)[1]
 
-        return Planner(self.catalogs, self.default_catalog,
-                       scalar_executor=scalar_exec)
+        return Planner(self.catalogs, self._current_catalog(),
+                       scalar_executor=scalar_exec, views=self.views)
+
+    def _current_catalog(self) -> str:
+        cat = self.session.catalog
+        return cat if cat in self.catalogs else self.default_catalog
 
     def plan(self, sql: str) -> P.Output:
         stmt = parse(sql)
-        if isinstance(stmt, N.Explain):
+        if isinstance(stmt, (N.Explain, N.CreateTableAs)):
             stmt = stmt.query
         return self._plan_query(stmt)
 
     def _plan_query(self, stmt) -> P.Output:
         if not isinstance(stmt, N.Query):
-            raise NotImplementedError(
-                f"{type(stmt).__name__} statements are not ported to "
-                "presto_tpu_torch yet; the slice runs SELECT queries")
+            raise ValueError(f"{type(stmt).__name__} is not a query")
         return push_scan_constraints(prune_plan(
             self._planner().plan_statement(stmt), self.catalogs))
 
+    def _resolve_catalog(self, parts) -> Tuple[str, str]:
+        """(catalog, object name) of a possibly qualified name: the one
+        resolution rule of writes and views."""
+        if len(parts) >= 2 and parts[0] in self.catalogs:
+            return parts[0], parts[-1]
+        return self._current_catalog(), parts[-1]
+
+    def _resolve_write_target(self, parts):
+        catalog, table = self._resolve_catalog(parts)
+        conn = self.catalogs.get(catalog)
+        if conn is None or not hasattr(conn, "create_table_pages"):
+            raise ValueError(f"catalog {catalog!r} does not support writes")
+        return conn, catalog, table
+
     def execute(self, sql: str) -> QueryResult:
-        out = self._plan_query(parse(sql))
+        stmt = parse(sql)
         self.apply_session()
+        return self._execute_stmt(stmt)
+
+    def _execute_stmt(self, stmt: N.Node) -> QueryResult:
+        if isinstance(stmt, N.CreateView):
+            key = self._resolve_catalog(stmt.parts)
+            if key in self.views and not stmt.replace:
+                raise ValueError(f"view already exists: {key[1]}")
+            # validate now, like the reference's analyzer; planning alone
+            # has no side effects
+            self._planner().plan_statement(parse(stmt.query_sql))
+            self.views[key] = stmt.query_sql
+            return QueryResult([], [], update_type="CREATE VIEW")
+        if isinstance(stmt, N.DropView):
+            key = self._resolve_catalog(stmt.parts)
+            if self.views.pop(key, None) is None:
+                raise ValueError(f"view not found: {key[1]}")
+            return QueryResult([], [], update_type="DROP VIEW")
+        if isinstance(stmt, N.Prepare):
+            # validate now, so a bad statement fails at PREPARE
+            parse(stmt.statement_sql)
+            mine = self.prepared.setdefault(self.session.user, {})
+            mine[stmt.name] = stmt.statement_sql
+            return QueryResult([], [], update_type="PREPARE")
+        if isinstance(stmt, N.Deallocate):
+            mine = self.prepared.get(self.session.user, {})
+            if mine.pop(stmt.name, None) is None:
+                raise ValueError(
+                    f"prepared statement not found: {stmt.name}")
+            return QueryResult([], [], update_type="DEALLOCATE")
+        if isinstance(stmt, N.ExecutePrepared):
+            return self._execute_prepared(stmt)
+        if isinstance(stmt, N.SetSession):
+            self.session.set(stmt.name, stmt.value)
+            return QueryResult([], [], update_type="SET SESSION")
+        if isinstance(stmt, N.ShowSession):
+            return QueryResult(
+                ["name", "value", "default", "type", "description"],
+                self.session.rows())
+        if isinstance(stmt, N.ShowTables):
+            cat = stmt.catalog or self._current_catalog()
+            conn = self.catalogs.get(cat)
+            if conn is None:
+                if cat == "system":
+                    raise NotImplementedError(
+                        "the system catalog is not ported to "
+                        "presto_tpu_torch (ROADMAP queue 5)")
+                raise ValueError(f"unknown catalog: {cat}")
+            return QueryResult(["table"], [(t,) for t in conn.tables()])
+        if isinstance(stmt, N.DropTable):
+            conn, cat, table = self._resolve_write_target(stmt.parts)
+            conn.drop_table(table)
+            self._invalidate_caches(cat, table)
+            return QueryResult([], [], update_type="DROP TABLE")
+        if isinstance(stmt, (N.Delete, N.Update)):
+            return self._execute_dml(stmt)
+        if isinstance(stmt, (N.CreateTableAs, N.InsertInto)):
+            conn, cat, table = self._resolve_write_target(stmt.parts)
+            inner = self._plan_query(stmt.query)
+            types = self.executor.output_types(inner)
+            names, pages = self.executor.execute_pages(inner)
+            if isinstance(stmt, N.CreateTableAs):
+                n = conn.create_table_pages(
+                    table, names or [], types, pages,
+                    unique=self._unique_outputs(inner, names))
+                kind = "CREATE TABLE AS"
+            else:
+                n = conn.insert_pages(table, pages)
+                kind = "INSERT"
+            self._invalidate_caches(cat, table)
+            return QueryResult(["rows"], [(n,)], update_type=kind,
+                               column_types=["bigint"])
+        if isinstance(stmt, N.Explain):
+            if stmt.analyze:
+                raise NotImplementedError(
+                    "EXPLAIN ANALYZE needs the executor's per-node "
+                    "statistics (execute_with_stats), not ported to "
+                    "presto_tpu_torch (ROADMAP queue 3)")
+            text = explain_text(self._plan_query(stmt.query))
+            return QueryResult(["Query Plan"],
+                               [(line,) for line in text.splitlines()])
+        out = self._plan_query(stmt)
         names, rows = self.executor.execute(out)
         types = [str(t) for t in self.executor.output_types(out)]
         return QueryResult(list(names or []), rows, column_types=types)
 
+    def _unique_outputs(self, plan: P.Output, names) -> List[str]:
+        """The output columns the plan proves unique: a source's declared
+        key carried through filters and identity projections."""
+        return [nm for ch, nm in enumerate(names or [])
+                if P.scan_column_unique(plan.source, ch, self.catalogs)]
+
+    def _execute_prepared(self, stmt) -> QueryResult:
+        text = self.prepared.get(self.session.user, {}).get(stmt.name)
+        if text is None:
+            raise ValueError(f"prepared statement not found: {stmt.name}")
+        inner = parse(text)
+        if isinstance(inner, (N.Delete, N.Update)):
+            # DML predicates and assignments ride as raw SQL slices:
+            # substitute the arguments' source text positionally
+            inner, used = _bind_dml_parameters(inner, stmt.arg_sqls)
+            if used != len(stmt.args):
+                raise ValueError(
+                    f"incorrect number of parameters: statement expects "
+                    f"{used}, EXECUTE supplies {len(stmt.args)}")
+            return self._execute_stmt(inner)
+        want = _count_parameters(inner)
+        if len(stmt.args) != want:
+            raise ValueError(
+                f"incorrect number of parameters: statement expects "
+                f"{want}, EXECUTE supplies {len(stmt.args)}")
+        return self._execute_stmt(_bind_parameters(inner, stmt.args))
+
+    def _invalidate_caches(self, catalog: str, table: str) -> None:
+        """After a write through this runner, drop a wrapping page
+        cache's stale pages (the connector's invalidate / drop_cache
+        hook). The reference's result-cache reclaim is not ported."""
+        conn = self.catalogs.get(catalog)
+        inv = getattr(conn, "invalidate", None)
+        if inv is not None:
+            inv(table)
+        elif hasattr(conn, "drop_cache"):
+            conn.drop_cache()
+
+    def _execute_dml(self, stmt) -> QueryResult:
+        """DELETE/UPDATE as a rewrite through SELECT plus a table replace
+        (reference: DeleteNode/TableWriter; a columnar store rewrites
+        rather than mutates)."""
+
+        def q(ident: str) -> str:
+            # regenerated SQL must survive re-tokenizing: quote every
+            # identifier (unquoted names lowercase on re-parse)
+            return '"' + ident.replace('"', '""') + '"'
+
+        conn, catalog, table = self._resolve_write_target(stmt.parts)
+        try:
+            schema = conn.table_schema(table)
+        except KeyError:
+            raise ValueError(f"table not found: {table}")
+        cols = schema.column_names()
+        w = stmt.where_sql
+        if w is not None and _sql_has_subquery(w):
+            # the guarded rewrite buries the predicate where the
+            # planner's subquery decorrelation cannot reach it
+            raise ValueError(
+                "DELETE/UPDATE predicates with subqueries are not "
+                "supported yet; stage keys via CREATE TABLE AS first")
+        tref = f"{q(catalog)}.{q(table)}"
+        # coalesce((w), false): a row whose predicate is NULL is not
+        # matched. The newline ends any trailing line comment riding in
+        # the raw source slice.
+        guarded = f"coalesce(({w}\n), false)" if w else "true"
+        n_before = conn.row_count(table)
+        if isinstance(stmt, N.Delete):
+            plan = self._plan_query(parse(
+                f"select * from {tref} where not {guarded}"))
+            types = self.executor.output_types(plan)
+            _names, pages = self.executor.execute_pages(plan)
+            kept = conn.create_table_pages(
+                table, cols, types, pages, replace=True,
+                unique=self._unique_outputs(plan, cols))
+            self._invalidate_caches(catalog, table)
+            return QueryResult(["rows"], [(n_before - kept,)],
+                               update_type="DELETE", column_types=["bigint"])
+        # UPDATE: assigned columns become guarded CASE projections cast
+        # back to the declared type; the guard rides as one extra
+        # boolean column, so the matched count comes from the same scan
+        sets = dict(stmt.assignments)
+        if len(sets) != len(stmt.assignments):
+            raise ValueError("UPDATE assigns the same column more than once")
+        unknown = set(sets) - set(cols)
+        if unknown:
+            raise ValueError(
+                f"no such column(s) in {table!r}: {sorted(unknown)}")
+        sel = []
+        for c in cols:
+            if c in sets:
+                t = schema.column_type(c)
+                sel.append(f"case when {guarded} then "
+                           f"cast(({sets[c]}\n) as {t}) else {q(c)} end "
+                           f"as {q(c)}")
+            else:
+                sel.append(q(c))
+        sel.append(f'{guarded} as "__upd_matched__"')
+        plan = self._plan_query(parse(
+            f"select {', '.join(sel)} from {tref}"))
+        _names, pages = self.executor.execute_pages(plan)
+        matched = sum(int((p.valid & p.blocks[-1].data.to(torch.bool)).sum())
+                      for p in pages)
+        pages = [p.select_channels(range(len(cols))) for p in pages]
+        conn.create_table_pages(
+            table, cols, [schema.column_type(c) for c in cols], pages,
+            replace=True, unique=self._unique_outputs(plan, cols))
+        self._invalidate_caches(catalog, table)
+        return QueryResult(["rows"], [(matched,)], update_type="UPDATE",
+                           column_types=["bigint"])
+
+
+def _sql_has_subquery(expr_sql: str) -> bool:
+    """True when a raw expression fragment contains a subquery (walks
+    the parsed AST for nested Query nodes)."""
+    from presto_tpu_torch.sql.parser import Parser, tokenize
+
+    node = Parser(tokenize(expr_sql), source=expr_sql).parse_expr()
+
+    def walk(x) -> bool:
+        if isinstance(x, N.Query):
+            return True
+        if isinstance(x, (list, tuple)):
+            return any(walk(i) for i in x)  # nested tuples (CASE whens)
+        if dataclasses.is_dataclass(x) and isinstance(x, N.Node):
+            return any(walk(getattr(x, f.name))
+                       for f in dataclasses.fields(x))
+        return False
+
+    return walk(node)
+
+
+def explain_text(node: P.PhysicalNode, indent: int = 0) -> str:
+    """Plan rendering (reference: sql/planner/planPrinter/PlanPrinter;
+    presto_tpu.runner.explain_text without EXPLAIN ANALYZE's
+    statistics)."""
+    pad = "    " * indent
+    if isinstance(node, P.Output):
+        line = f"{pad}Output[{', '.join(node.names)}]"
+    elif isinstance(node, P.TableScan):
+        line = (f"{pad}TableScan[{node.catalog}.{node.table} "
+                f"cols={list(node.columns)}]")
+    elif isinstance(node, P.Filter):
+        line = f"{pad}Filter[{node.predicate!r}]"
+    elif isinstance(node, P.Project):
+        line = f"{pad}Project[{len(node.exprs)} cols]"
+    elif isinstance(node, P.Aggregation):
+        fns = ", ".join(
+            f"{s.function}({'' if s.channel is None else '#%d' % s.channel})"
+            for s in node.aggregates)
+        step = "" if node.step == "single" else f" step={node.step}"
+        line = (f"{pad}Aggregate[keys={list(node.group_channels)} "
+                f"aggs=[{fns}]{step}]")
+    elif isinstance(node, P.Window):
+        fns = ", ".join(f.function for f in node.functions)
+        line = (f"{pad}Window[partition={list(node.partition_channels)} "
+                f"fns=[{fns}]]")
+    elif isinstance(node, P.Exchange):
+        keys = f" keys={list(node.keys)}" if node.keys else ""
+        line = f"{pad}Exchange[{node.kind}{keys}]"
+    elif isinstance(node, P.HashJoin):
+        line = (f"{pad}{node.join_type.capitalize()}Join"
+                f"[probe={list(node.left_keys)} "
+                f"build={list(node.right_keys)}]")
+    elif isinstance(node, P.CrossJoin):
+        line = f"{pad}CrossJoin"
+    elif isinstance(node, P.MarkDistinct):
+        line = (f"{pad}MarkDistinct"
+                f"[{[list(s) for s in node.mark_channel_sets]}]")
+    elif isinstance(node, P.TopN):
+        line = f"{pad}TopN[{node.limit} by {list(node.keys)}]"
+    elif isinstance(node, P.Sort):
+        line = f"{pad}Sort[{list(node.keys)}]"
+    elif isinstance(node, P.Limit):
+        line = f"{pad}Limit[{node.count}]"
+    elif isinstance(node, P.UniqueId):
+        line = f"{pad}AssignUniqueId"
+    elif isinstance(node, P.Union):
+        line = f"{pad}Union"
+    elif isinstance(node, P.Values):
+        line = f"{pad}Values[{len(node.rows)} rows]"
+    else:
+        line = f"{pad}{type(node).__name__}"
+    parts = [line]
+    for child in node.children():
+        parts.append(explain_text(child, indent + 1))
+    return "\n".join(parts)
+
+
+def _subst_sql_params(sql: str, args, pos: int):
+    """Replace top-level ? placeholders in a raw SQL slice with the
+    argument texts starting at args[pos]. A '?' inside a single-quoted
+    string literal, a double-quoted identifier, or a -- or /* */
+    comment is data, as the tokenizer reads it. Returns (new_sql,
+    next_pos)."""
+
+    def quoted_span(i: int, quote: str) -> int:
+        # end (exclusive) of a quoted span starting at i; doubled
+        # quotes escape
+        j = i + 1
+        while j < len(sql):
+            if sql[j] == quote:
+                if j + 1 < len(sql) and sql[j + 1] == quote:
+                    j += 2
+                    continue
+                return j + 1
+            j += 1
+        return j
+
+    out = []
+    i, n = 0, len(sql)
+    while i < n:
+        ch = sql[i]
+        if ch in ("'", '"'):
+            j = quoted_span(i, ch)
+            out.append(sql[i:j])
+            i = j
+            continue
+        if ch == "-" and sql[i:i + 2] == "--":
+            j = sql.find("\n", i)
+            j = n if j < 0 else j + 1
+            out.append(sql[i:j])
+            i = j
+            continue
+        if ch == "/" and sql[i:i + 2] == "/*":
+            j = sql.find("*/", i + 2)
+            j = n if j < 0 else j + 2
+            out.append(sql[i:j])
+            i = j
+            continue
+        if ch == "?":
+            if pos >= len(args):
+                raise ValueError(f"query needs {pos + 1}+ parameters, "
+                                 f"EXECUTE supplies {len(args)}")
+            out.append("(" + args[pos] + ")")
+            pos += 1
+            i += 1
+            continue
+        out.append(ch)
+        i += 1
+    return "".join(out), pos
+
+
+def _bind_dml_parameters(stmt, arg_sqls):
+    """Positional ? substitution across a Delete/Update statement's raw
+    SQL slices (assignments left to right, then WHERE: source order).
+    Returns (bound statement, parameters consumed)."""
+    pos = 0
+    if isinstance(stmt, N.Update):
+        assigns = []
+        for col, expr_sql in stmt.assignments:
+            bound, pos = _subst_sql_params(expr_sql, arg_sqls, pos)
+            assigns.append((col, bound))
+        where = stmt.where_sql
+        if where is not None:
+            where, pos = _subst_sql_params(where, arg_sqls, pos)
+        return N.Update(stmt.parts, tuple(assigns), where), pos
+    where = stmt.where_sql
+    if where is not None:
+        where, pos = _subst_sql_params(where, arg_sqls, pos)
+    return N.Delete(stmt.parts, where), pos
+
+
+def _count_parameters(node) -> int:
+    """Number of ? placeholders in a statement AST."""
+    if isinstance(node, N.Parameter):
+        return 1
+    if isinstance(node, tuple):
+        return sum(_count_parameters(x) for x in node)
+    if dataclasses.is_dataclass(node) and isinstance(node, N.Node):
+        return sum(_count_parameters(getattr(node, f.name))
+                   for f in dataclasses.fields(node))
+    return 0
+
+
+def _bind_parameters(node, args):
+    """Substitute EXECUTE ... USING argument ASTs for ? placeholders
+    (reference: sql/analyzer ParameterRewriter), a structural rewrite of
+    the frozen AST."""
+    if isinstance(node, N.Parameter):
+        if node.index >= len(args):
+            raise ValueError(f"query needs {node.index + 1}+ parameters, "
+                             f"{len(args)} given")
+        return args[node.index]
+    if isinstance(node, tuple):
+        new = tuple(_bind_parameters(x, args) for x in node)
+        return new if any(a is not b for a, b in zip(new, node)) else node
+    if dataclasses.is_dataclass(node) and isinstance(node, N.Node):
+        changes = {}
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            nv = _bind_parameters(v, args)
+            if nv is not v:
+                changes[f.name] = nv
+        return dataclasses.replace(node, **changes) if changes else node
+    return node

@@ -23,13 +23,14 @@ the reference's except where the port runs a different mode by design:
   - ``mesh_exchange_mode``, ``adaptive_execution`` default to "false".
 
 A plane that is not ported defaults to off, and asking for it raises
-NotImplementedError naming its ROADMAP item (``check_ported``).
+NotImplementedError naming its ROADMAP item (``Session.set``, at
+construction and on SET SESSION).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,23 +358,46 @@ _NOT_PORTED = {
 
 
 class Session:
-    """Reference: Session.java — catalog + property overrides."""
+    """Reference: Session.java — user + catalog + property overrides."""
 
     def __init__(self, catalog: Optional[str] = None,
-                 properties: Optional[Dict[str, Any]] = None):
+                 properties: Optional[Dict[str, Any]] = None,
+                 user: str = "presto"):
+        self.user = user
         self.catalog = catalog
         self._values: Dict[str, Any] = {}
         for k, v in (properties or {}).items():
             self.set(k, v)
 
     def set(self, name: str, value: Any) -> None:
+        """Override a property (construction, SET SESSION). A value that
+        asks for a plane the port lacks raises NotImplementedError and
+        leaves the session as it was."""
         prop = SYSTEM_SESSION_PROPERTIES.get(name)
         if prop is None:
             raise KeyError(f"unknown session property: {name}")
         parsed = _parse_value(prop, value)
         if prop.validate and not prop.validate(parsed):
             raise ValueError(f"invalid value for {name}: {value!r}")
+        asks, why = _NOT_PORTED.get(name, (lambda v: False, ""))
+        if asks(parsed):
+            raise NotImplementedError(why)
         self._values[name] = parsed
+
+    def is_set(self, name: str) -> bool:
+        """True when the property was explicitly set rather than
+        defaulting."""
+        return name in self._values
+
+    def rows(self) -> List[tuple]:
+        """SHOW SESSION rows: (name, value, default, type, description)
+        of every ported property."""
+        def text(p, v):
+            return str(v).lower() if p.type is bool else str(v)
+
+        return [(name, text(p, self._values.get(name, p.default)),
+                 text(p, p.default), p.type.__name__, p.description)
+                for name, p in sorted(SYSTEM_SESSION_PROPERTIES.items())]
 
     def unset(self, name: str) -> None:
         """Back to the property's default."""
@@ -384,10 +408,3 @@ class Session:
         if prop is None:
             raise KeyError(f"unknown session property: {name}")
         return self._values.get(name, prop.default)
-
-    def check_ported(self) -> None:
-        """Raise NotImplementedError if a property asks for a plane the
-        port does not have."""
-        for name, (asks, why) in _NOT_PORTED.items():
-            if asks(self.get(name)):
-                raise NotImplementedError(why)
