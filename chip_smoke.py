@@ -117,7 +117,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 
 ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
-              "surface", "statements", "governed", "oom")
+              "surface", "statements", "governed", "oom", "analyze")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -2084,6 +2084,438 @@ def phase_profile(dev, cluster: "DistCluster") -> None:
     graphs.clear()
 
 
+# ------------------------------------------------------------- analyze
+ANALYZE_PAGE_ROWS = 1 << 20
+# EXPLAIN ANALYZE's runs: (query, SF, session), each with stats_drain
+# off and on
+ANALYZE_RUNS = ((1, 10.0, "default"), (1, 10.0, "eager"),
+                (3, 1.0, "eager"), (5, 1.0, "eager"))
+# the counters the Counters line must carry
+ANALYZE_COUNTERS = ("pallas_joins_used", "program_launches",
+                    "programs_compiled", "h2d_bytes", "d2h_bytes",
+                    "transfer_wall_s")
+# the queries traced with query_trace_dir: (label, query, SF, session)
+TRACE_RUNS = (("Q1 SF 10 default", 1, 10.0, "default"),
+              ("Q5 SF 1 eager", 5, 1.0, "eager"))
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_traces")
+ONE_MIB = 1 << 20
+# with the drain on, what runs outside the top node's next() calls is
+# the row-count resolution and the row decode: the top node's wall
+# must hold at least this share of the host-timed query wall
+TOP_WALL_SHARE = 0.9
+
+
+def _node_rows(plan, stats) -> list:
+    """(label, pages, rows) per plan node in pre-order (None where the
+    node ran inside a fused program)."""
+    out = []
+
+    def walk(n):
+        st = stats.get(id(n))
+        out.append((type(n).__name__, None if st is None
+                    else (st.label, st.pages, st.rows)))
+        for c in n.children():
+            walk(c)
+
+    walk(plan)
+    return out
+
+
+def _own_walls(plan, stats) -> list:
+    """(label, own wall s) of each node with stats, in pre-order: its
+    wall less its inputs' (a node's wall includes the next() calls of
+    its inputs). The inputs are the nearest descendants with stats: a
+    node that ran inside a fused program or a late-materialized join
+    chain has none, and its inputs' walls lie inside the wall of the
+    node above it. A negative own wall is an accounting fault: inputs
+    timed outside their consumer's next()."""
+    def measured(n) -> list:
+        """The nearest descendants of ``n`` that carry stats."""
+        out = []
+        for c in n.children():
+            out.extend([c] if id(c) in stats else measured(c))
+        return out
+
+    out = []
+    for n in [plan] + _descendants(plan):
+        st = stats.get(id(n))
+        if st is not None:
+            out.append((st.label, st.wall_s - sum(stats[id(c)].wall_s
+                                                   for c in measured(n))))
+    return out
+
+
+def _descendants(n) -> list:
+    out = []
+    for c in n.children():
+        out.append(c)
+        out.extend(_descendants(c))
+    return out
+
+
+def _analyzed(runner, text, drain: bool):
+    """One EXPLAIN ANALYZE run: (plan, rows, stats, wall s)."""
+    runner.apply_session()
+    ex = runner.executor
+    plan = runner.plan(text)
+    ex.stats_drain = drain
+    try:
+        t0 = time.perf_counter()
+        _names, rows, stats = ex.execute_with_stats(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ex.stats_drain = False
+    return plan, rows, stats, wall
+
+
+def _plain_wall(runner, text) -> tuple:
+    """(rows, wall s) of one plain run."""
+    t0 = time.perf_counter()
+    rows = runner.execute(text).rows
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0
+
+
+def _analyze_case(label, runner, text, card, eager: bool) -> dict:
+    """EXPLAIN ANALYZE of one query with the drain off and on (one
+    warm-up, median of 3 each), beside its plain wall."""
+    from presto_tpu_torch.runner import explain_text
+
+    rows, _ = _plain_wall(runner, text)  # warm-up: graph captures
+    plain = statistics.median(
+        _plain_wall(runner, text)[1] for _ in range(TIMED_RUNS))
+    if runner.executor.trace_spans:
+        raise AssertionError(f"analyze: {label}: trace_spans "
+                             f"{runner.executor.trace_spans} untraced")
+    out = {"rows": len(rows), "plain_s": plain}
+    for drain in (False, True):
+        _analyzed(runner, text, drain)  # warm-up
+        runs = [_analyzed(runner, text, drain) for _ in range(TIMED_RUNS)]
+        plan, arows, stats, _wall = runs[-1]
+        walls = [r[3] for r in runs]
+        top = stats[id(plan)]
+        if top.rows != len(arows) or not same_rows(arows, rows):
+            raise AssertionError(
+                f"analyze: {label} drain={drain}: top node {top.rows} "
+                f"rows, the query {len(arows)} (plain {len(rows)})")
+        owns = _own_walls(plan, stats)
+        negative = [(nm, w) for nm, w in owns if w < 0]
+        if negative:
+            raise AssertionError(f"analyze: {label} drain={drain}: "
+                                 f"negative own walls {negative}")
+        own = sum(w for _nm, w in owns)
+        if own > walls[-1]:
+            raise AssertionError(
+                f"analyze: {label} drain={drain}: per-node own walls sum "
+                f"to {own:.4f} s, past the query's {walls[-1]:.4f} s")
+        if drain and top.wall_s < TOP_WALL_SHARE * walls[-1]:
+            raise AssertionError(
+                f"analyze: {label}: with the drain the top node's wall "
+                f"{top.wall_s:.4f} s is under {TOP_WALL_SHARE:.0%} of "
+                f"the query's {walls[-1]:.4f} s")
+        ctr = stats["counters"]
+        missing = [c for c in ANALYZE_COUNTERS if c not in ctr]
+        if missing:
+            raise AssertionError(f"analyze: {label}: Counters line lacks "
+                                 f"{missing}")
+        text_lines = explain_text(plan, stats=stats).splitlines()
+        key = "drain" if drain else "enqueue"
+        out[key] = dict(wall_s=walls, median_s=statistics.median(walls),
+                        node_self_sum_s=own, top_wall_s=top.wall_s,
+                        own_walls_s=owns, counters=ctr)
+        least = min(owns, key=lambda o: o[1])
+        log(f"analyze: {label} EXPLAIN ANALYZE stats_drain={drain} "
+            f"(walls are {'device' if drain else 'enqueue'} time): wall s "
+            f"{[round(w, 4) for w in walls]} (median "
+            f"{statistics.median(walls):.4f}; plain {plain:.4f}), top "
+            f"node {top.wall_s:.4f} s ({top.wall_s / walls[-1]:.1%} of "
+            f"the last), {len(owns)} timed nodes, least own wall "
+            f"{least[1] * 1e3:.3f} ms ({least[0]}); {card}")
+        for line in text_lines[:-1]:
+            log(f"analyze:   {line}")
+        log(f"analyze:   {text_lines[-1]}")
+    return out
+
+
+def _profiled_memcpy(prof_json: str) -> list:
+    """(bytes or None, device us) of every host-to-device copy in an
+    exported profiler trace."""
+    with open(prof_json) as f:
+        doc = json.load(f)
+    out = []
+    for e in doc.get("traceEvents", []):
+        if e.get("cat") != "gpu_memcpy" or "HtoD" not in e.get("name", ""):
+            continue
+        b = (e.get("args") or {}).get("bytes")
+        out.append((None if b is None else int(b), float(e.get("dur", 0))))
+    return out
+
+
+def _ledger_vs_profiler(runner, text, card) -> dict:
+    """BASELINE config 1 (memory Q1 SF 1) under torch.profiler and
+    tracing: the ledger's h2d crossings against the profiler's HtoD
+    copies; every copy of 1 MiB or more must be a metered crossing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runner.session.set("query_trace_enabled", "true")
+    try:
+        runner.execute(text)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            runner.execute(text)
+            torch.cuda.synchronize()
+    finally:
+        runner.session.unset("query_trace_enabled")
+    ex = runner.executor
+    tr = runner.last_trace
+    metered = collections.Counter(
+        int(s.attrs.get("bytes", 0)) for s in tr.spans()
+        if s.kind == "xfer" and s.name.startswith("h2d:"))
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "profile_memory_q1.json")
+    prof.export_chrome_trace(path)
+    copies = _profiled_memcpy(path)
+    copy_us = sum(us for _b, us in copies)
+    sized = [b for b, _us in copies if b is not None]
+    big = collections.Counter(b for b in sized if b >= ONE_MIB)
+    unmetered = big - metered
+    log(f"analyze: memory Q1 SF 1 ledger vs profiler: h2d_transfers "
+        f"{ex.h2d_transfers}, h2d_bytes {ex.h2d_bytes}, d2h_transfers "
+        f"{ex.d2h_transfers}, d2h_bytes {ex.d2h_bytes}; profiler HtoD "
+        f"copies {len(copies)} ({len(sized)} with bytes, "
+        f"{sum(sized)} bytes), HtoD device time {copy_us / 1e3:.4f} ms; "
+        f"transfer_wall_s {ex.transfer_wall_s:.6f} s; copies of 1 MiB or "
+        f"more {sum(big.values())}, unmetered {sum(unmetered.values())}; "
+        f"{card}")
+    if len(sized) != len(copies):
+        raise AssertionError("analyze: the profiler's trace carries no "
+                             "bytes for some HtoD copies")
+    if unmetered:
+        raise AssertionError(f"analyze: HtoD copies of 1 MiB or more "
+                             f"that no crossing metered: {dict(unmetered)}")
+    return dict(h2d_transfers=ex.h2d_transfers, h2d_bytes=ex.h2d_bytes,
+                d2h_transfers=ex.d2h_transfers, d2h_bytes=ex.d2h_bytes,
+                transfer_wall_s=ex.transfer_wall_s,
+                profiler_htod_copies=len(copies),
+                profiler_htod_bytes=sum(sized),
+                profiler_htod_ms=copy_us / 1e3,
+                copies_1mib=sum(big.values()))
+
+
+def _check_trace(label, trace, ex, wall, kinds, card) -> dict:
+    """A finished trace: its Chrome file valid with the expected kinds,
+    the executor's own xfer spans summing to its transfer_wall_s, the
+    root's wall within 5% of the host-timed wall."""
+    from presto_tpu_torch import obs as OBS
+    from presto_tpu_torch.obs.trace import critical_path
+
+    path = os.path.join(TRACE_DIR, f"{trace.query_id}.trace.json")
+    with open(path) as f:
+        doc = json.load(f)
+    cats = {e["cat"] for e in doc["traceEvents"]}
+    if not set(kinds) <= cats or not cats <= set(OBS.SPAN_KINDS):
+        raise AssertionError(f"analyze: trace {label}: kinds {sorted(cats)}"
+                             f", want {sorted(kinds)}")
+    spans = trace.spans()
+    by_id = {s.span_id: s for s in spans}
+
+    def under_task(s):
+        while s is not None:
+            if s.kind == "task":
+                return True
+            s = by_id.get(s.parent_id)
+        return False
+
+    xfer = sum(s.dur() for s in spans
+               if s.kind == "xfer" and not under_task(s))
+    if abs(xfer - ex.transfer_wall_s) > 1e-6:
+        raise AssertionError(f"analyze: trace {label}: xfer spans "
+                             f"{xfer:.6f} s != transfer_wall_s "
+                             f"{ex.transfer_wall_s:.6f} s")
+    root = trace.root.dur()
+    if abs(root - wall) > 0.05 * wall:
+        raise AssertionError(f"analyze: trace {label}: root span "
+                             f"{root:.4f} s, host wall {wall:.4f} s")
+    cp = critical_path(trace)
+    log(f"analyze: trace {label}: {len(spans)} spans, kinds "
+        f"{dict(collections.Counter(s.kind for s in spans))}, root "
+        f"{root:.4f} s vs host wall {wall:.4f} s, xfer spans {xfer:.6f} s "
+        f"== transfer_wall_s; critical path {cp['chain']}; by kind ms "
+        f"{cp['by_kind_ms']}; {card}")
+    return dict(spans=len(spans), root_s=root, wall_s=wall, xfer_s=xfer,
+                critical_path=cp)
+
+
+def _traced_wall(run_fn, set_prop, unset_prop) -> tuple:
+    """(result, wall s) of one run with query_trace_dir set."""
+    set_prop("query_trace_dir", TRACE_DIR)
+    try:
+        t0 = time.perf_counter()
+        out = run_fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        unset_prop("query_trace_dir")
+
+
+def phase_analyze(dev, cluster: "DistCluster") -> dict:
+    """The guard and stats planes on the card: EXPLAIN ANALYZE with the
+    drain off and on (Q1 SF 10 default and eager, Q3 and Q5 SF 1 eager,
+    BASELINE config 1 = memory Q1 SF 1), the card's per-node rows and
+    pages == the CPU port's at SF 0.01; the transfer ledger against
+    torch.profiler on memory Q1; traces of Q1 SF 10 default, Q5 SF 1
+    eager and the dist Q3 SF 1 (critical paths, walls with tracing off,
+    on and under EXPLAIN ANALYZE); the profile store on Q18 SF 1 eager;
+    and the plan verifier over the 22 TPC-H and 16 TPC-DS plans at
+    SF 1. Returns the kernel launches of its main-path runs."""
+    import shutil
+
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch import queries as PQ
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.exec import plan_check as PC
+    from presto_tpu_torch.runner import LocalRunner
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    readings = {}
+
+    # the card's per-node rows and pages == the CPU port's (eager, SF
+    # 0.01), outside the counted runs; late materialization's "auto"
+    # (on a CUDA device) is set on both, so the two take one path
+    small = {**EAGER_SESSION, "late_materialization_enabled": "true"}
+    small_gpu = cluster.local(0.01, 1 << 13, small)
+    small_cpu = LocalRunner({_catalog(0.01): TpchConnector(0.01,
+                                                           device="cpu")},
+                            _catalog(0.01), device="cpu",
+                            session={"page_rows": 1 << 13, **small})
+    for q in (1, 3, 5):
+        gp, _gr, gs, _ = _analyzed(small_gpu, sql("tpch", q), True)
+        cp_, _cr, cs, _ = _analyzed(small_cpu, sql("tpch", q), False)
+        got, want = _node_rows(gp, gs), _node_rows(cp_, cs)
+        if got != want:
+            raise AssertionError(f"analyze: Q{q} SF 0.01 eager: per-node "
+                                 f"rows/pages on the card {got} != the "
+                                 f"CPU's {want}")
+    log("analyze: Q1, Q3, Q5 SF 0.01 eager: every node's rows and pages "
+        "on the card == the CPU port's")
+
+    mem_cats = _memory_catalogs(STATEMENTS_SF, dev)
+    mem = _statements_runner(mem_cats, dev, "default")
+    mem.execute(PQ.STATEMENT_SQL["ctas"].format(t="lineitem"))
+
+    cuda.reset_counts()  # the main-path runs of this phase from here
+    for q, sf, mode in ANALYZE_RUNS:
+        runner = cluster.local(sf, ANALYZE_PAGE_ROWS, SCALE_MODES[mode])
+        readings[f"Q{q} SF {sf:g} {mode}"] = _analyze_case(
+            f"Q{q} SF {sf:g} {mode}", runner, sql("tpch", q), card,
+            eager=(mode == "eager"))
+    readings["memory Q1 SF 1 default"] = _analyze_case(
+        "memory Q1 SF 1 default (BASELINE config 1)", mem, sql("tpch", 1),
+        card, eager=False)
+    readings["ledger"] = _ledger_vs_profiler(mem, sql("tpch", 1), card)
+
+    # traces: walls off / on / under EXPLAIN ANALYZE side by side
+    for label, q, sf, mode in TRACE_RUNS:
+        runner = cluster.local(sf, ANALYZE_PAGE_ROWS, SCALE_MODES[mode])
+        text = sql("tpch", q)
+        off = readings.get(f"Q{q} SF {sf:g} {mode}", {})
+        walls = []
+        for _ in range(TIMED_RUNS):
+            res, wall = _traced_wall(lambda: runner.execute(text),
+                                     runner.session.set,
+                                     runner.session.unset)
+            walls.append(wall)
+        tr = runner.last_trace
+        kinds = ("query", "execute", "attempt", "operator", "xfer")
+        got = _check_trace(label, tr, runner.executor, walls[-1], kinds,
+                           card)
+        got.update(traced_wall_s=walls, plain_s=off.get("plain_s"),
+                   analyze_s=off.get("enqueue", {}).get("median_s"))
+        log(f"analyze: {label} walls: tracing off {got['plain_s']:.4f} s, "
+            f"on {statistics.median(walls):.4f} s (median of "
+            f"{TIMED_RUNS}), EXPLAIN ANALYZE {got['analyze_s']:.4f} s; "
+            f"{card}")
+        readings[f"trace {label}"] = got
+    coord = cluster.coordinator(1.0, ANALYZE_PAGE_ROWS)
+    _dist_run(coord, sql("tpch", 3))  # warm-up, untraced
+    if coord.runner.executor.trace_spans:
+        raise AssertionError("analyze: untraced dist run recorded spans")
+    _r, plain = _dist_run(coord, sql("tpch", 3))[:2]
+    before = dict(cuda.launches)
+    (rows, _w, _s), wall = _traced_wall(
+        lambda: _dist_run(coord, sql("tpch", 3)), coord.runner.session.set,
+        coord.runner.session.unset)
+    if cuda.launches.get("part_ids", 0) <= before.get("part_ids", 0):
+        raise AssertionError("analyze: the traced dist Q3 launched no K4")
+    got = _check_trace("dist Q3 SF 1", coord.runner.last_trace,
+                       coord.runner.executor, wall,
+                       ("query", "stage", "task", "dispatch", "queue",
+                        "run", "fetch", "execute", "attempt", "xfer"),
+                       card)
+    got.update(plain_s=plain)
+    log(f"analyze: dist Q3 SF 1 walls: tracing off {plain:.4f} s, on "
+        f"{wall:.4f} s; {card}")
+    readings["trace dist Q3 SF 1"] = got
+
+    # the profile store: Q18 SF 1 eager twice
+    prof_dir = os.path.join(TRACE_DIR, "profiles")
+    runs = []
+    for _ in range(2):
+        runner = cluster.local(1.0, ANALYZE_PAGE_ROWS, {
+            **EAGER_SESSION, "stats_profile_dir": prof_dir})
+        fresh_memory(dev)
+        rows, wall = _plain_wall(runner, sql("tpch", 18))
+        ex = runner.executor
+        runs.append(dict(wall_s=wall, rows=len(rows),
+                         peak_bytes=memory_peaks(dev)[0],
+                         capacity_boost_retries=ex.capacity_boost_retries,
+                         profile_store_hits=ex.profile_store_hits,
+                         boost=ex._capacity_boost, result=rows))
+    first, second = runs
+    log(f"analyze: Q18 SF 1 eager with stats_profile_dir: first run "
+        f"{first['wall_s']:.4f} s, peak {first['peak_bytes'] / 2**30:.3f} "
+        f"GiB, boost retries {first['capacity_boost_retries']} (settled "
+        f"boost {first['boost']}); second {second['wall_s']:.4f} s, peak "
+        f"{second['peak_bytes'] / 2**30:.3f} GiB, retries "
+        f"{second['capacity_boost_retries']}, profile hits "
+        f"{second['profile_store_hits']}; {card}")
+    if not (first["capacity_boost_retries"] > 0
+            and second["capacity_boost_retries"] == 0
+            and second["profile_store_hits"] == 1
+            and same_rows(first.pop("result"), second.pop("result"))):
+        raise AssertionError("analyze: Q18's repeat did not start from its "
+                             "profile with equal rows")
+    readings["profile Q18 SF 1 eager"] = runs
+    launches = {k: cuda.launches.get(k, 0) for k in KERNEL_NAMES}
+
+    # the plan verifier over both corpora at SF 1, on the card's executor
+    t0 = time.perf_counter()
+    checked = 0
+    for suite, conn in (("tpch", cluster.catalogs[_catalog(1.0)]),
+                        ("tpcds", TpcdsConnector(1.0, device=dev))):
+        name = _catalog(1.0) if suite == "tpch" else "tpcds"
+        runner = LocalRunner({name: conn}, name, device=dev,
+                             session={"plan_check": "true"})
+        runner.apply_session()
+        texts = PQ.TPCH_SQL if suite == "tpch" else PQ.TPCDS_SQL
+        for q in sorted(texts):
+            PC.verify(runner.executor, runner.plan(texts[q]))
+            checked += 1
+    log(f"analyze: plan_check.verify: {checked} plans at SF 1 (22 TPC-H, "
+        f"{checked - 22} TPC-DS) verify clean in "
+        f"{time.perf_counter() - t0:.2f} s; {card}")
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    log(f"analyze: phase {time.perf_counter() - t_phase:.1f} s; "
+        + json.dumps({"readings": readings}, default=str))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -2125,7 +2557,7 @@ def main() -> int:
     launches = {k: None for k in KERNEL_NAMES}
     cluster = None
     try:
-        if phases & {"fused", "dist", "surface", "profile"}:
+        if phases & {"fused", "dist", "surface", "profile", "analyze"}:
             cluster = DistCluster(dev, (0.01, 1.0, 10.0))
         # fused before scale: the scale runs' required kernels come from
         # the check and fused phases' CPU runs
@@ -2152,6 +2584,10 @@ def main() -> int:
         if "oom" in phases:
             oom = phase_oom(dev)
             launches = {k: (launches[k] or 0) + oom[k]
+                        for k in KERNEL_NAMES}
+        if "analyze" in phases:
+            ana = phase_analyze(dev, cluster)
+            launches = {k: (launches[k] or 0) + ana[k]
                         for k in KERNEL_NAMES}
         if "profile" in phases:
             phase_profile(dev, cluster)

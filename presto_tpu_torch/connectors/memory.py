@@ -46,6 +46,7 @@ from presto_tpu_torch.connectors.base import (
     Split,
     TableSchema,
 )
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.page import Block, Dictionary, Page, _decode_block
 
 _M64 = (1 << 64) - 1
@@ -118,7 +119,7 @@ def _column_from_blocks(blocks: List[Block], rows_idx: List[np.ndarray],
     column, without a Python value per row (except for collect results,
     whose nested slots decode through the page module)."""
     def host(x):
-        return x.detach().cpu().numpy()
+        return XF.np_host(x, label="table-write")
 
     if not blocks:
         return _column_from_values([], t)
@@ -365,7 +366,7 @@ class MemoryConnector(Connector):
         def staged(arr: np.ndarray, fill=0) -> torch.Tensor:
             out = np.full(cap, fill, dtype=arr.dtype)
             out[:n] = arr[lo:lo + n]
-            return torch.from_numpy(out).to(dev)
+            return XF.to_device(out, dev, label="page-build")
 
         blocks = []
         for nm in names:
@@ -380,10 +381,12 @@ class MemoryConnector(Connector):
                                 dictionary=col.dictionary))
         valid = np.zeros(cap, dtype=bool)
         valid[:n] = True
-        return Page(blocks=tuple(blocks), valid=torch.from_numpy(valid).to(dev))
+        return Page(blocks=tuple(blocks),
+                    valid=XF.to_device(valid, dev, label="page-build"))
 
 
 def _columns_of_pages(pages: List[Page], types) -> List[_Column]:
-    rows_idx = [np.nonzero(p.valid.detach().cpu().numpy())[0] for p in pages]
+    rows_idx = [np.nonzero(XF.np_host(p.valid, label="table-write"))[0]
+                for p in pages]
     return [_column_from_blocks([p.blocks[c] for p in pages], rows_idx, t)
             for c, t in enumerate(types)]

@@ -37,6 +37,8 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
+from presto_tpu_torch.obs.sanitizer import make_lock
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
@@ -75,8 +77,8 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # C symbol -> its resolved ctypes function, filled once when its library
 # loads: a launch reads it without the load lock and without getattr
 _functions: Dict[str, Callable[..., int]] = {}
-_lock = threading.Lock()
-_count_lock = threading.Lock()
+_lock = make_lock("cuda._lock")
+_count_lock = make_lock("cuda._count_lock")
 # per thread: the Counter of the graph capture in progress, if any
 _capture = threading.local()
 

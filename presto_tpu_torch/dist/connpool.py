@@ -22,10 +22,11 @@ from __future__ import annotations
 import http.client
 import io
 import logging
-import threading
 import urllib.error
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import urlsplit
+
+from presto_tpu_torch.obs.sanitizer import make_lock
 
 _LOG = logging.getLogger("presto_tpu_torch.dist.connpool")
 
@@ -87,7 +88,7 @@ class ConnectionPool:
     def __init__(self, max_per_dest: int = 4):
         self.max_per_dest = max_per_dest
         self._conns: Dict[Tuple[str, str], List] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("dist.connpool.ConnectionPool._lock")
 
     def _take(self, key):
         with self._lock:

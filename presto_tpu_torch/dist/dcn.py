@@ -14,6 +14,13 @@ carries the SERIALIZED fragment (dist/plan_serde.py) and the session,
 so all producers of one exchange route rows alike. A plan the DAG
 refuses (nothing worth shipping, or not DAG-safe) runs locally.
 
+Under ``plan_check`` the DAG verifies before any task dispatches
+(exec/plan_check.verify_dag) and every task payload before its POST
+(check_task_payload). Under ``query_trace_enabled`` or
+``query_trace_dir`` one trace covers the stage DAG (stage, task,
+dispatch and fetch spans, the workers' queue and run spans ingested
+under their task) and the coordinator's root fragment.
+
 Failure model: the reference's ``task_retry_attempts=0`` — all
 configured workers, and the first task failure fails the query cleanly
 with DcnQueryFailed, whatever the property says (task replay, the
@@ -188,14 +195,33 @@ class DcnRunner:
                             **self.runner.session_dist_options())
 
     def _execute_dag(self, dag):
+        from presto_tpu_torch import obs as OBS
         from presto_tpu_torch.dist.scheduler import StageScheduler
 
         self.last_distribution = "stage-dag"
-        sched = StageScheduler(self, dag, uuid.uuid4().hex[:12])
+        ex = self.runner.executor
+        if ex._plan_check_on():
+            from presto_tpu_torch.exec import plan_check as PC
+
+            PC.verify_dag(ex, dag)
+        qid = uuid.uuid4().hex[:12]
+        # lifecycle tracing: attach BEFORE constructing the scheduler
+        # (it snapshots ex.trace); the root fragment's execute() records
+        # into the same trace, so one timeline covers stages and drain
+        trace = OBS.maybe_trace(self.runner.session, query_id=qid)
+        if trace is not None:
+            OBS.attach(ex, trace)
+        sched = StageScheduler(self, dag, qid)
         self.last_scheduler = sched
-        rows = sched.run()
-        self.last_output_names = sched.root_names
-        return rows
+        try:
+            rows = sched.run()
+            self.last_output_names = sched.root_names
+            return rows
+        finally:
+            if trace is not None:
+                OBS.finalize(ex, trace,
+                             self.runner.session.get("query_trace_dir"))
+            self.runner.last_trace = trace
 
     # ---------------------------------------------------------- execute
     def execute(self, sql: str):

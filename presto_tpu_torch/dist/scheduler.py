@@ -10,6 +10,13 @@ partitions worker-to-worker from the upstream spools (or, for a
 same-process producer, takes the spooled Pages directly); the
 coordinator executes the DAG's root fragment over the final stages.
 
+Tracing: when the coordinator's executor carries a trace, each stage
+is a ``stage`` span, each task a ``task`` span with its ``dispatch``
+POST inside and the worker's ``queue``/``run``/``attempt`` spans
+ingested under it (clamped to its window), and each root-stage drain a
+``fetch`` span. Under ``plan_check`` every payload is checked before
+its POST.
+
 Failure model: the reference's ``task_retry_attempts=0`` one — all
 configured workers, the first task failure fails the query cleanly
 with DcnQueryFailed, whatever the property says. Replay of lost tasks
@@ -56,6 +63,7 @@ class _SchedTask:
     base_id: str                      # qid.f<fid>.t<index>
     placement: Optional[_Placement] = None
     done: bool = False
+    span: object = None  # the trace span of this task
 
 
 class StageScheduler:
@@ -66,6 +74,9 @@ class StageScheduler:
         self.dag = dag
         self.qid = qid
         self.ex = coord.runner.executor
+        # the DcnRunner attaches the trace to the coordinator executor
+        # BEFORE constructing the scheduler; None = tracing off
+        self.trace = self.ex.trace
         # shipped blobs carry only the origin chains type resolution
         # needs (clip_for_shipping)
         self._frag_blob: Dict[int, str] = {
@@ -106,6 +117,10 @@ class StageScheduler:
         }
         if frag.split_table is not None:
             payload["splitTable"] = frag.split_table
+        if self.trace is not None:
+            # workers record queue/run/attempt spans and ship them on
+            # the status plane for the cross-node timeline
+            payload["trace"] = True
         if frag.output_kind == "repartition":
             payload["outputPartitions"] = self._consumer_tasks(t.fid)
             payload["outputKeys"] = list(frag.output_keys)
@@ -124,6 +139,13 @@ class StageScheduler:
                     else 0
                 payload["sources"][stage_key(u)] = spec
         return payload
+
+    def _post(self, uri: str, payload: Dict) -> None:
+        if self.ex._plan_check_on():
+            from presto_tpu_torch.exec import plan_check as PC
+
+            PC.check_task_payload(payload)
+        self.coord._post_task(uri, payload)
 
     def _status(self, pl: _Placement) -> Dict:
         last: Optional[BaseException] = None
@@ -175,16 +197,33 @@ class StageScheduler:
 
     def _run_stage(self, fid: int, pool: List[str]) -> None:
         stage = self.tasks[fid]
+        tr = self.trace
+        sspan = None
+        if tr is not None:
+            sspan = tr.begin("stage", f"stage{fid}", tasks=len(stage),
+                             pool=len(pool))
+            self.ex.trace_spans += 1
         for t in stage:
             target = pool[t.index % len(pool)]
             payload = self._payload_for(t, t.base_id)
+            if tr is not None:
+                t.span = tr.begin("task", t.base_id, parent=sspan,
+                                  uri=target)
+                self.ex.trace_spans += 1
+            d0 = tr.now() if tr is not None else 0.0
             try:
-                self.coord._post_task(target, payload)
+                self._post(target, payload)
             except (urllib.error.URLError, OSError) as e:
                 self._fail(f"worker {target}: task submit failed: {e}", e)
             t.placement = _Placement(target, t.base_id)
+            if tr is not None:
+                tr.complete("dispatch", t.base_id, d0, tr.now(),
+                            parent=t.span, uri=target)
+                self.ex.trace_spans += 1
         self.ex.stages_scheduled += 1
         self._wait(stage)
+        if tr is not None:
+            tr.end(sspan)
         self._ack_inputs(fid)
 
     def _wait(self, stage: List[_SchedTask]) -> None:
@@ -209,6 +248,17 @@ class StageScheduler:
             self.ex.spooled_exchange_pages += int(
                 st.get("spooledPages") or 0)
             self.ex.spooled_exchange_rows += sum(st.get("spoolRows") or [])
+            tr = self.trace
+            if tr is not None and t.span is not None:
+                # the worker's spans (offsets from ITS task creation)
+                # nest into this task's window, clamped so clock or
+                # queue skew never yields a negative interval
+                remote = st.get("spans") or []
+                if remote:
+                    self.ex.trace_spans += tr.ingest(
+                        remote, t.span, t.span.t0, tr.now())
+                tr.end(t.span, spooled=int(st.get("spooledPages") or 0),
+                       uri=t.placement.uri)
         elif st["state"] == "FAILED":
             self._fail(f"stage task {t.placement.task_id} on "
                        f"{t.placement.uri} FAILED: {st.get('error')}")
@@ -232,14 +282,24 @@ class StageScheduler:
         stage = self.tasks[fid]
 
         def supplier():
+            tr = self.trace
             for t in stage:
+                f0 = tr.now() if tr is not None else 0.0
                 # mesh-local fast path: a same-process placement's
                 # spool serves its Pages directly
                 local = SPOOL.local_source_pages(
                     t.placement.uri, t.placement.task_id, 0)
                 if local is not None:
                     self.ex.count_mesh_local()
-                    yield from local
+                    npages = 0
+                    for page in local:
+                        npages += 1
+                        yield page
+                    if tr is not None:
+                        tr.complete("fetch", t.placement.task_id, f0,
+                                    tr.now(), pages=npages,
+                                    uri=t.placement.uri, local=True)
+                        self.ex.trace_spans += 1
                     continue
                 st = _TaskState(uri=t.placement.uri,
                                 task_id=t.placement.task_id)
@@ -248,5 +308,12 @@ class StageScheduler:
                         st, self.ex.query_deadline)
                 except _TaskLost as e:
                     self._fail(str(e), e)
+                if tr is not None:
+                    # root-parented: the drain runs after the task span
+                    # closed, so a fetch child would escape its parent
+                    tr.complete("fetch", t.placement.task_id, f0,
+                                tr.now(), pages=st.next_token,
+                                uri=t.placement.uri)
+                    self.ex.trace_spans += 1
 
         return supplier

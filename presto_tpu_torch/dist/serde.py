@@ -28,9 +28,10 @@ The codec is chosen per array by a deterministic size probe, so a
 re-fetched page serializes byte-identically. Every frame length is
 validated on decode: a truncated or corrupt blob raises PageWireError.
 
-Tensors leave the device here (each array's ``.cpu()``); a decoded
-page holds CPU tensors, which the consuming executor stages onto its
-device.
+A device page's arrays leave the device here (a metered d2h pull
+each, exec/xfer.np_host); a decoded page is a host page (numpy
+arrays), which the consuming executor stages onto its device
+(exec/xfer.to_device).
 """
 
 from __future__ import annotations
@@ -41,9 +42,9 @@ import zlib
 from typing import List
 
 import numpy as np
-import torch
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.page import Block, Dictionary, Page
 
 _MAGIC = b"PTP"
@@ -74,13 +75,16 @@ class PageWireError(ValueError):
     truncated frame, length/dtype mismatch, corrupt compressed data)."""
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _host(t) -> np.ndarray:
+    """Host numpy of one block array: a metered d2h pull when the page
+    is on the device, a view of a host page's numpy leaf otherwise
+    (exec/xfer.py)."""
+    return XF.np_host(t)
 
 
 def _arrays_of(block: Block) -> List[np.ndarray]:
     datas = block.data if isinstance(block.data, tuple) else (block.data,)
-    return [_np(d) for d in datas]
+    return [_host(d) for d in datas]
 
 
 def _dic_value_to_json(v):
@@ -200,7 +204,7 @@ def _encode_array(arr: np.ndarray, out: bytearray) -> None:
 def serialize_page(page: Page) -> bytes:
     """One Page -> bytes (the SerializedPage analog)."""
     cap = int(page.capacity)
-    valid_np = np.ascontiguousarray(_np(page.valid))
+    valid_np = np.ascontiguousarray(_host(page.valid))
     header = {"capacity": cap, "blocks": []}
     payload = bytearray()
 
@@ -231,7 +235,7 @@ def serialize_page(page: Page) -> bytes:
         for a in arrays:
             _enc(a)
         if blk.nulls is not None:
-            _enc(_np(blk.nulls))
+            _enc(_host(blk.nulls))
     _enc(valid_np)
 
     hdr = json.dumps(header).encode()
@@ -323,7 +327,7 @@ def _decode_frame(payload: bytes, pos: int, dtype: np.dtype, n: int):
 
 
 def deserialize_page(buf: bytes) -> Page:
-    """bytes -> a Page of CPU tensors."""
+    """bytes -> a host Page (numpy arrays)."""
     if len(buf) < 13 or buf[:3] != _MAGIC:
         _fail("bad magic (not a presto-tpu page)")
     if buf[3:4] != _VERSION:
@@ -355,7 +359,7 @@ def deserialize_page(buf: bytes) -> Page:
         _fail(f"live prefix {live} outside page capacity {cap}")
     pos = 0
 
-    def take(dtype: np.dtype) -> torch.Tensor:
+    def take(dtype: np.dtype) -> np.ndarray:
         nonlocal pos
         a, pos = _decode_frame(payload, pos, dtype, live)
         if live < cap:
@@ -363,7 +367,7 @@ def deserialize_page(buf: bytes) -> Page:
             full = np.zeros(cap, dtype=a.dtype)
             full[:live] = a
             a = full
-        return torch.from_numpy(a)
+        return a
 
     blocks = []
     for bh in block_headers:

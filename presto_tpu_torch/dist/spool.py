@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.exec import shapes as SH
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.exec.executor import check_deadline
 from presto_tpu_torch.ops import cuda_part as CP
 from presto_tpu_torch.ops import u64
@@ -70,8 +71,9 @@ _NAN_KEY_I = u64.const(int(_NAN_KEY))
 
 
 def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
-        else np.asarray(t)
+    """Host numpy of one array: a metered d2h pull for a tensor, a
+    view of a host page's numpy leaf (exec/xfer.py)."""
+    return XF.np_host(t)
 
 
 # ------------------------------------------------------------ host tier
@@ -138,21 +140,21 @@ def row_hash_u64(page: Page, keys: Sequence[int]) -> np.ndarray:
 
 
 def take_rows_host(page: Page, idx: np.ndarray) -> Page:
-    """Compact the given row indices of a host page into a fresh CPU
-    page whose capacity sits on the shapes.py bucket ladder."""
+    """Compact the given row indices of a host page into a fresh host
+    page (numpy leaves) whose capacity sits on the shapes.py bucket
+    ladder."""
     n = len(idx)
     cap = SH.bucket(max(n, 1))
     pad = np.zeros(cap, dtype=np.int64)
     pad[:n] = idx
-    sel = torch.from_numpy(pad)
     blocks: List[Block] = []
     for blk in page.blocks:
-        data = (tuple(d.cpu()[sel] for d in blk.data)
-                if isinstance(blk.data, tuple) else blk.data.cpu()[sel])
-        nulls = blk.nulls.cpu()[sel] if blk.nulls is not None else None
+        data = (tuple(_np(d)[pad] for d in blk.data)
+                if isinstance(blk.data, tuple) else _np(blk.data)[pad])
+        nulls = _np(blk.nulls)[pad] if blk.nulls is not None else None
         blocks.append(Block(data=data, type=blk.type, nulls=nulls,
                             dictionary=blk.dictionary))
-    valid = torch.zeros(cap, dtype=torch.bool)
+    valid = np.zeros(cap, dtype=bool)
     valid[:n] = True
     return Page(blocks=tuple(blocks), valid=valid)
 
@@ -214,8 +216,9 @@ def _dict_luts(page: Page, keys: Sequence[int]):
     out = []
     for k in keys:
         d = page.block(k).dictionary
-        out.append(None if d is None else torch.from_numpy(
-            _dict_value_hashes(d).view(np.int64)).to(page.device))
+        out.append(None if d is None else XF.to_device(
+            _dict_value_hashes(d).view(np.int64), page.device,
+            label="dict-hash"))
     return tuple(out)
 
 
@@ -265,16 +268,18 @@ def device_partition_pages(ex, page: Page, keys: Sequence[int],
     ``with_counts=True`` also returns the exact per-partition row
     counts, pulled as one nparts-long vector per page; the return shape
     is then ``(pairs, counts_np)``."""
-    page = page.to(ex.device)
+    page = XF.to_device(page, ex.device, label="spool-stage")
     if nparts <= 1:
         if with_counts:
-            return [(0, page)], np.asarray([int(page.num_rows())],
-                                           dtype=np.int64)
+            return [(0, page)], np.asarray(
+                [int(XF.np_host(page.num_rows(), label="spool-stats"))],
+                dtype=np.int64)
         return [(0, page)]
     luts = _dict_luts(page, keys)
     cap = SH.exchange_partition_cap(page.capacity, nparts,
                                     ex._capacity_boost)
     if ex._pallas_exchange_on():
+        ex.pallas_kernels_used += 1
         part = CP.part_ids(part_id_encodings(page, keys, luts), nparts)
     else:
         part = u64.umod(device_row_hash_u64(page, keys, luts), nparts)
@@ -300,7 +305,7 @@ def device_partition_pages(ex, page: Page, keys: Sequence[int],
         # one nparts-long pull per page (the reference's design); an
         # overflowing partition never publishes (the deferred flag
         # re-runs the attempt), so clamping only guards that transient
-        counts = nums_t.cpu().numpy().astype(np.int64)
+        counts = XF.np_host(nums_t, label="spool-stats").astype(np.int64)
         return pairs, np.minimum(counts, cap)
     return pairs
 
@@ -312,7 +317,7 @@ def spool_blob(page: Page) -> bytes:
     a re-fetch serializes byte-identically."""
     from presto_tpu_torch.dist import serde
 
-    return serde.serialize_page(page)
+    return serde.serialize_page(XF.to_host(page, label="spool-blob"))
 
 
 # ------------------------------------------------------------ client

@@ -50,6 +50,15 @@ Unnest over dictionary-coded arrays, approx_distinct (ops/hll.py) and
 the collect aggregates array_agg, map_agg and approx_percentile
 (ops/collect.py).
 
+The stats plane: ``execute_with_stats`` (EXPLAIN ANALYZE) collects each
+node's wall, pages and rows in ``pages()`` (with ``stats_drain`` every
+``next()`` ends in a device synchronize), and reads the query's counters
+off the registry (exec/counters.py). A traced query records execute,
+attempt and operator spans (obs/); every host<->device crossing meters
+onto the running executor (exec/xfer.py); a profile store seeds the
+capacity boost (obs/profile.py); ``plan_check`` verifies a plan before
+anything runs (exec/plan_check.py).
+
 Left for later slices (ROADMAP): the cross-query launch batcher and the
 result cache.
 
@@ -67,16 +76,19 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import os
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from presto_tpu_torch import devsync
 from presto_tpu_torch import resolve_device
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors.base import Connector
 from presto_tpu_torch.exec import agg_states as S
+from presto_tpu_torch.exec import counters as CTRS
 from presto_tpu_torch.exec import faults as FAULTS
 from presto_tpu_torch.exec import graphs
 from presto_tpu_torch.exec import latemat as LM
@@ -84,6 +96,7 @@ from presto_tpu_torch.exec import membudget as MB
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec import prune as PR
 from presto_tpu_torch.exec import shapes as SH
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.exec.pagestore import PageStore, page_bytes
 from presto_tpu_torch.expr.eval import evaluate, evaluate_filter
 from presto_tpu_torch.expr.ir import InputRef
@@ -185,6 +198,39 @@ def _canonical_join_cols(left_blocks: List[Block],
             lnulls.extend([lb.nulls] * len(lc))
             rnulls.extend([rb.nulls] * len(rc))
     return lcols, lnulls, rcols, rnulls
+
+
+@dataclasses.dataclass
+class NodeStats:
+    """Per-plan-node execution stats (reference: OperatorStats). Row
+    counts stay device scalars during the run (one per page) and
+    resolve in one pass after it (resolve_row_counts)."""
+
+    label: str
+    wall_s: float = 0.0
+    pages: int = 0
+    row_counts: list = dataclasses.field(default_factory=list)
+
+    @property
+    def rows(self) -> int:
+        return sum(int(c) for c in self.row_counts)
+
+
+def resolve_row_counts(stats) -> None:
+    """Replace every NodeStats' deferred device row counts by host
+    ints with ONE device read for the whole run (a per-page ``int()``
+    would sync the card on every page and change the walls it
+    measures). Diagnostics, not query data: not a metered crossing."""
+    pending = [(st, i, c) for st in stats.values()
+               if isinstance(st, NodeStats)
+               for i, c in enumerate(st.row_counts)
+               if isinstance(c, torch.Tensor)]
+    if not pending:
+        return
+    # one executor's pages all lie on its device
+    vals = torch.stack([c.reshape(()) for _st, _i, c in pending])
+    for (st, i, _c), v in zip(pending, vals.tolist()):
+        st.row_counts[i] = int(v)
 
 
 class _FoldBuffer:
@@ -350,6 +396,48 @@ class Executor:
         self.late_mat = True
         self.gathers_deferred = 0
         self.gathers_materialized = 0
+        # ---- the stats plane. _collect_stats: id(node) -> NodeStats
+        # while EXPLAIN ANALYZE (execute_with_stats) or a trace runs;
+        # stats_drain makes every node's next() end in a device
+        # synchronize, so its wall is device time, not enqueue time
+        self._collect_stats: Optional[Dict] = None
+        self.stats_drain = False
+        # kernel engagements at the reference's Pallas dispatch points
+        # (lifetime): pallas_joins_used the K2/K3 probes,
+        # pallas_kernels_used every K1/K2/K3/K4 engagement
+        self.pallas_joins_used = 0
+        self.pallas_kernels_used = 0
+        # the compile counters count CUDA graphs (exec/graphs.py):
+        # captures this query, their seconds, and the fused-program
+        # calls a captured graph served
+        self.programs_compiled = 0
+        self.program_cache_hits = 0
+        self.compile_wall_s = 0.0
+        # plan_check (exec/plan_check.py): "auto" = on under pytest or
+        # when PRESTO_TPU_PLAN_CHECK opts in, off on the serving path
+        self.plan_check = "auto"
+        # query-lifecycle tracing (obs/): the active QueryTrace, attached
+        # per query by the runner; None = tracing off, and every
+        # recording site guards on that one check. trace_spans: spans
+        # this executor recorded into it (pinned 0 when off)
+        self.trace = None
+        self.trace_spans = 0
+        # observed-stats profiles (obs/profile.py): with a store wired
+        # (stats_profile_dir), a query starts at the capacity boost a
+        # previous run of the same plan settled on
+        self.profile_store = None
+        self.profile_store_hits = 0
+        # transfer ledger (exec/xfer.py): this query's metered
+        # host<->device crossings while the executor is the thread's
+        # sink; transfer_wall_s is their summed wall
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.h2d_transfers = 0
+        self.d2h_transfers = 0
+        self.transfer_wall_s = 0.0
+        # counter baselines of the query in flight (_begin_query)
+        self._joins_counter_base = (0, 0)
+        self._graph_base = graphs.snapshot()
 
     # --------------------------------------------------------------- types
     def output_types(self, node: P.PhysicalNode) -> List[T.SqlType]:
@@ -418,8 +506,35 @@ class Executor:
     # ------------------------------------------------------------- execute
     def pages(self, node: P.PhysicalNode) -> Iterator[Page]:
         """Stream the pages of a node, each accounted against the query's
-        memory limit (_account_page)."""
-        for page in self._pages_impl(node):
+        memory limit (_account_page), collecting per-node stats when an
+        EXPLAIN ANALYZE run or a trace enabled them (reference:
+        OperatorContext wall/row accounting feeding PlanPrinter). A
+        node's wall is the time spent in its next() calls, its inputs'
+        included; a chain fused into one program per split reports on
+        its top node only, since no host code runs inside the program."""
+        impl = self._pages_impl(node)
+        if self._collect_stats is None:
+            for page in impl:
+                self._account_page(page)
+                yield page
+            return
+        st = self._collect_stats.setdefault(
+            id(node), NodeStats(type(node).__name__))
+        while True:
+            t0 = time.perf_counter()
+            try:
+                page = next(impl)
+                if self.stats_drain:
+                    # every next() ends with the device idle, so the
+                    # wall is device time, not enqueue time
+                    devsync.drain(self.device)
+            except StopIteration:
+                st.wall_s += time.perf_counter() - t0
+                break
+            st.wall_s += time.perf_counter() - t0
+            st.pages += 1
+            # a device scalar, resolved after the run (resolve_row_counts)
+            st.row_counts.append(page.num_rows())
             self._account_page(page)
             yield page
 
@@ -497,12 +612,14 @@ class Executor:
             # DCN ingest (reference: ExchangeOperator): the registered
             # supplier yields spooled Pages (already on the card when a
             # same-process producer hands them over) or deserialized
-            # CPU pages, staged onto this executor's device. An edge
-            # delivers one small page per producer page and partition,
-            # so pages coalesce up to page_rows slots (no host sync)
+            # host pages (numpy), staged onto this executor's device. An
+            # edge delivers one small page per producer page and
+            # partition, so pages coalesce up to page_rows slots (no
+            # host sync)
             buf, slots = [], 0
             for page in self.remote_sources[node.key]():
-                buf.append(page.to(self.device))
+                buf.append(XF.to_device(page, self.device,
+                                        label="remote-source"))
                 slots += page.capacity
                 if slots >= self.page_rows:
                     yield concat_all(buf)
@@ -581,16 +698,15 @@ class Executor:
         reference engine's per-operator retry), and on a device memory
         fault under a halved memory budget (stream_fragment's ladder).
         The governor's and spill's counters describe this query."""
-        names, pages = self.execute_pages(node)
-        rows: List[tuple] = []
-        for page in pages:
-            rows.extend(page.to_pylist())
-        return names, rows
+        return self._execute(node, decode=True)
 
     def execute_pages(self, node: P.PhysicalNode):
         """execute() without the row decode: (column_names, the result
         pages of the last attempt), whose selected rows in page order
         are execute()'s rows. Table writes store from these."""
+        return self._execute(node, decode=False)
+
+    def _execute(self, node: P.PhysicalNode, decode: bool):
         names = list(node.names) if isinstance(node, P.Output) else None
         self.peak_memory_bytes = 0
         self.spill_partitions_used = 0
@@ -598,7 +714,211 @@ class Executor:
         self.host_spill_bytes_used = 0
         self.disk_spill_pages = 0
         self.skew_chunks_used = 0
-        return names, self.stream_fragment(node, lambda page: page)
+        prof_key = self._begin_query(node)
+        # lifecycle tracing borrows the EXPLAIN ANALYZE accounting for
+        # its operator spans: per page two perf_counter calls and one
+        # deferred row-count scalar, no device read until after the run
+        tr = self.trace
+        own_stats = tr is not None and self._collect_stats is None
+        if own_stats:
+            self._collect_stats = {}
+        exec_span = None
+        if tr is not None:
+            exec_span = tr.begin("execute", type(node).__name__)
+            self.trace_spans += 1
+        prev_sink = XF.swap_sink(self)
+        try:
+            pages = self._ladder(node, lambda page: page,
+                                 parent_span=exec_span, trace_ops=True)
+            if not decode:
+                if prof_key is not None:
+                    self._record_profile(prof_key, None,
+                                         pages_out=len(pages))
+                return names, pages
+            rows: List[tuple] = []
+            for page in pages:
+                rows.extend(page.to_pylist())
+            if prof_key is not None:
+                self._record_profile(prof_key, len(rows))
+            return names, rows
+        finally:
+            XF.swap_sink(prev_sink)
+            self._end_query()
+            if tr is not None:
+                tr.end(exec_span, boost=self._capacity_boost)
+            if own_stats:
+                self._collect_stats = None
+
+    def execute_with_stats(self, node: P.PhysicalNode):
+        """EXPLAIN ANALYZE support: run the query collecting per-node
+        wall time, page count and output rows. Row counts stay on the
+        device during the run and resolve here, in one read."""
+        self._collect_stats = {}
+        try:
+            names, rows = self.execute(node)
+            stats = dict(self._collect_stats)
+        finally:
+            self._collect_stats = None
+        resolve_row_counts(stats)
+        # registry-driven (exec/counters.py): every declared counter
+        # reaches the Counters line; the lifetime join counters report
+        # THIS query's delta over the snapshot execute() took
+        base_gen, base_pal = self._joins_counter_base
+        ctr = CTRS.snapshot(self)
+        ctr["generated_joins_used"] = self.generated_joins_used - base_gen
+        ctr["pallas_joins_used"] = self.pallas_joins_used - base_pal
+        # computed entries (counters.COMPUTED_COUNTERS)
+        ctr["splits_per_launch"] = (
+            round(self.splits_scanned / self.program_launches, 1)
+            if self.program_launches else 0.0)
+        ctr["compile_wall_s"] = round(self.compile_wall_s, 6)
+        ctr["transfer_wall_s"] = round(self.transfer_wall_s, 6)
+        ctr["peak_device_bytes"] = self.peak_memory_bytes
+        ctr["deadline_ms_remaining"] = (
+            int((self.query_deadline - time.monotonic()) * 1000)
+            if self.query_deadline is not None else -1)
+        stats["counters"] = ctr
+        return names, rows, stats
+
+    # ------------------------------------------------- per-query plumbing
+    def _begin_query(self, node: P.PhysicalNode) -> Optional[str]:
+        """Per-query setup shared by execute() and stream_fragment():
+        the ladder's and the gauges' resets, the plan check, the
+        counter baselines and the profile seed. Returns the profile key
+        to record under, or None."""
+        self._capacity_boost = 1
+        self.capacity_boost_retries = 0
+        self.profile_store_hits = 0
+        self.device_oom_retries = 0
+        self.device_oom_faults = []
+        self._oom_divisor = 1
+        if self.trace is None:
+            # untraced queries pin the span counter at 0; traced ones
+            # reset at obs.attach (the DCN coordinator's stage spans
+            # precede its root fragment's execute and must survive it)
+            self.trace_spans = 0
+        self._joins_counter_base = (self.generated_joins_used,
+                                    self.pallas_joins_used)
+        self._graph_base = graphs.snapshot()
+        self._reset_transfer_gauges()
+        # pre-launch plan verification (exec/plan_check.py)
+        self._verify_plan(node)
+        return self._seed_profile(node)
+
+    def _end_query(self) -> None:
+        """This query's graph captures, their seconds, and the calls a
+        captured graph served (process-wide totals: concurrent queries
+        share attribution, as in the reference)."""
+        d = graphs.delta(self._graph_base)
+        self.programs_compiled = int(d["captures"])
+        self.compile_wall_s = d["capture_s"]
+        self.program_cache_hits = int(d["replays"])
+
+    def count_transfer(self, direction: str, nbytes: int,
+                       wall_s: float) -> None:
+        """THE sink exec/xfer.py meters crossings to while this executor
+        is the thread-bound transfer sink."""
+        if direction == "h2d":
+            self.h2d_transfers += 1
+            self.h2d_bytes += nbytes
+        else:
+            self.d2h_transfers += 1
+            self.d2h_bytes += nbytes
+        self.transfer_wall_s += wall_s
+
+    def _reset_transfer_gauges(self) -> None:
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.h2d_transfers = 0
+        self.d2h_transfers = 0
+        self.transfer_wall_s = 0.0
+
+    def _trace_operators(self, tr, att_span) -> None:
+        """Per-plan-node operator spans from the successful attempt's
+        accounting, anchored at the attempt start — operator walls are
+        per-node totals, so the spans overlap rather than partition the
+        attempt. Runs once, after the run: its row counts resolve in
+        one device read."""
+        stats = self._collect_stats
+        if not stats:
+            return
+        resolve_row_counts(stats)
+        for st in stats.values():
+            if not isinstance(st, NodeStats):
+                continue
+            tr.complete("operator", st.label, att_span.t0,
+                        att_span.t0 + st.wall_s, parent=att_span,
+                        rows=st.rows, pages=st.pages)
+            self.trace_spans += 1
+
+    def _seed_profile(self, node) -> Optional[str]:
+        """Observed-stats profile seeding (obs/profile.py): start the
+        overflow ladder at the SETTLED capacity bucket a previous run of
+        this (plan fingerprint, connector snapshot) recorded, so the
+        repeated query skips the boost climb. Returns the profile key
+        for recording, or None when no store is wired."""
+        if self.profile_store is None:
+            return None
+        key = self.profile_store.key(node, self.catalogs)
+        prof = self.profile_store.lookup(key)
+        if prof and int(prof.get("capacity_boost", 1)) > 1:
+            self._capacity_boost = int(prof["capacity_boost"])
+            self.profile_store_hits += 1
+        return key
+
+    def _record_profile(self, key: str, rows_out: Optional[int],
+                        pages_out: Optional[int] = None) -> None:
+        """Persist this run's observed stats: the settled capacity
+        bucket, plus per-operator output cardinalities when the stats
+        accounting ran (tracing or EXPLAIN ANALYZE)."""
+        prof: Dict = {"capacity_boost": self._capacity_boost}
+        if rows_out is not None:
+            prof["rows_out"] = int(rows_out)
+        if pages_out is not None:
+            prof["pages_out"] = int(pages_out)
+        stats = self._collect_stats
+        if stats:
+            resolve_row_counts(stats)
+            ops: Dict[str, int] = {}
+            for st in stats.values():
+                if isinstance(st, NodeStats):
+                    ops[st.label] = ops.get(st.label, 0) + st.rows
+            prof["operator_rows"] = ops
+        self.profile_store.record(key, prof)
+
+    def _plan_check_on(self) -> bool:
+        pc = self.plan_check
+        if pc in (True, "true", "on"):
+            return True
+        if pc in (False, "false", "off", 0):
+            return False
+        env = os.environ.get("PRESTO_TPU_PLAN_CHECK", "").lower()
+        if env in ("0", "false", "off"):
+            return False  # explicit operator opt-out wins over auto
+        # only an explicit opt-IN enables outside pytest: a mistyped
+        # value must not force the verifier onto the serving path
+        return bool(os.environ.get("PYTEST_CURRENT_TEST")
+                    or env in ("1", "true", "on"))
+
+    def _verify_plan(self, node: P.PhysicalNode) -> None:
+        """Run the pre-launch plan verifier when enabled. A clean
+        verdict is memoized per (plan object, sizing knobs): retry
+        ladders and repeated executions of one plan re-verify nothing;
+        the held references keep id() stable."""
+        if not self._plan_check_on():
+            return
+        key = (id(node), self.device_memory_budget, self.page_rows)
+        cache = getattr(self, "_plan_check_memo", None)
+        if cache is None:
+            cache = self._plan_check_memo = {}
+        if key in cache:
+            return
+        from presto_tpu_torch.exec import plan_check as PC
+
+        PC.verify(self, node)
+        if len(cache) >= 16:
+            cache.clear()
+        cache[key] = node  # keep the ref so id() cannot be reused
 
     def _overflow_flagged(self) -> bool:
         """OR-reduce the attempt's deferred overflow flags — the ONE
@@ -631,7 +951,24 @@ class Executor:
         set never escapes because results publish only per completed
         attempt. ``on_attempt`` runs at the start of EVERY attempt, so a
         caller whose emit writes to a spool resets it there and a retry
-        never double-publishes.
+        never double-publishes. The per-query setup is execute()'s:
+        plan check, profile seed, transfer sink and gauges."""
+        prof_key = self._begin_query(node)
+        prev_sink = XF.swap_sink(self)
+        try:
+            out = self._ladder(node, emit, cancelled, on_attempt)
+            if prof_key is not None:
+                self._record_profile(prof_key, None, pages_out=len(out))
+            return out
+        finally:
+            XF.swap_sink(prev_sink)
+            self._end_query()
+
+    def _ladder(self, node: P.PhysicalNode, emit,
+                cancelled=lambda: False, on_attempt=None,
+                parent_span=None, trace_ops: bool = False) -> List:
+        """The overflow and device-OOM ladder of execute() and
+        stream_fragment().
 
         Two kinds of retry: a capacity overflow re-runs at the next
         boost rung (at most _MAX_ATTEMPTS attempts); a device memory
@@ -640,25 +977,34 @@ class Executor:
         device_oom_attempts times. Before such a retry the failed
         attempt's memory goes back to the card: its pages, the program
         cache's captured graphs (their private pools) and the caching
-        allocator's free blocks."""
-        self._capacity_boost = 1
-        self.capacity_boost_retries = 0
-        self.device_oom_retries = 0
-        self.device_oom_faults = []
-        self._oom_divisor = 1
+        allocator's free blocks. Each attempt is an ``attempt`` span
+        when traced."""
         oom_left = self.device_oom_attempts
+        tr = self.trace
         try:
             attempts = 0
             while attempts < _MAX_ATTEMPTS:
                 self._begin_attempt()
                 if on_attempt is not None:
                     on_attempt()
+                if self._collect_stats is not None:
+                    self._collect_stats.clear()  # failed attempts' stats
+                att_span = None
+                if tr is not None:
+                    att_span = tr.begin("attempt", f"a{attempts}",
+                                        parent=parent_span,
+                                        boost=self._capacity_boost)
+                    self.trace_spans += 1
                 faulted = False
                 try:
                     out, done = self._run_attempt(node, emit, cancelled)
                 except QueryDeadlineExceeded:
+                    if tr is not None:
+                        tr.end(att_span, outcome="deadline")
                     raise
                 except Exception as e:  # noqa: BLE001 - the ladder gate
+                    if tr is not None:
+                        tr.end(att_span, outcome="device-fault")
                     oom_left = self._absorb_device_fault(e, oom_left)
                     faulted = True
                 if faulted:
@@ -667,7 +1013,13 @@ class Executor:
                     self._release_device_memory()
                     continue
                 if done:
+                    if tr is not None:
+                        if trace_ops:
+                            self._trace_operators(tr, att_span)
+                        tr.end(att_span, outcome="ok", pages=len(out))
                     return out
+                if tr is not None:
+                    tr.end(att_span, outcome="overflow")
                 self._capacity_boost = SH.next_boost(self._capacity_boost)
                 self.capacity_boost_retries += 1
                 attempts += 1
@@ -678,7 +1030,7 @@ class Executor:
             self._release_stream_cache()
 
     def _run_attempt(self, node, emit, cancelled):
-        """One attempt of stream_fragment: (emit results, finished) —
+        """One attempt of the ladder: (emit results, finished) —
         finished is False when a deferred overflow flag tripped."""
         self._maybe_inject_oom()
         out: List = []
@@ -1125,6 +1477,7 @@ class Executor:
             return None
         layouts_t = tuple(tuple(lay) for lay in layouts)
         if not node.group_channels:
+            self._count_agg_kernel()
             return ("map", functools.partial(
                 _partial_global_agg, node.aggregates, layouts_t,
                 kernels=self.kernels), None)
@@ -1133,6 +1486,7 @@ class Executor:
         if (node.capacity > A.MATMUL_AGG_MAX_GROUPS
                 and _subtree_has_join(node.source)):
             return None
+        self._count_agg_kernel()
         raw = functools.partial(_partial_agg_page, node.group_channels,
                                 node.aggregates, layouts_t,
                                 kernels=self.kernels,
@@ -1240,6 +1594,8 @@ class Executor:
             fused = None if tail is None else self._fused_stream(
                 node.source, agg_tail=tail,
                 key_extra=("global", node.aggregates, layouts))
+            if fused is None:
+                self._count_agg_kernel()
             partials = list(fused) if fused is not None else [
                 _partial_global_agg(node.aggregates, layouts, p,
                                     kernels=self.kernels)
@@ -1353,6 +1709,7 @@ class Executor:
         """The (partial, merge, final) page functions of a grouped
         aggregation, each ``fn(page, cap, max_iters) -> (page, flag)``."""
         k = self._collect_k_eff
+        self._count_agg_kernel()
         partial = functools.partial(
             _partial_agg_page, node.group_channels, node.aggregates, layouts,
             kernels=self.kernels, collect_k=k)
@@ -1773,7 +2130,7 @@ class Executor:
                             min(SH.chunk_bucket(pg.capacity, parts),
                                 _next_pow2(pg.capacity)))
             f = bfilter(pg, p)
-            n = int(f.num_rows())
+            n = int(XF.np_host(f.num_rows(), label="skew-count"))
             if n:
                 pieces.append(compact_page(f, _next_pow2(max(n, 256))))
         chunks: List[List[Page]] = [[]]
@@ -2058,7 +2415,20 @@ class Executor:
                 and node.join_type in ("inner", "left", "right", "full")
                 and build.capacity <= CJ.RADIX_MAX_BUILD)
 
+    def _count_agg_kernel(self) -> None:
+        """One K1 engagement: an aggregation operator whose partial
+        step runs the segmented-reduction kernel."""
+        if self.kernels:
+            self.pallas_kernels_used += 1
+
+    def _count_join_kernel(self) -> None:
+        """One K2/K3 engagement: a join pass probing through the
+        hash-probe kernel."""
+        self.pallas_joins_used += 1
+        self.pallas_kernels_used += 1
+
     def _unique_kernel_pass(self, node, build: Page) -> Iterator[Page]:
+        self._count_join_kernel()
         layout = CJ.plan_layout(build.capacity)
         index, build_ovf = _unique_kernel_build(node.right_keys[0], layout,
                                                 build)
@@ -2090,6 +2460,8 @@ class Executor:
                                       build)
             return
         use_radix = self._radix_join_eligible(node, build)
+        if use_radix:
+            self._count_join_kernel()
         layout = CJ.plan_layout(build.capacity) if use_radix else None
         use_unique = (not use_radix and unique_build
                       and node.join_type in ("inner", "left")

@@ -43,9 +43,12 @@ import threading
 import time
 from typing import Callable, Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from presto_tpu_torch import cuda
+from presto_tpu_torch.exec import xfer as XF
+from presto_tpu_torch.obs.sanitizer import make_lock
 from presto_tpu_torch.page import Block, Page
 
 MAX_PROGRAMS = 64
@@ -55,14 +58,28 @@ _LEAF = "leaf"
 # process totals: graphs captured, seconds spent capturing them (warm-up
 # included), graph replays
 stats: Dict[str, float] = {"captures": 0, "capture_s": 0.0, "replays": 0}
-_stats_lock = threading.Lock()
+_stats_lock = make_lock("exec.graphs._stats_lock")
 
 
-def flatten(obj, leaves: List[torch.Tensor]):
-    """The tensors of an output structure (appended to ``leaves``) and
-    its skeleton; host metadata (types, dictionaries) rides in the
-    skeleton."""
-    if isinstance(obj, torch.Tensor):
+def snapshot() -> Dict[str, float]:
+    """A copy of the process totals (the baseline of delta())."""
+    with _stats_lock:
+        return dict(stats)
+
+
+def delta(base: Dict[str, float]) -> Dict[str, float]:
+    """The process totals' growth since ``base``: the executor's
+    programs_compiled (captures), compile_wall_s (capture seconds) and
+    program_cache_hits (replays) of one query."""
+    now = snapshot()
+    return {k: now[k] - base.get(k, 0) for k in now}
+
+
+def flatten(obj, leaves: list):
+    """The arrays of a page tree — a program's output, or a host page's
+    numpy arrays — (appended to ``leaves``) and its skeleton; host
+    metadata (types, dictionaries) rides in the skeleton."""
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
         leaves.append(obj)
         return _LEAF
     if isinstance(obj, Page):
@@ -75,11 +92,11 @@ def flatten(obj, leaves: List[torch.Tensor]):
         return ("tuple", tuple(flatten(x, leaves) for x in obj))
     if obj is None:
         return None
-    raise TypeError(f"a fused program returned {type(obj).__name__}")
+    raise TypeError(f"not a page tree: {type(obj).__name__}")
 
 
 def unflatten(spec, leaves):
-    """Inverse of flatten over an iterator of tensors."""
+    """Inverse of flatten over an iterator of arrays."""
     if spec is None:
         return None
     if spec == _LEAF:
@@ -126,7 +143,7 @@ class Program:
         self.fn = fn
         self.batch = batch
         self.device = torch.device(device)
-        self._lock = threading.Lock()
+        self._lock = make_lock("exec.graphs.Program._lock")
         self._graph = None
         self._starts = None
         self._counts = None
@@ -142,8 +159,8 @@ class Program:
         if len(values) != self.batch:
             raise ValueError(f"{len(values)} splits for a program of "
                              f"{self.batch}")
-        return torch.tensor(list(values), dtype=torch.int64,
-                            device=self.device)
+        return XF.to_device(np.asarray(list(values), dtype=np.int64),
+                            self.device, label="batch-starts")
 
     def eager(self, starts: Sequence[int], counts: Sequence[int]):
         """``fn`` op by op on the program's device, on fresh inputs: the
@@ -196,8 +213,10 @@ class Program:
         return out
 
     def _replay(self, starts, counts):
-        self._starts.copy_(torch.tensor(list(starts), dtype=torch.int64))
-        self._counts.copy_(torch.tensor(list(counts), dtype=torch.int64))
+        XF.stage_into(self._starts, np.asarray(starts, dtype=np.int64),
+                      "batch-starts")
+        XF.stage_into(self._counts, np.asarray(counts, dtype=np.int64),
+                      "batch-starts")
         self._graph.replay()
         cuda.add_counts(cuda.launches, self._launches)
         with _stats_lock:
@@ -207,7 +226,7 @@ class Program:
 
 _programs: "collections.OrderedDict[tuple, Program]" = \
     collections.OrderedDict()
-_programs_lock = threading.Lock()
+_programs_lock = make_lock("exec.graphs._programs_lock")
 
 
 def program(key: tuple, build: Callable[[], Callable], batch: int,

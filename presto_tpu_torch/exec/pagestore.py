@@ -10,13 +10,13 @@ The Page plane has three tiers:
 
 - tier="device": the page list stays resident on the executor's
   device. Restreaming is free.
-- tier="host": each page is copied to host RAM as CPU tensors (on the
-  card, one device-to-host copy per page) and copied back to the
-  executor's device on each ``stream()``: the device-memory-to-host
-  spill. This is what lets a partitioned operator consume an
-  intermediate larger than device memory without recomputing the
-  subplan that produced it.
-- tier="disk": each page's tensors write to one file in a per-store
+- tier="host": each page is pulled to host RAM as numpy arrays (one
+  metered device-to-host crossing per page, exec/xfer.to_host) and
+  staged back onto the executor's device on each ``stream()`` (a
+  metered h2d ``restream``): the device-memory-to-host spill. This is
+  what lets a partitioned operator consume an intermediate larger than
+  device memory without recomputing the subplan that produced it.
+- tier="disk": each page's arrays write to one file in a per-store
   temporary directory, in the port's own format (the raw bytes of
   each tensor, one after another); the page's skeleton — types,
   dictionaries, null-mask presence — and each tensor's dtype and shape
@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.exec import graphs
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.page import Page
 
 _PREFIX = "presto_tpu_torch_spill_"
@@ -98,35 +99,35 @@ def sweep_stale_spill_dirs(root: Optional[str] = None) -> int:
 
 
 def page_bytes(page: Page) -> int:
-    """Static page footprint from shapes and dtypes (no device reads)."""
-    total = page.valid.numel() * page.valid.element_size()
+    """Static page footprint from shapes and dtypes (no device reads),
+    of a device page or a host page alike."""
+    total = page.valid.nbytes
     for b in page.blocks:
         for t in (b.data if isinstance(b.data, tuple) else (b.data,)):
-            total += t.numel() * t.element_size()
+            total += t.nbytes
         if b.nulls is not None:
-            total += b.nulls.numel()
+            total += b.nulls.nbytes
     return total
 
 
 def _write_leaves(path: str, leaves) -> list:
-    """Write CPU tensors' raw bytes one after another; returns each
-    one's (numpy dtype, shape) for the read."""
+    """Write host numpy arrays' raw bytes one after another; returns
+    each one's (dtype, shape) for the read."""
     meta = []
     with open(path, "wb") as f:
-        for t in leaves:
-            a = t.detach().cpu().contiguous().numpy()
+        for a in leaves:
+            a = np.ascontiguousarray(a)
             f.write(a.tobytes())
             meta.append((a.dtype, a.shape))
     return meta
 
 
-def _read_leaves(path: str, meta) -> List[torch.Tensor]:
+def _read_leaves(path: str, meta) -> List[np.ndarray]:
     raw = np.fromfile(path, dtype=np.uint8)
     out, off = [], 0
     for dtype, shape in meta:
         n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-        a = raw[off:off + n].view(dtype).reshape(shape)
-        out.append(torch.from_numpy(a.copy()))
+        out.append(raw[off:off + n].view(dtype).reshape(shape).copy())
         off += n
     return out
 
@@ -165,15 +166,17 @@ class PageStore:
             self.page_count += 1
             self._pages.append(page)
             return
-        self.put_host(page.to("cpu"))
+        self.put_host(XF.to_host(
+            page, label="spill-disk" if self.tier == "disk"
+            else "spill-host"))
 
     def put_host(self, host_page: Page) -> None:
-        """Append a page whose tensors already lie on the CPU (no device
-        copy on the way in)."""
+        """Append a host page (numpy leaves, as exec/xfer.to_host makes
+        them): no crossing on the way in."""
         self.bytes += page_bytes(host_page)
         self.page_count += 1
         if self.tier == "disk":
-            leaves: List[torch.Tensor] = []
+            leaves: List[np.ndarray] = []
             spec = graphs.flatten(host_page, leaves)
             path = os.path.join(self._dir, f"p{self.page_count}.bin")
             self._pages.append((path, spec, _write_leaves(path, leaves)))
@@ -182,6 +185,7 @@ class PageStore:
 
     @staticmethod
     def _load(entry) -> Page:
+        """A disk-tier page read back as a host page (numpy leaves)."""
         path, spec, meta = entry
         return graphs.unflatten(spec, iter(_read_leaves(path, meta)))
 
@@ -191,10 +195,11 @@ class PageStore:
             yield from self._pages
         elif self.tier == "host":
             for p in self._pages:
-                yield p.to(self.device)
+                yield XF.to_device(p, self.device, label="restream")
         else:
             for e in self._pages:
-                yield self._load(e).to(self.device)
+                yield XF.to_device(self._load(e), self.device,
+                                   label="restream")
 
     # ---------------------------------------------------- byte plane
     def put_bytes(self, blob: bytes) -> None:

@@ -32,13 +32,13 @@ from __future__ import annotations
 
 import dataclasses
 import re
-import threading
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.obs.sanitizer import make_lock
 from presto_tpu_torch.ops import consts
 from presto_tpu_torch.page import Dictionary
 from presto_tpu_torch.expr.values import (
@@ -439,7 +439,7 @@ for _part in ("year", "month", "day", "quarter", "week", "day_of_week",
 
 _DICT_CACHE: dict = {}
 _DICT_CACHE_MAX = 4096
-_dict_lock = threading.Lock()
+_dict_lock = make_lock("expr.functions._dict_lock")
 
 
 def _dict_cached(d: Dictionary, key: tuple, build):

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.expr import functions as F
 from presto_tpu_torch.expr.functions import Ctx, lookup, register
 from presto_tpu_torch.expr.values import (
@@ -842,31 +843,35 @@ def _host_block(vals_, t) -> Block:
     """One lambda parameter's element column as a CPU Block."""
     n = len(vals_)
     isnull = np.array([v is None for v in vals_], bool)
-    nulls = torch.from_numpy(isnull) if isnull.any() else None
+
+    def stage(a):
+        return XF.to_device(a, "cpu", label="lambda-eval")
+
+    nulls = stage(isnull) if isnull.any() else None
     if t.is_dictionary_encoded:
         uniq: dict = {}
         codes = np.zeros(n, np.int32)
         for i, v in enumerate(vals_):
             if v is not None:
                 codes[i] = uniq.setdefault(v, len(uniq))
-        return Block(data=torch.from_numpy(codes), type=t, nulls=nulls,
+        return Block(data=stage(codes), type=t, nulls=nulls,
                      dictionary=Dictionary(list(uniq)))
     data = np.zeros(n, np.dtype(t.numpy_dtype))
     for i, v in enumerate(vals_):
         if v is not None:
             data[i] = v
-    return Block(data=torch.from_numpy(data), type=t, nulls=nulls)
+    return Block(data=stage(data), type=t, nulls=nulls)
 
 
 def _val_to_pylist(val: Val, n: int) -> list:
     """A CPU Val of n positions as Python values (None = NULL)."""
     if isinstance(val.data, tuple):
         raise TypeError("lambda bodies over long decimals unsupported")
-    arr = val.data.numpy()
+    arr = XF.np_host(val.data, label="lambda-eval")
     if arr.ndim == 0:
         arr = np.broadcast_to(arr, (n,))
-    nulls = (val.nulls.numpy() if val.nulls is not None
-             else np.zeros(n, bool))
+    nulls = (XF.np_host(val.nulls, label="lambda-eval")
+             if val.nulls is not None else np.zeros(n, bool))
     if nulls.ndim == 0:
         nulls = np.broadcast_to(nulls, (n,))
     scale = (val.type.scale

@@ -21,7 +21,6 @@ hash/codec functions return them as first-class values.
 from __future__ import annotations
 
 import re
-import threading
 import zlib
 from typing import List, Optional
 
@@ -47,6 +46,7 @@ from presto_tpu_torch.expr.functions_ext import (
     _varchar_results,
 )
 from presto_tpu_torch.expr.values import Val, union_nulls
+from presto_tpu_torch.obs.sanitizer import make_lock
 from presto_tpu_torch.page import Dictionary
 
 _PAIR_LIMIT = 1 << 16
@@ -54,7 +54,7 @@ _PAIR_LIMIT = 1 << 16
 # (id(a), id(b)) -> (a, b, the pair universe's placeholder dictionary),
 # so the per-dictionary result cache hits for the same two dictionaries
 _PAIR_UNIVERSES: dict = {}
-_pair_lock = threading.Lock()
+_pair_lock = make_lock("expr.functions_more._pair_lock")
 
 
 def _pair_universe(da: Dictionary, db: Dictionary) -> Dictionary:

@@ -12,14 +12,16 @@ array, as ``torch.from_numpy`` gives.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict
 
 import numpy as np
 import torch
 
+from presto_tpu_torch.exec import xfer as XF
+from presto_tpu_torch.obs.sanitizer import make_lock
+
 _cache: Dict[tuple, torch.Tensor] = {}
-_lock = threading.Lock()
+_lock = make_lock("ops.consts._lock")
 
 
 def lut(values, device, dtype=None) -> torch.Tensor:
@@ -29,7 +31,7 @@ def lut(values, device, dtype=None) -> torch.Tensor:
     arr = np.ascontiguousarray(values, dtype=dtype)
     device = torch.device(device)
     if device.type != "cuda":
-        return torch.from_numpy(arr)
+        return torch.from_numpy(arr)  # a view: no crossing on the CPU
     key = (device, arr.dtype.str, arr.shape, arr.tobytes())
     t = _cache.get(key)
     if t is None:
@@ -37,7 +39,7 @@ def lut(values, device, dtype=None) -> torch.Tensor:
             raise RuntimeError(
                 "a host constant was first built during a CUDA graph "
                 "capture; the warm-up run should have staged it")
-        t = torch.from_numpy(arr).to(device)
+        t = XF.to_device(arr, device, label="lut")
         with _lock:
             t = _cache.setdefault(key, t)
     return t

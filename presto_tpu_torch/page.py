@@ -183,23 +183,6 @@ class Page:
             blocks=tuple(self.blocks[c] for c in channels), valid=self.valid
         )
 
-    def to(self, device) -> "Page":
-        """The page with every tensor on ``device`` (itself if there)."""
-        device = torch.device(device)
-        here = self.valid.device
-        if here.type == device.type and device.index in (None, here.index):
-            return self
-
-        def mv(t):
-            return None if t is None else t.to(device)
-
-        blocks = tuple(
-            Block(data=(tuple(mv(d) for d in b.data)
-                        if isinstance(b.data, tuple) else mv(b.data)),
-                  type=b.type, nulls=mv(b.nulls), dictionary=b.dictionary)
-            for b in self.blocks)
-        return Page(blocks=blocks, valid=mv(self.valid))
-
     # ---------------------------------------------------------------- host IO
     @staticmethod
     def from_arrays(
@@ -222,12 +205,20 @@ class Page:
             blocks.append(_encode_column(col, typ, cap, dic, device))
         valid = np.zeros(cap, dtype=bool)
         valid[:n] = True
+        # metered h2d boundary (exec/xfer.py; imported lazily — the page
+        # module loads before the exec package)
+        from presto_tpu_torch.exec import xfer as XF
+
         return Page(blocks=tuple(blocks),
-                    valid=torch.from_numpy(valid).to(device))
+                    valid=XF.to_device(valid, device, label="page-build"))
 
     def to_pylist(self) -> List[tuple]:
-        """Materialize selected rows as Python tuples (test/client boundary)."""
-        valid = self.valid.cpu().numpy()
+        """Materialize selected rows as Python tuples (test/client
+        boundary); the pulls are metered d2h crossings (exec/xfer.py).
+        A host page (numpy leaves) decodes with no crossing."""
+        from presto_tpu_torch.exec import xfer as XF
+
+        valid = XF.np_host(self.valid, label="decode-valid")
         rows_idx = np.nonzero(valid)[0]
         cols = [_decode_block(blk, rows_idx) for blk in self.blocks]
         return [tuple(col[i] for col in cols) for i in range(len(rows_idx))]
@@ -241,7 +232,14 @@ def _encode_column(col, typ: T.SqlType, cap: int,
         raise ValueError(f"column length {n} exceeds capacity {cap}")
     null_mask = np.array([v is None for v in vals] + [True] * (cap - n))
     has_nulls = bool(null_mask[:n].any())
-    nulls = torch.from_numpy(null_mask).to(device) if has_nulls else None
+    # metered h2d boundary: every encoded column stages host values
+    # onto the device (exec/xfer.py)
+    from presto_tpu_torch.exec import xfer as XF
+
+    def stage(a):
+        return XF.to_device(a, device, label="page-build")
+
+    nulls = stage(null_mask) if has_nulls else None
 
     if typ.is_dictionary_encoded:
         if dictionary is None:
@@ -254,8 +252,8 @@ def _encode_column(col, typ: T.SqlType, cap: int,
             if code < 0:
                 raise ValueError(f"value {v!r} not in supplied dictionary")
             codes[i] = code
-        return Block(data=torch.from_numpy(codes).to(device), type=typ,
-                     nulls=nulls, dictionary=dictionary)
+        return Block(data=stage(codes), type=typ, nulls=nulls,
+                     dictionary=dictionary)
 
     if isinstance(typ, T.DecimalType) and not typ.is_short:
         hi = np.zeros(cap, dtype=np.int64)
@@ -266,20 +264,21 @@ def _encode_column(col, typ: T.SqlType, cap: int,
             u = int(v) & ((1 << 64) - 1)
             lo[i] = u - (1 << 64) if u >> 63 else u
             hi[i] = int(v) >> 64
-        return Block(data=(torch.from_numpy(hi).to(device),
-                           torch.from_numpy(lo).to(device)),
-                     type=typ, nulls=nulls)
+        return Block(data=(stage(hi), stage(lo)), type=typ, nulls=nulls)
 
     arr = np.zeros(cap, dtype=typ.numpy_dtype)
     for i, v in enumerate(vals):
         if v is not None:
             arr[i] = v
-    return Block(data=torch.from_numpy(arr).to(device), type=typ,
-                 nulls=nulls)
+    return Block(data=stage(arr), type=typ, nulls=nulls)
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _host(t) -> np.ndarray:
+    """One block array as host numpy: the metered d2h pull of result
+    decode (a numpy array passes through, no crossing)."""
+    from presto_tpu_torch.exec import xfer as XF
+
+    return XF.np_host(t)
 
 
 def _collect_elem_decoder(elem_t, dictionary):

@@ -2,16 +2,22 @@
 process, on one device.
 
 Port of presto_tpu/runner.py. ``execute`` runs queries and the
-reference runner's other statements: EXPLAIN, CREATE / DROP VIEW
+reference runner's other statements: EXPLAIN and EXPLAIN ANALYZE (the
+plan with each node's wall, pages and rows, and a ``Counters:`` line
+from the counter registry, exec/counters.py), CREATE / DROP VIEW
 (stored as SQL text, expanded at analysis), PREPARE / EXECUTE /
 DEALLOCATE (per user), SET / SHOW SESSION, SHOW TABLES, and CREATE
 TABLE AS, INSERT, DELETE, UPDATE (a rewrite through SELECT plus a table
 replace) and DROP TABLE on a connector that stores tables (the memory
-connector). Not ported, each raising NotImplementedError: EXPLAIN
-ANALYZE (per-node statistics, ROADMAP queue 3) and the system catalog
-(queue 5). Access control, the result cache and query tracing are not
-ported either (queues 3 and 5): the runner takes no plugins, and their
-session properties are unknown to the port.
+connector). The system catalog is not ported and raises
+NotImplementedError (ROADMAP queue 5); neither are access control and
+the result cache: the runner takes no plugins, and their session
+properties are unknown to the port.
+
+A statement that reaches the executor under ``query_trace_enabled`` or
+``query_trace_dir`` records a lifecycle trace (presto_tpu_torch/obs/),
+kept as ``last_trace`` and written as a Chrome trace to the directory;
+control statements record none.
 
 Session properties come as a plain dict (or SET SESSION), validated
 through the port's property registry (session.py); a property that asks
@@ -38,7 +44,10 @@ honours:
     ``max_join_build_rows``, ``host_spill_bytes``, ``disk_spill_bytes``,
     ``spill_path``, ``join_skew_rebalance``, and
     ``task_retry_attempts`` as the device-OOM retry budget;
-  - ``late_materialization_enabled`` ("auto" = on a CUDA device).
+  - ``late_materialization_enabled`` ("auto" = on a CUDA device);
+  - the guard and stats planes: ``plan_check`` (the pre-launch plan
+    verifier), ``query_trace_enabled``/``query_trace_dir`` and
+    ``stats_profile_dir`` (the observed-stats profile store).
 
 Reference: presto-main testing/LocalQueryRunner.java.
 """
@@ -51,6 +60,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from presto_tpu_torch import obs as OBS
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec.executor import Executor
 from presto_tpu_torch.exec.prune import prune_plan
@@ -85,6 +95,8 @@ class LocalRunner:
         # prepared statements keyed by user: one user can neither
         # EXECUTE nor DEALLOCATE another's
         self.prepared: Dict[str, Dict[str, str]] = {}
+        # the finished trace of the last traced statement (obs/)
+        self.last_trace = None
         self.apply_session()
 
     def apply_session(self) -> None:
@@ -120,6 +132,19 @@ class LocalRunner:
         ms = int(s.get("query_max_run_time"))
         ex.query_deadline = (time.monotonic() + ms / 1000.0) if ms > 0 \
             else None
+        # pre-launch plan verification (exec/plan_check.py): "auto"
+        # resolves inside the executor (on under pytest)
+        ex.plan_check = s.get("plan_check")
+        # observed-stats profile store (obs/profile.py): repeated
+        # queries seed their starting capacity bucket from persisted
+        # profiles instead of climbing the overflow-retry ladder
+        profile_dir = s.get("stats_profile_dir")
+        if profile_dir:
+            from presto_tpu_torch.obs.profile import ProfileStore
+
+            ex.profile_store = ProfileStore.at(profile_dir)
+        else:
+            ex.profile_store = None
 
     def session_dist_options(self) -> Dict:
         """fragment_dag's distribution knobs from the session: the
@@ -178,7 +203,27 @@ class LocalRunner:
     def execute(self, sql: str) -> QueryResult:
         stmt = parse(sql)
         self.apply_session()
-        return self._execute_stmt(stmt)
+        # query-lifecycle tracing (obs/): one trace per statement when
+        # enabled; the executor records execute/attempt/operator/xfer
+        # spans into it
+        trace = OBS.maybe_trace(self.session, sql=sql)
+        if trace is not None:
+            OBS.attach(self.executor, trace)
+        try:
+            return self._execute_stmt(stmt)
+        finally:
+            if trace is not None:
+                if trace.span_count > 1:
+                    OBS.finalize(self.executor, trace,
+                                 self.session.get("query_trace_dir"))
+                    self.last_trace = trace
+                else:
+                    # a control statement (SET SESSION, PREPARE, ...)
+                    # never reached the executor: no file, and
+                    # last_trace keeps the previous real query's
+                    self.executor.trace = None
+            else:
+                self.last_trace = None
 
     def _execute_stmt(self, stmt: N.Node) -> QueryResult:
         if isinstance(stmt, N.CreateView):
@@ -250,12 +295,13 @@ class LocalRunner:
             return QueryResult(["rows"], [(n,)], update_type=kind,
                                column_types=["bigint"])
         if isinstance(stmt, N.Explain):
+            out = self._plan_query(stmt.query)
             if stmt.analyze:
-                raise NotImplementedError(
-                    "EXPLAIN ANALYZE needs the executor's per-node "
-                    "statistics (execute_with_stats), not ported to "
-                    "presto_tpu_torch (ROADMAP queue 3)")
-            text = explain_text(self._plan_query(stmt.query))
+                _names, _rows, stats = self.executor.execute_with_stats(
+                    out)
+                text = explain_text(out, stats=stats)
+            else:
+                text = explain_text(out)
             return QueryResult(["Query Plan"],
                                [(line,) for line in text.splitlines()])
         out = self._plan_query(stmt)
@@ -395,10 +441,12 @@ def _sql_has_subquery(expr_sql: str) -> bool:
     return walk(node)
 
 
-def explain_text(node: P.PhysicalNode, indent: int = 0) -> str:
+def explain_text(node: P.PhysicalNode, indent: int = 0,
+                 stats=None) -> str:
     """Plan rendering (reference: sql/planner/planPrinter/PlanPrinter;
-    presto_tpu.runner.explain_text without EXPLAIN ANALYZE's
-    statistics)."""
+    presto_tpu.runner.explain_text); with stats (EXPLAIN ANALYZE) each
+    line carries the node's wall time, page count and output rows from
+    the run, and a trailing Counters line the query's counters."""
     pad = "    " * indent
     if isinstance(node, P.Output):
         line = f"{pad}Output[{', '.join(node.names)}]"
@@ -446,9 +494,18 @@ def explain_text(node: P.PhysicalNode, indent: int = 0) -> str:
         line = f"{pad}Values[{len(node.rows)} rows]"
     else:
         line = f"{pad}{type(node).__name__}"
+    if stats is not None:
+        st = stats.get(id(node))
+        if st is not None:
+            line += (f"   [wall {st.wall_s*1e3:.1f}ms, {st.pages} pages, "
+                     f"{st.rows:,} rows]")
     parts = [line]
     for child in node.children():
-        parts.append(explain_text(child, indent + 1))
+        parts.append(explain_text(child, indent + 1, stats=stats))
+    if indent == 0 and stats is not None and stats.get("counters"):
+        ctr = stats["counters"]
+        parts.append("Counters: " + ", ".join(
+            f"{k}={ctr[k]}" for k in sorted(ctr)))
     return "\n".join(parts)
 
 

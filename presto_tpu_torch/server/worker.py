@@ -47,11 +47,14 @@ from typing import Dict, List, Optional
 
 import torch
 
+from presto_tpu_torch import obs as OBS
 from presto_tpu_torch import resolve_device
 from presto_tpu_torch.connectors.split_filter import SplitFilterConnector
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec import shapes as SH
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.exec.pagestore import PageStore, page_bytes
+from presto_tpu_torch.obs.sanitizer import make_lock
 from presto_tpu_torch.page import Page
 
 
@@ -172,7 +175,7 @@ class _TaskSpool:
 # local_source_pages, the scheduler's root drain) looks placements up
 # here and takes spooled Pages directly; a placement missing from it
 # falls back to HTTP.
-_runtimes_lock = threading.Lock()
+_runtimes_lock = make_lock("server.worker._runtimes_lock")
 _LOCAL_RUNTIMES: Dict[str, "TaskRuntime"] = {}
 
 
@@ -202,7 +205,13 @@ class _Task:
         self.done = False
         self.error: Optional[str] = None
         self.cancelled = False
-        self.lock = threading.Lock()
+        self.lock = make_lock("server.worker._Task.lock")
+        # the worker-side trace's anchors (task creation) and its
+        # exported spans, shipped to a tracing coordinator on the
+        # status plane
+        self.created_mono = time.monotonic()
+        self.created_wall = time.time()
+        self.spans: Optional[List[Dict]] = None
 
     def part_count(self, part: int) -> int:
         if self.spool is None or part >= len(self.spool.parts):
@@ -358,6 +367,11 @@ def route_task_get(app, path: str, query: str):
                               if spool else []),
                 "error": task.error,
             }
+            if task.spans is not None:
+                # worker-side spans for the coordinator's cross-node
+                # timeline: offsets from this task's creation
+                body["spans"] = task.spans
+                body["wallAnchor"] = task.created_wall
         return _jresp(body)
     return None
 
@@ -440,7 +454,7 @@ class TaskRuntime:
         self.page_rows = page_rows
         self.device = resolve_device(device)
         self.tasks: Dict[str, _Task] = {}
-        self._tasks_lock = threading.Lock()
+        self._tasks_lock = make_lock("server.worker.TaskRuntime._tasks_lock")
 
     def get_task(self, task_id: str) -> Optional[_Task]:
         with self._tasks_lock:
@@ -486,6 +500,17 @@ class TaskRuntime:
         from presto_tpu_torch.dist import spool as SPOOL
         from presto_tpu_torch.runner import LocalRunner
 
+        # worker-side lifecycle tracing: when the coordinator traces the
+        # query, the payload carries trace=true and this task records
+        # queue/run spans (and its executor's attempt and xfer spans),
+        # anchored at task creation, shipped back on the status plane
+        wtr = None
+        if req.get("trace"):
+            wtr = OBS.QueryTrace(task.task_id,
+                                 anchor_mono=task.created_mono,
+                                 anchor_wall=task.created_wall)
+            wtr.complete("queue", task.task_id, 0.0, wtr.now())
+        run_t0 = wtr.now() if wtr is not None else 0.0
         try:
             index, count = int(req["splitIndex"]), int(req["splitCount"])
             sources = req.get("sources") or {}
@@ -511,6 +536,8 @@ class TaskRuntime:
                                  session=session, device=self.device)
             fragment = plan_serde.loads(req["fragment"])
             ex = runner.executor
+            if wtr is not None:
+                OBS.attach(ex, wtr)
             backoff = int(runner.session.get("retry_backoff_ms")) / 1000.0
             for key, spec in sources.items():
                 ex.remote_sources[key] = (
@@ -543,8 +570,10 @@ class TaskRuntime:
                     return len(pp)
             else:
                 def emit(page) -> int:
-                    pp = SPOOL.partition_host_page(page.to("cpu"),
-                                                   out_keys, nparts)
+                    # the fragment output leaves the device exactly
+                    # once, here
+                    host = XF.to_host(page, label="task-emit")
+                    pp = SPOOL.partition_host_page(host, out_keys, nparts)
                     for p, part_page in pp:
                         state["spool"].put(
                             p, serde.serialize_page(part_page),
@@ -554,7 +583,12 @@ class TaskRuntime:
             ex.stream_fragment(fragment, emit,
                                cancelled=lambda: task.cancelled,
                                on_attempt=on_attempt)
+            if wtr is not None:
+                wtr.complete("run", task.task_id, run_t0, wtr.now(),
+                             spooled=state["spool"].page_count)
             with task.lock:
+                if wtr is not None:
+                    task.spans = wtr.export()
                 if task.cancelled:
                     state["spool"].close()  # released while running
                 else:
@@ -563,7 +597,12 @@ class TaskRuntime:
         except Exception as e:  # noqa: BLE001 - a task failure reaches
             # the coordinator as FAILED status / X-Task-Error, never as
             # a hung task
+            if wtr is not None:
+                wtr.complete("run", task.task_id, run_t0, wtr.now(),
+                             error=repr(e)[:200])
             with task.lock:
+                if wtr is not None:
+                    task.spans = wtr.export()
                 task.error = repr(e)[:400]
                 task.done = True
 

@@ -301,6 +301,46 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             validate=_tristate,
         ),
         PropertyMetadata(
+            "plan_check",
+            "pre-launch plan verification (exec/plan_check.py): "
+            "schema-consistent operator/fragment edges, ladder-"
+            "quantized capacities under the device-memory budget, "
+            "canonical program-key material, deterministic split "
+            "assignment fields. auto = on under pytest (or when "
+            "PRESTO_TPU_PLAN_CHECK opts in), off on the serving path; "
+            "true/false force. Violations fail the query BEFORE "
+            "anything runs with a pointed PlanCheckError",
+            str, "auto",
+            validate=lambda v: v in ("auto", "true", "false"),
+        ),
+        PropertyMetadata(
+            "query_trace_enabled",
+            "record a query-lifecycle span trace (presto_tpu_torch/"
+            "obs/): query -> stage -> task -> attempt -> operator "
+            "spans on one monotonic clock with one wall anchor. Off = "
+            "zero recording cost (trace_spans counter pins 0)",
+            bool, False,
+        ),
+        PropertyMetadata(
+            "query_trace_dir",
+            "directory for per-query Chrome-trace (Perfetto-loadable) "
+            "JSON exports; setting it also enables tracing (empty = "
+            "no files). Each query writes <query-id>.trace.json on "
+            "completion",
+            str, "",
+        ),
+        PropertyMetadata(
+            "stats_profile_dir",
+            "directory for persisted observed-stats profiles "
+            "(presto_tpu_torch/obs/profile.py), keyed by (canonical "
+            "plan fingerprint, connector snapshot): settled capacity "
+            "bucket + observed cardinalities. Repeated queries seed "
+            "their starting capacity from the profile and skip the "
+            "overflow-retry ladder (capacity_boost_retries -> 0); "
+            "empty = disabled",
+            str, "",
+        ),
+        PropertyMetadata(
             "adaptive_execution",
             "runtime re-planning at stage boundaries; not ported "
             "(false)",

@@ -259,6 +259,7 @@ def test_state_words_travel_through_stores_and_serde(tier, tmp_path):
     and the exchange serde; its footprint counts them."""
     from presto_tpu_torch import types as T
     from presto_tpu_torch.dist import serde as SERDE
+    from presto_tpu_torch.exec import xfer as XF
     from presto_tpu_torch.exec.executor import _row_bytes
     from presto_tpu_torch.exec.pagestore import PageStore, page_bytes
     from presto_tpu_torch.page import Block, Page
@@ -274,7 +275,9 @@ def test_state_words_travel_through_stores_and_serde(tier, tmp_path):
     assert _row_bytes([T.BIGINT, T.HLL_STATE]) == 2 + 8 + 8 * HLL.WORDS
     assert page_bytes(page) == 8 + 8 * 8 + 8 * 8 * HLL.WORDS
     if tier == "wire":
-        back = SERDE.deserialize_page(SERDE.serialize_page(page))
+        # a decoded page is a host page: the consumer stages it
+        back = XF.to_device(
+            SERDE.deserialize_page(SERDE.serialize_page(page)), "cpu")
     else:
         store = PageStore(tier, spill_dir=str(tmp_path), device="cpu")
         store.put(page)

@@ -1,8 +1,8 @@
 """Device-memory governor (exec/membudget.py): presto_tpu_torch against
 presto_tpu.
 
-Counterparts of tests/test_membudget.py's model and forced-rewrite
-tests (its EXPLAIN ANALYZE, mesh and etc tests wait for planes the port
+Counterparts of tests/test_membudget.py's model, forced-rewrite and
+EXPLAIN ANALYZE tests (its mesh and etc tests wait for planes the port
 does not have, and its forced TPU fault line, which no device of the
 port has): tiny budgets at SF 0.01 force the chunked rewrites on the
 CPU, and the rows must equal the reference's,
@@ -226,3 +226,25 @@ def test_static_audit_matches_reference(conns, name):
         ", fault line — rows", "")
     if "tiny" in name:
         assert got.chunked_count > 0
+
+
+# --------------------------------------------------- observability
+def test_explain_analyze_exposes_governor_counters(conns):
+    """The governor's counters reach EXPLAIN ANALYZE (the counter
+    registry), equal to the reference's on the same session."""
+    port, ref = pair(conns, {"device_memory_budget": 1 << 20})
+    port.apply_session()
+    ref.apply_session()
+    _n, _r, stats = port.executor.execute_with_stats(
+        port.plan(SCAN_AGG_Q))
+    _n, _r, ref_stats = ref.executor.execute_with_stats(
+        ref.plan(SCAN_AGG_Q))
+    ctr = stats["counters"]
+    assert ctr["peak_device_bytes"] > 0
+    assert ctr["memory_chunked_pipelines"] > 0
+    assert ctr["memory_chunked_pipelines"] == \
+        ref_stats["counters"]["memory_chunked_pipelines"]
+    text = "\n".join(r[0] for r in port.execute(
+        "explain analyze " + SCAN_AGG_Q).rows)
+    assert "peak_device_bytes" in text
+    assert "memory_chunked_pipelines" in text

@@ -31,6 +31,7 @@ from presto_tpu.runner import LocalRunner as RefRunner
 from presto_tpu_torch import types as T
 from presto_tpu_torch.connectors.tpch import TpchConnector
 from presto_tpu_torch.exec import pagestore as PS
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.exec.executor import Executor, MemoryBudgetExceeded
 from presto_tpu_torch.page import Block, Dictionary, Page
 from presto_tpu_torch.runner import LocalRunner
@@ -451,7 +452,7 @@ def test_pagestore_tiers_round_trip(tier, tmp_path):
 
 def test_pagestore_put_host_and_blobs(tmp_path):
     store = PS.PageStore("disk", spill_dir=str(tmp_path))
-    store.put_host(_sample_page())
+    store.put_host(XF.to_host(_sample_page()))
     assert [p.to_pylist() for p in store.stream()] == \
         [_sample_page().to_pylist()]
     blobs = PS.PageStore("disk", spill_dir=str(tmp_path))

@@ -228,6 +228,33 @@ def test_worker_fragment_batches(rig):
                                   rex.splits_scanned) == (1, 7)
 
 
+def test_counters_in_explain_analyze(rig):
+    """program_launches and splits_per_launch ride EXPLAIN ANALYZE's
+    counters line, equal to presto_tpu's for the same session."""
+    stats = []
+    for r in rig:
+        r.session.set("split_batch_size", "64")
+        try:
+            r.apply_session()
+            plan = r.plan(Q6ISH)
+            stats.append(r.executor.execute_with_stats(plan)[2])
+        finally:
+            r.session.unset("split_batch_size")
+    ctr, ref_ctr = (s["counters"] for s in stats)
+    assert ctr["program_launches"] >= 1
+    assert ctr["splits_per_launch"] > 1
+    for k in ("program_launches", "splits_scanned", "splits_per_launch",
+              "fused_partial_aggs", "split_batch_fallbacks"):
+        assert ctr[k] == ref_ctr[k], k
+    rig[0].session.set("split_batch_size", "64")
+    try:
+        text = "\n".join(r[0] for r in rig[0].execute(
+            "explain analyze " + Q6ISH).rows)
+    finally:
+        rig[0].session.unset("split_batch_size")
+    assert "program_launches" in text and "splits_per_launch" in text
+
+
 def test_auto_is_on_only_on_a_cuda_device(rig):
     """auto = on a CUDA device (where presto_tpu says TPU): on the CPU
     the resolved max batch is 0 and nothing fuses through partial
