@@ -84,6 +84,20 @@ Phases:
            rows), then the card's own torch.cuda.OutOfMemoryError under a
            lowered per-process memory fraction, absorbed by a retry at a
            halved budget with equal rows
+  serve    the coordinator's /v1/statement protocol through
+           StatementClient, the lock sanitizer armed: a serial server
+           (Q1, Q6, Q3, Q5 at SF 10; Q3, Q5 at SF 1 with the generated
+           join off, which reach K2 and K3) == a direct LocalRunner, Q1
+           and Q6 == the reference's checksums, client walls beside
+           direct walls; ~194,000 rows of paged delivery; a concurrent
+           server (memory arbiter, two resource groups): 8 clients x 3
+           rounds of one-split statements with cross-query batching off
+           and on (rows equal, shared launches, histogram p50/p95, graph
+           captures), Q1 and Q5 at SF 10 from 4 clients at once (peak
+           memory against the arbiter's estimates) and again beside an
+           injected device OOM (the programs its ladder drops); a server
+           over the DistCluster's 4 workers running Q3 at SF 1
+           partitioned (K4)
   profile  (only when asked for) the base scale rungs under each session
            and the dist queries once more under torch.profiler: device
            busy share, device kernels, graph replays, device time by
@@ -117,7 +131,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 
 ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
-              "surface", "statements", "governed", "oom", "analyze")
+              "surface", "statements", "governed", "oom", "analyze",
+              "serve")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -2516,6 +2531,434 @@ def phase_analyze(dev, cluster: "DistCluster") -> dict:
     return launches
 
 
+# ------------------------------------------------------ the HTTP server
+
+SERVE_SF = 10.0
+SERVE_SMALL_SF = 1.0
+SERVE_PAGE_ROWS = 1 << 20
+# (a) the serial server: (catalog, query, X-Presto-Session properties);
+# the SF 1 runs with the generated join off reach K2 and K3
+SERVE_SERIAL = (
+    ("tpch", 1, {}), ("tpch", 6, {}), ("tpch", 3, {}), ("tpch", 5, {}),
+    ("tpch_small", 3, {"generated_join_enabled": "false"}),
+    ("tpch_small", 5, {"generated_join_enabled": "false"}),
+)
+# (b) paged delivery: ~190,000 rows at SF 10, 4,096 rows a protocol page
+SERVE_PAGED = ("select o_orderkey, o_custkey, o_totalprice from orders "
+               "where o_orderdate < date '1992-02-01'")
+# (c) the concurrent server: one-split statements (nation, region) for
+# the cross-query batching race, then Q1 and Q5 at SF 10 at once
+SERVE_STATEMENTS = (
+    "select count(*), sum(n_nationkey) from nation",
+    "select r_name, count(*) from region group by r_name order by r_name",
+    "select n_regionkey, count(*), max(n_name) from nation "
+    "group by n_regionkey order by n_regionkey",
+)
+SERVE_CLIENTS = 8
+SERVE_ROUNDS = 3
+SERVE_WARMUPS = 3
+SERVE_BUDGET = 64 << 30
+SERVE_HEAVY = (1, 1, 5, 5)
+# kernels the phase's server runs must launch
+SERVE_REQUIRED = ("segsum", "probe_dim", "probe_radix", "part_ids")
+
+
+def _serve_client(url: str, catalog: str, props: dict, user="presto"):
+    from presto_tpu_torch.client import StatementClient
+
+    c = StatementClient(url, user=user, catalog=catalog)
+    c.session_properties.update({k: str(v) for k, v in props.items()})
+    return c
+
+
+def _client_run(client, text):
+    """(ClientResult, wall s, protocol requests) of one statement."""
+    n = [0]
+    request = client._request
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return request(*a, **kw)
+
+    client._request = counted
+    try:
+        t0 = time.perf_counter()
+        res = client.execute(text)
+        wall = time.perf_counter() - t0
+    finally:
+        client._request = request
+    if res.error is not None or res.state != "FINISHED":
+        raise AssertionError(f"server: {text[:60]!r} {res.state} "
+                             f"{res.error}")
+    return res, wall, n[0]
+
+
+def _json_rows(result):
+    from presto_tpu_torch.server.http_server import _json_row
+
+    return [_json_row(r, result.column_types) for r in result.rows]
+
+
+def _direct_timed(runner, text):
+    """Rows and the median wall of TIMED_RUNS direct runs after one
+    warm-up, each ending in a synchronize."""
+    runner.execute(text)
+    walls = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        res = runner.execute(text)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return res, statistics.median(walls)
+
+
+def _scrape(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^presto_tpu_(\w+) (\S+)$", text, re.M)}
+
+
+def _race(url: str, batching: str) -> tuple:
+    """SERVE_CLIENTS clients x SERVE_ROUNDS rounds of SERVE_STATEMENTS
+    at once: ({sql: {rows variant}}, wall s)."""
+    import threading
+
+    out, errors = [[] for _ in range(SERVE_CLIENTS)], []
+
+    def client(i):
+        c = _serve_client(url, "tpch", {"cross_query_batching": batching},
+                          user=f"dash{i}")
+        for _ in range(SERVE_ROUNDS):
+            for text in SERVE_STATEMENTS:
+                try:
+                    res, _w, _n = _client_run(c, text)
+                    out[i].append((text, tuple(map(tuple, res.rows))))
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve: race with batching={batching}: "
+                             f"{errors[:3]}")
+    by_sql = collections.defaultdict(set)
+    for rows in out:
+        for text, r in rows:
+            by_sql[text].add(r)
+    return dict(by_sql), wall
+
+
+def _heavy_at_once(url: str, texts: dict) -> dict:
+    """SERVE_HEAVY's queries from one client each, all at once, on the
+    scan group: {client index: (query, json rows, wall s)}."""
+    import threading
+
+    out, errors = {}, []
+
+    def client(i, q):
+        c = _serve_client(url, "tpch", {}, user=f"scan{i}")
+        try:
+            res, wall, _n = _client_run(c, texts[q])
+            out[i] = (q, res.rows, wall)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i, q))
+               for i, q in enumerate(SERVE_HEAVY)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or len(out) != len(SERVE_HEAVY):
+        raise AssertionError(f"serve: concurrent Q1/Q5: {errors[:3]}")
+    return out
+
+
+def phase_serve(dev, cluster: "DistCluster") -> dict:
+    """The coordinator's /v1/statement protocol on the card, driven by
+    StatementClient with the lock sanitizer armed: (a) a serial server
+    answering Q1, Q6, Q3, Q5 at SF 10 and Q3, Q5 at SF 1 with the
+    generated join off in the header, rows == a direct LocalRunner in
+    this process (Q1/Q6 == the reference's checksums), client walls
+    beside direct walls; (b) paged delivery of ~190,000 rows; (c) a
+    concurrent server (memory arbiter, two resource groups): 8 clients
+    x 3 rounds of one-split statements with cross-query batching off,
+    then on (rows equal, shared launches, walls, histogram p50/p95,
+    graph captures), then Q1 and Q5 SF 10 from 4 clients at once (rows
+    == (a), peak memory against the arbiter's estimates); (d) a server
+    over the DistCluster's workers running Q3 SF 1 partitioned (K4).
+    Returns the kernel launches of the server runs."""
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.exec import graphs
+    from presto_tpu_torch.obs import sanitizer as SAN
+    from presto_tpu_torch.obs.histo import Histogram
+    from presto_tpu_torch.runner import LocalRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.server.http_server import _json_row
+    from presto_tpu_torch.server.resource_groups import (
+        ResourceGroupManager,
+        ResourceGroupSpec,
+    )
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    SAN.arm()
+    SAN.reset()
+    catalogs = {"tpch": TpchConnector(SERVE_SF, device=dev),
+                "tpch_small": TpchConnector(SERVE_SMALL_SF, device=dev)}
+    sfs = {"tpch": SERVE_SF, "tpch_small": SERVE_SMALL_SF}
+    servers = []
+    launches = collections.Counter()
+
+    def counted(fn):
+        before = collections.Counter(cuda.launches)
+        out = fn()
+        after = collections.Counter(cuda.launches)
+        launches.update({k: after[k] - before[k] for k in KERNEL_NAMES})
+        return out
+
+    def serve(**kw):
+        srv = PrestoTpuServer(catalogs, "tpch", port=0,
+                              page_rows=SERVE_PAGE_ROWS, device=dev, **kw)
+        servers.append(srv)
+        return srv, f"http://127.0.0.1:{srv.start()}"
+
+    try:
+        # ---- (a) the serial server against a direct runner
+        srv, url = serve()
+        expect = {}
+        for cat, q, props in SERVE_SERIAL:
+            text = sql("tpch", q)
+            direct = LocalRunner(catalogs, cat, device=dev, session={
+                "page_rows": SERVE_PAGE_ROWS, **props})
+            res, direct_wall = _direct_timed(direct, text)
+            note = (check_validated(q, sfs[cat], res.rows)
+                    if not props else "")
+            want = _json_rows(res)
+            client = _serve_client(url, cat, props)
+            counted(lambda: _client_run(client, text))  # warm-up
+            walls = []
+            for _ in range(TIMED_RUNS):
+                got, wall, nreq = counted(
+                    lambda: _client_run(client, text))
+                walls.append(wall)
+                if got.rows != want or [c["type"] for c in got.columns] \
+                        != res.column_types:
+                    raise AssertionError(
+                        f"serve: Q{q} SF {sfs[cat]:g} {props}: server "
+                        f"rows != direct rows\n {got.rows[:2]}\n "
+                        f"{want[:2]}")
+            expect[(cat, q)] = want
+            log(f"serve: (a) Q{q} SF {sfs[cat]:g} {props or 'default'}: "
+                f"{len(want)} rows == direct{note}; client wall median "
+                f"{statistics.median(walls):.4f} s "
+                f"{[round(w, 4) for w in walls]} against direct "
+                f"{direct_wall:.4f} s; {nreq} protocol requests")
+
+        # ---- (b) paged delivery
+        direct = LocalRunner(catalogs, "tpch", device=dev,
+                             session={"page_rows": SERVE_PAGE_ROWS})
+        res, direct_wall = _direct_timed(direct, SERVE_PAGED)
+        want = _json_rows(res)
+        client = _serve_client(url, "tpch", {})
+        counted(lambda: _client_run(client, SERVE_PAGED))
+        walls, pages = [], 0
+        for _ in range(TIMED_RUNS):
+            got, wall, pages = counted(
+                lambda: _client_run(client, SERVE_PAGED))
+            walls.append(wall)
+            if sorted(got.rows) != sorted(want):
+                raise AssertionError("serve: paged rows != direct rows")
+        wall = statistics.median(walls)
+        log(f"serve: (b) paged: {len(want)} rows in {pages} protocol "
+            f"requests, client wall median {wall:.4f} s "
+            f"({len(want) / wall:.0f} rows/s) against direct "
+            f"{direct_wall:.4f} s")
+        srv.stop()
+
+        # ---- (c) the concurrent server
+        rg = ResourceGroupManager([ResourceGroupSpec(
+            "global", ".*", hard_concurrency=16, max_queued=256,
+            sub_groups=(
+                ResourceGroupSpec("dash", "dash.*", hard_concurrency=8,
+                                  max_queued=128, priority=10),
+                ResourceGroupSpec("scan", ".*", hard_concurrency=4,
+                                  max_queued=64, memory_share=0.25),
+            ))])
+        srv, url = serve(memory_budget_bytes=SERVE_BUDGET,
+                         resource_groups=rg)
+        direct = LocalRunner(catalogs, "tpch", device=dev,
+                             session={"page_rows": SERVE_PAGE_ROWS})
+        small_want = {t: tuple(map(tuple, _json_rows(direct.execute(t))))
+                      for t in SERVE_STATEMENTS}
+        # warm-up passes with batching on capture the batched programs
+        # (one per statement and dispatch width, which vary from pass to
+        # pass) until a pass captures none, so the timed passes replay
+        for n in range(SERVE_WARMUPS):
+            caps0 = graphs.snapshot()["captures"]
+            counted(lambda: _race(url, "true"))
+            new = graphs.snapshot()["captures"] - caps0
+            log(f"serve: (c) warm-up pass {n + 1}, batching=true: {new} "
+                f"graph captures")
+            if not new:
+                break
+        passes = {}
+        for batching in ("false", "true"):
+            srv.manager.latency_histo = Histogram()
+            caps0, cached0 = graphs.snapshot()["captures"], len(
+                graphs.cached())
+            m0 = _scrape(url)
+            rows, wall = counted(lambda: _race(url, batching))
+            m1 = _scrape(url)
+            for text in SERVE_STATEMENTS:
+                if rows[text] != {small_want[text]}:
+                    raise AssertionError(
+                        f"serve: batching={batching}: {text!r} rows "
+                        f"{len(rows[text])} variants, != direct")
+            h = srv.manager.latency_histo
+            passes[batching] = dict(
+                wall_s=wall, p50_s=h.quantile(0.5), p95_s=h.quantile(0.95),
+                batches=m1["cross_query_batches_total"]
+                - m0["cross_query_batches_total"],
+                batched_queries=m1["cross_query_batched_queries_total"]
+                - m0["cross_query_batched_queries_total"],
+                launches=m1["program_launches"] - m0["program_launches"],
+                mean_width=round((m1["cross_query_batched_queries_total"]
+                                  - m0["cross_query_batched_queries_total"])
+                                 / max(m1["cross_query_batches_total"]
+                                       - m0["cross_query_batches_total"],
+                                       1), 3),
+                queries_per_launch=m1["queries_per_launch"],
+                fallbacks=m1["split_batch_fallbacks_total"]
+                - m0["split_batch_fallbacks_total"],
+                captures=graphs.snapshot()["captures"] - caps0,
+                programs_cached=(cached0, len(graphs.cached())))
+            log(f"serve: (c) {SERVE_CLIENTS} clients x {SERVE_ROUNDS} "
+                f"rounds, batching={batching}: rows == direct; "
+                + json.dumps(passes[batching]))
+        on = passes["true"]
+        if on["batches"] <= 0 or on["mean_width"] <= 1 \
+                or on["fallbacks"] != 0 or passes["false"]["batches"]:
+            raise AssertionError(f"serve: no shared launch: {on}")
+        texts = {q: sql("tpch", q) for q in set(SERVE_HEAVY)}
+        est = {q: direct.estimate_memory(texts[q]) for q in texts}
+        # a warm-up round: under the scan group's memory share the
+        # governor sizes these queries' splits apart from (a), so their
+        # programs are captured here, not in the timed round
+        counted(lambda: _heavy_at_once(url, texts))
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = counted(lambda: _heavy_at_once(url, texts))
+        peak = memory_peaks(dev)
+        for i, (q, rows, _w) in out.items():
+            if rows != expect[("tpch", q)]:
+                raise AssertionError(f"serve: concurrent Q{q} (client "
+                                     f"{i}) rows != (a)")
+        retries = sum(q.runner.executor.device_oom_retries
+                      for q in srv.manager.queries()
+                      if q.runner is not None)
+        est_sum = sum(est[q] for q in SERVE_HEAVY)
+        log(f"serve: (c) Q1, Q1, Q5, Q5 SF {SERVE_SF:g} from 4 clients at "
+            f"once: rows == (a); walls s "
+            f"{[round(out[i][2], 4) for i in sorted(out)]}; peak alloc "
+            f"{peak[0] / 2**30:.3f} GiB, reserved {peak[1] / 2**30:.3f} "
+            f"GiB; the arbiter's estimates Q1 {est[1] / 2**30:.3f} GiB, "
+            f"Q5 {est[5] / 2**30:.3f} GiB, sum {est_sum / 2**30:.3f} GiB "
+            f"({est_sum / max(peak[0], 1):.3f} of the allocated peak); "
+            f"device_oom_retries {retries}; {card}")
+        # the same round with one query's device-OOM ladder (an injected
+        # fault): its retry drops EVERY captured program, the other
+        # queries' included; they hold their Program objects, so the
+        # cost is captures, counted here
+        factory = srv.manager._runner_factory
+
+        def faulting(session):
+            r = factory(session)
+            if session.user == "scan0":
+                r.executor.inject_device_oom = 1
+            return r
+
+        seen = {q.id for q in srv.manager.queries()}
+        cached0 = len(graphs.cached())
+        caps0 = graphs.snapshot()["captures"]
+        srv.manager._runner_factory = faulting
+        try:
+            out = counted(lambda: _heavy_at_once(url, texts))
+        finally:
+            srv.manager._runner_factory = factory
+        for i, (q, rows, _w) in out.items():
+            if rows != expect[("tpch", q)]:
+                raise AssertionError(f"serve: Q{q} (client {i}) beside an "
+                                     f"OOM retry: rows != (a)")
+        retries = sum(q.runner.executor.device_oom_retries
+                      for q in srv.manager.queries()
+                      if q.id not in seen and q.runner is not None)
+        if retries != 1:
+            raise AssertionError(f"serve: {retries} OOM retries, not 1")
+        log(f"serve: (c) the same round with one injected device OOM: "
+            f"rows == (a); 1 retry; programs cached {cached0} -> "
+            f"{len(graphs.cached())}, captures in the round "
+            f"{graphs.snapshot()['captures'] - caps0}; walls s "
+            f"{[round(out[i][2], 4) for i in sorted(out)]}")
+        srv.stop()
+
+        # ---- (d) a server over the worker fleet
+        name = _catalog(SERVE_SMALL_SF)
+        fleet = PrestoTpuServer(
+            {name: cluster.catalogs[name]}, name, port=0,
+            page_rows=SERVE_PAGE_ROWS, device=dev,
+            worker_uris=[w.uri for w in cluster.workers])
+        servers.append(fleet)
+        url = f"http://127.0.0.1:{fleet.start()}"
+        text = sql("tpch", 3)
+        # the stage DAG's rows come back untyped (decimals and dates as
+        # engine integers), so the direct rows render without types
+        want = [_json_row(r) for r in cluster.local(
+            SERVE_SMALL_SF, SERVE_PAGE_ROWS, {}).execute(text).rows]
+        client = _serve_client(url, name,
+                               {"join_distribution_type": "partitioned"})
+        before = cuda.launches["part_ids"]
+        counted(lambda: _client_run(client, text))
+        walls = []
+        for _ in range(TIMED_RUNS):
+            got, wall, _n = counted(lambda: _client_run(client, text))
+            walls.append(wall)
+            if got.rows != want:
+                raise AssertionError("serve: fleet Q3 rows != direct")
+        k4 = cuda.launches["part_ids"] - before
+        if fleet._dcn.last_distribution != "stage-dag" or k4 <= 0:
+            raise AssertionError(f"serve: fleet Q3: distribution "
+                                 f"{fleet._dcn.last_distribution}, K4 "
+                                 f"launches {k4}")
+        log(f"serve: (d) Q3 SF {SERVE_SMALL_SF:g} over {N_WORKERS} workers, "
+            f"partitioned: {len(want)} rows == direct; K4 launches {k4}; "
+            f"client wall median {statistics.median(walls):.4f} s")
+    finally:
+        for s in servers:
+            s.stop()
+        violations = SAN.violation_count()
+        report = SAN.report()
+        SAN.disarm()
+    if violations:
+        raise AssertionError(f"serve: sanitizer: {report}")
+    for k in SERVE_REQUIRED:
+        if launches[k] <= 0:
+            raise AssertionError(f"serve: kernel {k} never launched")
+    log(f"serve: sanitizer 0 violations; launches "
+        f"{dict(launches)}; phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches[k] for k in KERNEL_NAMES}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -2538,9 +2981,20 @@ def main() -> int:
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f} s")
 
+    walls = {}
+
+    def timed(name, fn, *a):
+        """Run one phase and log its wall."""
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[name] = round(time.perf_counter() - t, 1)
+        log(f"{name}: phase wall {walls[name]} s")
+        return out
+
     gen = torch.Generator().manual_seed(20261016)
     measured = {}
     if "kernels" in phases:
+        t = time.perf_counter()
         k1 = check_segsum(gen, dev)
         measured["segsum"] = k1[8]  # Q1's shape
         dim_t1 = check_probe(gen, dev, 64)  # nation/region: one tile
@@ -2548,49 +3002,55 @@ def main() -> int:
         measured["probe_dim"] = dim_t1
         measured["probe_radix"] = check_probe(gen, dev, 1 << 20)
         measured["part_ids"] = check_part_ids(gen, dev)[1]  # one key
+        walls["kernels"] = round(time.perf_counter() - t, 1)
     cpu_dispatch = {}  # the kernels the CPU runs dispatched, per query
     if "check" in phases:
-        cpu_dispatch.update(phase_check(dev))
+        cpu_dispatch.update(timed("check", phase_check, dev))
     # launches: the sum over the main paths that ran (the single-process
     # scale runs, the distributed runs, the governed and the OOM-ladder
     # runs), each counted from 0
     launches = {k: None for k in KERNEL_NAMES}
     cluster = None
     try:
-        if phases & {"fused", "dist", "surface", "profile", "analyze"}:
+        if phases & {"fused", "dist", "surface", "profile", "analyze",
+                     "serve"}:
             cluster = DistCluster(dev, (0.01, 1.0, 10.0))
         # fused before scale: the scale runs' required kernels come from
         # the check and fused phases' CPU runs
         if "fused" in phases:
-            cpu_dispatch.update(phase_fused(dev, cluster))
+            cpu_dispatch.update(timed("fused", phase_fused, dev, cluster))
         if "scale" in phases:
-            launches = phase_scale(dev, cpu_dispatch)
+            launches = timed("scale", phase_scale, dev, cpu_dispatch)
         if "dist" in phases:
-            dist = phase_dist(dev, cluster)
+            dist = timed("dist", phase_dist, dev, cluster)
             launches = {k: (launches[k] or 0) + dist[k]
                         for k in KERNEL_NAMES}
         if "surface" in phases:
-            sur = phase_surface(dev, cluster)
+            sur = timed("surface", phase_surface, dev, cluster)
             launches = {k: (launches[k] or 0) + sur[k]
                         for k in KERNEL_NAMES}
         if "statements" in phases:
-            st = phase_statements(dev)
+            st = timed("statements", phase_statements, dev)
             launches = {k: (launches[k] or 0) + st[k]
                         for k in KERNEL_NAMES}
         if "governed" in phases:
-            gov = phase_governed(dev)
+            gov = timed("governed", phase_governed, dev)
             launches = {k: (launches[k] or 0) + gov[k]
                         for k in KERNEL_NAMES}
         if "oom" in phases:
-            oom = phase_oom(dev)
+            oom = timed("oom", phase_oom, dev)
             launches = {k: (launches[k] or 0) + oom[k]
                         for k in KERNEL_NAMES}
         if "analyze" in phases:
-            ana = phase_analyze(dev, cluster)
+            ana = timed("analyze", phase_analyze, dev, cluster)
             launches = {k: (launches[k] or 0) + ana[k]
                         for k in KERNEL_NAMES}
+        if "serve" in phases:
+            srv = timed("serve", phase_serve, dev, cluster)
+            launches = {k: (launches[k] or 0) + srv[k]
+                        for k in KERNEL_NAMES}
         if "profile" in phases:
-            phase_profile(dev, cluster)
+            timed("profile", phase_profile, dev, cluster)
     finally:
         if cluster is not None:
             cluster.stop()
@@ -2618,6 +3078,8 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": m.get("library_ms"),
             "call_ms": m.get("call_ms"),
         })
+    log(f"phase walls s: {json.dumps(walls)}; script "
+        f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

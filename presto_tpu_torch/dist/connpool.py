@@ -15,6 +15,11 @@ semantics for dist/dcn.py, dist/spool.py and dist/scheduler.py:
     idle keep-alive socket) retries once on a fresh connection, logged;
     POSTs never ride a reused connection, so a task submit cannot reach
     a worker twice.
+
+Each request served on a reused connection counts into the process
+totals (``pool_totals()``, overlaid on the HTTP server's /metrics) and
+the thread-bound transfer sink's ``exchange_fetch_reused_conns``
+registry counter; each stale-socket retry counts as a failover.
 """
 
 from __future__ import annotations
@@ -26,9 +31,13 @@ import urllib.error
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import urlsplit
 
+from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.obs.sanitizer import make_lock
 
 _LOG = logging.getLogger("presto_tpu_torch.dist.connpool")
+
+# process-lifetime totals (the dist/serde.py _TOTALS pattern)
+_TOTALS = {"exchange_fetch_reused_conns": 0, "exchange_pool_failovers": 0}
 
 # bound the response bytes close() will drain to recycle a connection
 _DRAIN_LIMIT = 1 << 16
@@ -137,12 +146,18 @@ class ConnectionPool:
                 if reused and not fresh:
                     # a stale keep-alive socket, not a peer failure:
                     # retry once fresh without burning a caller retry
+                    _TOTALS["exchange_pool_failovers"] += 1
                     _LOG.warning("pooled connection to %s://%s failed "
                                  "(%s); retrying once on a fresh "
                                  "connection", key[0], key[1], e)
                     reused = False
                     continue
                 raise urllib.error.URLError(e) from e
+        if reused:
+            _TOTALS["exchange_fetch_reused_conns"] += 1
+            count = getattr(XF.current_sink(), "count_reused_conn", None)
+            if count is not None:
+                count()
         if resp.status >= 400:
             try:
                 body = resp.read()
@@ -168,3 +183,9 @@ def request(url: str, *, method: str = "GET",
     """Issue one HTTP request through THE process-shared pool."""
     return _POOL.request(url, method=method, data=data, headers=headers,
                          timeout=timeout)
+
+
+def pool_totals() -> dict:
+    """Process-lifetime reuse and failover totals, for the HTTP
+    server's /metrics overlay."""
+    return dict(_TOTALS)

@@ -23,9 +23,9 @@ under their task) and the coordinator's root fragment.
 
 Failure model: the reference's ``task_retry_attempts=0`` — all
 configured workers, and the first task failure fails the query cleanly
-with DcnQueryFailed, whatever the property says (task replay, the
-heartbeat detector and the legacy agg/union/hash-fanout cuts are not
-ported; ROADMAP queue 1).
+with DcnQueryFailed, whatever the property says (task replay and the
+legacy agg/union/hash-fanout cuts are not ported, and the heartbeat
+detector, server/heartbeat.py, is not consulted; ROADMAP queue 1).
 """
 
 from __future__ import annotations

@@ -32,6 +32,11 @@ A device page's arrays leave the device here (a metered d2h pull
 each, exec/xfer.np_host); a decoded page is a host page (numpy
 arrays), which the consuming executor stages onto its device
 (exec/xfer.to_device).
+
+Wire accounting: serialize_page meters blob bytes (wire) and the array
+bytes behind them (raw) into process totals (``wire_totals()``, which
+the HTTP server's /metrics overlays) and the thread-bound transfer
+sink's registry counters ``exchange_wire_bytes``/``exchange_raw_bytes``.
 """
 
 from __future__ import annotations
@@ -46,6 +51,25 @@ import numpy as np
 from presto_tpu_torch import types as T
 from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.page import Block, Dictionary, Page
+
+# process-lifetime wire totals (the exec/xfer.py process-totals
+# pattern: GIL-atomic int adds, read by the server's /metrics, where
+# the per-query executors of worker task threads never surface)
+_TOTALS = {"exchange_wire_bytes": 0, "exchange_raw_bytes": 0}
+
+
+def wire_totals() -> dict:
+    """Process-lifetime wire byte totals (serialize side)."""
+    return dict(_TOTALS)
+
+
+def _count_wire(wire: int, raw: int) -> None:
+    _TOTALS["exchange_wire_bytes"] += wire
+    _TOTALS["exchange_raw_bytes"] += raw
+    count = getattr(XF.current_sink(), "count_wire", None)
+    if count is not None:
+        count(wire, raw)
+
 
 _MAGIC = b"PTP"
 _VERSION = b"3"
@@ -217,7 +241,13 @@ def serialize_page(page: Page) -> bytes:
         if live < cap:
             header["live"] = live
 
+    raw_bytes = 0
+
     def _enc(a: np.ndarray) -> None:
+        # raw accounting counts the full arrays: the wire/raw ratio is
+        # bytes shipped per byte of page
+        nonlocal raw_bytes
+        raw_bytes += a.nbytes
         _encode_array(a[:live] if live < a.shape[0] else a, payload)
 
     for blk in page.blocks:
@@ -244,9 +274,11 @@ def serialize_page(page: Page) -> bytes:
         chdr = zlib.compress(hdr, _ZLIB_LEVEL)
         if len(chdr) < len(hdr):
             hdr, flags = chdr, _FLAG_HDR_ZLIB
-    return (_MAGIC + _VERSION + bytes([flags])
+    blob = (_MAGIC + _VERSION + bytes([flags])
             + struct.pack("<ii", len(hdr), len(payload))
             + hdr + bytes(payload))
+    _count_wire(len(blob), raw_bytes)
+    return blob
 
 
 # ------------------------------------------------------------ decode

@@ -12,8 +12,8 @@ counter of the executor family is missing here.
 Only the counters the port maintains are declared, each under the
 reference's name and kind. The reference's counters of planes the port
 lacks (result cache, IVM, checkpoints, the mesh exchange, adaptive
-re-planning, the launch batcher, fault-tolerant replay, ...) are listed
-in ROADMAP.md beside the plane that brings each one.
+re-planning, fault-tolerant replay, ...) are listed in ROADMAP.md
+beside the plane that brings each one.
 
 Adding a counter = initialize it to 0 in Executor.__init__, increment
 it, and add one row here.
@@ -44,9 +44,10 @@ QUERY_COUNTERS: Dict[str, tuple] = {
         "gauge", "real (unpadded) splits covered by this attempt's "
         "fused-scan launches — splits_per_launch is the ratio"),
     "split_batch_fallbacks": (
-        "counter", "streams that fell back to the per-split loop "
-        "because the chain did not batch (the port never falls back: "
-        "0)"),
+        "counter", "cross-query batches whose shared launch failed, "
+        "so every participant ran its solo launch (the port's "
+        "split-batched streams never fall back to the per-split "
+        "loop)"),
     "generated_joins_used": (
         "counter", "build-free generated joins taken (lifetime; "
         "EXPLAIN ANALYZE reports the per-query delta)"),
@@ -124,6 +125,39 @@ QUERY_COUNTERS: Dict[str, tuple] = {
     "trace_spans": (
         "gauge", "spans recorded into this query's lifecycle trace "
         "(obs/trace.py; pinned 0 when tracing is off)"),
+    "exchange_wire_bytes": (
+        "counter", "exchange-page bytes actually shipped on the wire "
+        "by dist/serde.serialize_page (post-codec blob size; "
+        "executor lifetime — exchange_raw_bytes / exchange_wire_bytes "
+        "is the wire compression ratio)"),
+    "exchange_raw_bytes": (
+        "counter", "pre-codec array bytes behind the serialized "
+        "exchange pages (what a raw wire would have shipped; "
+        "executor lifetime)"),
+    "exchange_fetch_reused_conns": (
+        "counter", "shuffle-plane HTTP requests served on a reused "
+        "keep-alive connection from dist/connpool.py instead of a "
+        "fresh TCP connect (executor lifetime)"),
+    "listener_errors": (
+        "counter", "EventListener exceptions swallowed by the "
+        "events.dispatch choke point — counted here instead of lost "
+        "silently (executor lifetime)"),
+    "cross_query_batches": (
+        "counter", "shared cross-query device steps dispatched by "
+        "this executor as a gather-group LEADER "
+        "(server/launch_batcher.py; executor lifetime — the leader's "
+        "one launch covers every ganged query)"),
+    "cross_query_batched_queries": (
+        "counter", "launches this executor served FROM a shared "
+        "cross-query batch instead of a solo program (leader and "
+        "follower slots both count; executor lifetime)"),
+    "batch_gather_wait_ms": (
+        "counter", "milliseconds this executor's launches spent in "
+        "the cross-query gather window (bounded by "
+        "cross_query_batch_wait_ms per launch; executor lifetime)"),
+    "queries_per_launch": (
+        "gauge", "widest cross-query batch this executor rode (slots "
+        "per shared launch; 0 = every launch ran solo)"),
 }
 
 # stats-dict entries COMPUTED in execute_with_stats rather than read off

@@ -73,6 +73,7 @@ operator chains.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -435,6 +436,38 @@ class Executor:
         self.h2d_transfers = 0
         self.d2h_transfers = 0
         self.transfer_wall_s = 0.0
+        # listener_errors: EventListener exceptions swallowed by
+        # events.dispatch, counted through count_listener_error
+        # (executor lifetime)
+        self.listener_errors = 0
+        # the exchange wire plane (dist/serde.py, dist/connpool.py),
+        # metered through the thread-bound transfer sink:
+        # exchange_wire_bytes = post-codec blob bytes serialize_page
+        # shipped, exchange_raw_bytes = the array bytes behind them,
+        # exchange_fetch_reused_conns = requests served on a reused
+        # keep-alive connection (executor lifetime)
+        self.exchange_wire_bytes = 0
+        self.exchange_raw_bytes = 0
+        self.exchange_fetch_reused_conns = 0
+        # cross-query launch batching (server/launch_batcher.py): the
+        # concurrent server attaches ONE process-shared LaunchBatcher
+        # to every per-query executor, and a single-split fused launch
+        # offers itself to it; compatible launches of other queries
+        # gang into one batched program with a per-slot output.
+        # cross_query_batching is the tri-state session knob ("auto" =
+        # on whenever a batcher is attached); wait_ms bounds the gather
+        # window. cross_query_batches = shared launches this executor
+        # made as leader; cross_query_batched_queries = launches it
+        # served from a shared batch (leader or follower);
+        # batch_gather_wait_ms = summed window wait; queries_per_launch
+        # = widest batch ridden (per attempt)
+        self.launch_batcher = None
+        self.cross_query_batching = "auto"
+        self.cross_query_batch_wait_ms = 25
+        self.cross_query_batches = 0
+        self.cross_query_batched_queries = 0
+        self.batch_gather_wait_ms = 0
+        self.queries_per_launch = 0
         # counter baselines of the query in flight (_begin_query)
         self._joins_counter_base = (0, 0)
         self._graph_base = graphs.snapshot()
@@ -826,6 +859,22 @@ class Executor:
             self.d2h_bytes += nbytes
         self.transfer_wall_s += wall_s
 
+    def count_wire(self, wire: int, raw: int) -> None:
+        """The sink dist/serde.serialize_page meters exchange wire bytes
+        to while this executor is the thread-bound sink."""
+        self.exchange_wire_bytes += wire
+        self.exchange_raw_bytes += raw
+
+    def count_reused_conn(self) -> None:
+        """The sink dist/connpool.py meters one request served on a
+        reused keep-alive connection to."""
+        self.exchange_fetch_reused_conns += 1
+
+    def count_listener_error(self) -> None:
+        """The sink events.dispatch reports a swallowed listener
+        exception to (the ``listener_errors`` registry counter)."""
+        self.listener_errors += 1
+
     def _reset_transfer_gauges(self) -> None:
         self.h2d_bytes = 0
         self.d2h_bytes = 0
@@ -939,6 +988,7 @@ class Executor:
         self.fused_partial_aggs = 0
         self.program_launches = 0
         self.splits_scanned = 0
+        self.queries_per_launch = 0
         self.memory_chunked_pipelines = 0
 
     def stream_fragment(self, node: P.PhysicalNode, emit,
@@ -1241,9 +1291,12 @@ class Executor:
         inside the program and folds their states, as the reference's
         lax.scan does. Tail batches pad with zero row counts.
 
+        A single-split launch offers itself to the concurrent server's
+        cross-query LaunchBatcher first (server/launch_batcher.py).
+
         Reference: presto_tpu/exec/executor.py _fused_stream (without
-        its cross-query LaunchBatcher branch and result-cache points,
-        which are not ported); operator/ScanFilterAndProjectOperator.java
+        its result-cache points, which are not ported);
+        operator/ScanFilterAndProjectOperator.java
         fuses scan, filter and project for the same reason."""
         if not self.offload:
             return None
@@ -1342,16 +1395,106 @@ class Executor:
                     build, batch, self.device)
             return programs[key]
 
+        # cross-query launch batching: with a LaunchBatcher attached
+        # (the concurrent server) and the session not forcing it off, a
+        # single-split launch first offers itself to the shared batch
+        # point, where compatible launches of OTHER queries (equal plan
+        # nodes hash equal, so one statement from many clients shares a
+        # key) gang into one batched program
+        xq_on = (self.launch_batcher is not None
+                 and self.cross_query_batching != "false")
+
+        def xq_key(n_pad):
+            return ("xq", node, key_extra, cur.table, n_pad, self.device,
+                    self.kernels, self._generators(node))
+
+        def build_xq(n_pad, width):
+            # the shared batched program: the slots generate flat (slot b
+            # at rows [b * n_pad, (b + 1) * n_pad)), then the chain runs
+            # per slot and the program returns one (page, flags) per
+            # slot, so each query gets exactly the page its solo launch
+            # makes
+            def build():
+                gen_b = conn.gen_batch(cur.table, n_pad, names)
+
+                def run_xq(starts, counts):
+                    datas, valid = gen_b(starts)
+                    outs = []
+                    for b in range(width):
+                        rows = slice(b * n_pad, (b + 1) * n_pad)
+                        outs.append(apply_steps(make_page(
+                            tuple(d[rows] for d in datas), valid[rows],
+                            n_pad, counts[b:b + 1]), steps))
+                    return tuple(outs)
+
+                return run_xq
+
+            return build
+
+        def launch_xq(split):
+            """Offer one split to the cross-query batch point; the page,
+            or None when this query's solo launch should run (a lone
+            leader, an oversized bucket, or a failed shared launch)."""
+            n_pad = SH.bucket(split.row_count)
+            cap = min(SH.SPLIT_BATCH_MAX,
+                      SH.SPLIT_BATCH_ROWS_MAX // max(n_pad, 1))
+            if cap < 2:
+                return None
+
+            def make_batched(entries):
+                # keyed by the exact width (the batcher quantizes it down
+                # its DISPATCH_WIDTHS ladder), so no lane is dead work
+                width = len(entries)
+                try:
+                    out = program("xq_batch", n_pad, width,
+                                  build_xq(n_pad, width))(
+                        [e[0] for e in entries], [e[1] for e in entries])
+                except Exception:
+                    # every participant runs its solo launch instead
+                    self.split_batch_fallbacks += 1
+                    raise
+                return list(out)
+
+            res = self.launch_batcher.submit(
+                xq_key(n_pad), split.start_row, split.row_count, cap,
+                self.cross_query_batch_wait_ms, make_batched)
+            if res is None:
+                return None
+            page, flags, width, waited_ms, leader = res
+            if leader:
+                # one launch covers every ganged query: only the leader
+                # counts it, so summed program_launches are real launches
+                self.program_launches += 1
+                self.cross_query_batches += 1
+            self.cross_query_batched_queries += 1
+            self.queries_per_launch = max(self.queries_per_launch, width)
+            self.batch_gather_wait_ms += int(waited_ms)
+            self.splits_scanned += 1
+            # this query's slot of the batched generation
+            self.peak_memory_bytes = max(self.peak_memory_bytes,
+                                         n_pad * chain_row_b)
+            self._pending_overflow.extend(flags)
+            return page
+
         def launch_one(split):
             n_pad = SH.bucket(split.row_count)
+            solo = contextlib.nullcontext()
+            if xq_on:
+                page = launch_xq(split)
+                if page is not None:
+                    return page
+                # a solo launch still seeds the train: same-key arrivals
+                # linger behind it as behind a batched step
+                solo = self.launch_batcher.solo_inflight(xq_key(n_pad))
 
             def build():
                 gen_fn = conn.gen_body(cur.table, n_pad, names)
                 return lambda starts, counts: run_split(
                     gen_fn, n_pad, starts[0], counts[:1], steps)
 
-            page, flags = program("fused", n_pad, 1, build)(
-                [split.start_row], [split.row_count])
+            with solo:
+                page, flags = program("fused", n_pad, 1, build)(
+                    [split.start_row], [split.row_count])
             # the generation buffer lives inside the program and never
             # passes _account_page: account it here
             self.peak_memory_bytes = max(self.peak_memory_bytes,

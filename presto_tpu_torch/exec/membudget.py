@@ -82,6 +82,21 @@ def resolve_budget(setting: int, device="cpu") -> int:
     return hbm - hbm // HEADROOM_DIV
 
 
+def group_share_bytes(share: float, setting: int = 0,
+                      device="cpu") -> int:
+    """A resource group's fractional ``memory_share``
+    (server/resource_groups.py) as the device_memory_budget of ONE
+    admitted query: the share of the resolved whole-device budget,
+    floored at 16 MiB so a tiny share still leaves the governor a
+    workable chunk size (it rewrites pipelines to fit rather than
+    failing them). 0 when no share is configured — the session or
+    default budget applies unchanged."""
+    if share <= 0:
+        return 0
+    total = resolve_budget(setting, device)
+    return max(int(total * share), 1 << 24)
+
+
 def rows_cap(row_bytes: int, budget: int,
              share_div: int) -> Optional[int]:
     """Largest governed buffer capacity (in rows, on the ladder) for a

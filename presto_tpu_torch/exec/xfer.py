@@ -108,6 +108,10 @@ TRANSFER_REGISTRY: Dict[str, Tuple[str, str, str]] = {
     "connectors.memory._columns_of_pages": (
         "d2h", "data",
         "table writes read each result page's validity mask"),
+    "connectors.blackhole.BlackholeConnector._count": (
+        "d2h", "data",
+        "a write into the blackhole reads each result page's validity "
+        "mask to acknowledge its row count"),
     # ---- executor data plane
     "exec.executor.Executor._pages_impl": (
         "h2d", "data",
@@ -201,6 +205,7 @@ TRANSFER_REGISTRY: Dict[str, Tuple[str, str, str]] = {
 # primitives here must route through the choke points above.
 DATA_PLANE_MODULES = frozenset({
     "page",
+    "connectors.blackhole",
     "connectors.memory",
     "exec.executor",
     "exec.graphs",

@@ -68,6 +68,9 @@ LOCK_REGISTRY: Dict[str, str] = {
         "the per-dictionary host-result cache of the string functions",
     "expr.functions_more._pair_lock":
         "the pair-universe cache of two-dictionary functions",
+    "obs.histo.Histogram._lock":
+        "one latency histogram's buckets (completion paths observe, "
+        "/metrics scrapes)",
     "obs.profile.ProfileStore._instances_lock":
         "the per-directory ProfileStore instance map (class-level)",
     "obs.profile.ProfileStore._lock":
@@ -77,6 +80,23 @@ LOCK_REGISTRY: Dict[str, str] = {
         "root fragment's executor record concurrently)",
     "ops.consts._lock":
         "the staged host-constant cache (one device tensor per content)",
+    "server.heartbeat.HeartbeatFailureDetector._lock":
+        "the peer health map (the ping loop vs /v1/node readers)",
+    "server.http_server.MemoryArbiter._cv":
+        "the arbiter's reserved bytes and active count (every admitted "
+        "query's thread; fronted by a Condition)",
+    "server.http_server.QueryManager._exec_lock":
+        "the serial path: one query on the bootstrap runner at a time",
+    "server.http_server.QueryManager._lock":
+        "the query registry and the /metrics tallies (HTTP handler "
+        "threads vs query threads)",
+    "server.launch_batcher.LaunchBatcher._cv":
+        "the pending gather groups and per-key in-flight counts of the "
+        "cross-query batch point (fronted by a Condition; the shared "
+        "launch runs OUTSIDE it)",
+    "server.resource_groups.ResourceGroupManager._lock":
+        "the per-group running/queued/memory tallies and the fair-"
+        "scheduling waiter line (fronted by a Condition)",
     "server.worker._runtimes_lock":
         "the same-process placement registry (uri -> TaskRuntime) the "
         "mesh-local exchange fast path reads",
@@ -88,6 +108,12 @@ LOCK_REGISTRY: Dict[str, str] = {
 }
 
 THREAD_REGISTRY: Dict[str, str] = {
+    "server.heartbeat:self._loop":
+        "the heartbeat detector's ping loop",
+    "server.http_server:self._run":
+        "one thread per submitted statement: admission, then execution",
+    "server.http_server:self._httpd.serve_forever":
+        "the coordinator's HTTP accept loop",
     "server.worker:self._run_task":
         "one thread per task: fragment execution into the spool",
     "server.worker:self._httpd.serve_forever":

@@ -47,7 +47,10 @@ honours:
   - ``late_materialization_enabled`` ("auto" = on a CUDA device);
   - the guard and stats planes: ``plan_check`` (the pre-launch plan
     verifier), ``query_trace_enabled``/``query_trace_dir`` and
-    ``stats_profile_dir`` (the observed-stats profile store).
+    ``stats_profile_dir`` (the observed-stats profile store);
+  - the HTTP server's: ``cross_query_batching`` and
+    ``cross_query_batch_wait_ms`` (the executor's launch batcher), and
+    ``estimate_memory``, which sizes the memory arbiter's admission.
 
 Reference: presto-main testing/LocalQueryRunner.java.
 """
@@ -62,7 +65,7 @@ import torch
 
 from presto_tpu_torch import obs as OBS
 from presto_tpu_torch.exec import plan as P
-from presto_tpu_torch.exec.executor import Executor
+from presto_tpu_torch.exec.executor import Executor, _row_bytes
 from presto_tpu_torch.exec.prune import prune_plan
 from presto_tpu_torch.exec.pushdown import push_scan_constraints
 from presto_tpu_torch.session import Session
@@ -85,10 +88,13 @@ class LocalRunner:
 
     def __init__(self, catalogs: Dict, default_catalog: str = "tpch",
                  session: Optional[Dict[str, object]] = None,
-                 device=None):
+                 device=None, page_rows: Optional[int] = None):
         self.catalogs = dict(catalogs)
         self.default_catalog = default_catalog
         self.session = Session(default_catalog, session)
+        # the constructor's page_rows (the server's) applies unless the
+        # session sets the property; None = the property's default
+        self._ctor_page_rows = page_rows
         self.executor = Executor(self.catalogs, device=device)
         # (catalog, name) -> view SQL text, expanded at analysis
         self.views: Dict[tuple, str] = {}
@@ -103,7 +109,12 @@ class LocalRunner:
         """Push the session's executor knobs onto the executor; anchors
         the query deadline (query_max_run_time) at the call."""
         s, ex = self.session, self.executor
-        ex.page_rows = int(s.get("page_rows"))
+        # an EXPLICIT session page_rows wins over the constructor's (the
+        # server re-sessions one runner per query, and a previous
+        # session's override must not leak)
+        ex.page_rows = int(s.get("page_rows")) if (
+            s.is_set("page_rows") or self._ctor_page_rows is None
+        ) else self._ctor_page_rows
         ex.collect_k = int(s.get("array_agg_max_elements"))
         ex.kernels = s.get("pallas_join_enabled") == "true"
         ex.device_exchange = s.get("device_exchange_enabled")
@@ -135,6 +146,12 @@ class LocalRunner:
         # pre-launch plan verification (exec/plan_check.py): "auto"
         # resolves inside the executor (on under pytest)
         ex.plan_check = s.get("plan_check")
+        # cross-query launch batching: "auto" engages whenever the
+        # concurrent server attached a LaunchBatcher, so raw runners
+        # and the serial server path launch solo with no check
+        ex.cross_query_batching = s.get("cross_query_batching")
+        ex.cross_query_batch_wait_ms = int(
+            s.get("cross_query_batch_wait_ms"))
         # observed-stats profile store (obs/profile.py): repeated
         # queries seed their starting capacity bucket from persisted
         # profiles instead of climbing the overflow-retry ladder
@@ -161,6 +178,40 @@ class LocalRunner:
         return {"broadcast_rows": rows,
                 "gather_capacity": int(self.session.get(
                     "agg_gather_capacity"))}
+
+    def estimate_memory(self, sql: str) -> int:
+        """Peak device-memory estimate for the server's admission
+        (reference: the coordinator-side accounting ClusterMemoryManager
+        consults): join builds, aggregation states and sort/window
+        buffers plus one streamed page per scan. A statement that does
+        not plan as a query (DDL, SET, ...) gets a 16 MiB floor."""
+        floor = 1 << 24
+        try:
+            plan = self.plan(sql)
+        except Exception:  # noqa: BLE001 - not a query: the floor
+            return floor
+        ex = self.executor
+        total = 0
+
+        def walk(n):
+            nonlocal total
+            if isinstance(n, P.HashJoin):
+                total += ex.estimate_rows(n.right) * _row_bytes(
+                    ex.output_types(n.right))
+            if isinstance(n, P.Aggregation) and n.group_channels:
+                total += min(ex.estimate_rows(n), n.capacity) * \
+                    _row_bytes(ex.output_types(n))
+            if isinstance(n, (P.Sort, P.Window, P.MarkDistinct)):
+                total += ex.estimate_rows(n) * _row_bytes(
+                    ex.output_types(n))
+            if isinstance(n, P.TableScan):
+                total += min(ex.estimate_rows(n), ex.page_rows) * \
+                    _row_bytes(ex.output_types(n))
+            for c in n.children():
+                walk(c)
+
+        walk(plan)
+        return max(total, floor)
 
     def _planner(self) -> Planner:
         def scalar_exec(node):

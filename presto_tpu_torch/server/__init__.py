@@ -1,1 +1,6 @@
-"""The worker task runtime (port of presto_tpu/server/worker.py)."""
+"""The coordinator HTTP server and the worker task runtime (ports of
+presto_tpu/server/)."""
+
+from presto_tpu_torch.server.http_server import PrestoTpuServer
+
+__all__ = ["PrestoTpuServer"]

@@ -2,9 +2,10 @@
 
 Port of presto_tpu/session.py (reference: presto-main
 SystemSessionProperties.java + Session.java) for the properties the
-port reads: the single-process runner's and the stage-DAG distributed
-path's. Names, types and validators are the reference's; defaults are
-the reference's except where the port runs a different mode by design:
+port reads: the single-process runner's, the stage-DAG distributed
+path's and the HTTP server's. Names, types and validators are the
+reference's; defaults are the reference's except where the port runs a
+different mode by design:
 
   - ``pallas_join_enabled`` defaults to "true" (the reference's forced
     mode): the CUDA kernels engage on the card and their plain twins on
@@ -354,6 +355,37 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             bool, False,
         ),
         PropertyMetadata(
+            "cross_query_batching",
+            "gang compatible fused-pipeline launches from CONCURRENT "
+            "queries into one shared batched program with in-program "
+            "per-query demux (server/launch_batcher.py; a captured "
+            "CUDA graph on the card). auto = on under the concurrent "
+            "server path only (raw Executors and the serial path "
+            "never batch); false forces solo launches. Counters: "
+            "cross_query_batches / cross_query_batched_queries / "
+            "batch_gather_wait_ms / queries_per_launch",
+            str, "auto",
+            validate=lambda v: v in ("auto", "true", "false"),
+        ),
+        PropertyMetadata(
+            "cross_query_batch_wait_ms",
+            "bounded gather window in milliseconds for cross-query "
+            "launch batching: the first compatible launch (the group "
+            "leader) waits at most this long for peers before "
+            "dispatching (extended while a same-key step is already "
+            "executing — continuous batching), so a lone query never "
+            "stalls past the window; the window is only ever paid "
+            "when >= 2 queries are running server-wide; 0 batches "
+            "only launches already pending at submit time",
+            int, 25,
+        ),
+        PropertyMetadata(
+            "stream_tail_enabled",
+            "turn a /v1/statement query over an append-only stream "
+            "into a never-finishing tailing cursor; not ported (false)",
+            bool, False,
+        ),
+        PropertyMetadata(
             "checkpoint_dir",
             "coordinator query-state journal directory; not ported "
             "(empty = off)",
@@ -381,6 +413,10 @@ _NOT_PORTED = {
         lambda v: v is True,
         "result_cache_remote_probe: the fleet cache probe is not "
         "ported (ROADMAP queue 1)"),
+    "stream_tail_enabled": (
+        lambda v: v is True,
+        "stream_tail_enabled: the tailing cursor and IVM are not ported "
+        "(ROADMAP queue 5)"),
     "checkpoint_dir": (
         lambda v: v != "",
         "checkpoint_dir: coordinator checkpointing is not ported "
@@ -402,9 +438,10 @@ class Session:
 
     def __init__(self, catalog: Optional[str] = None,
                  properties: Optional[Dict[str, Any]] = None,
-                 user: str = "presto"):
+                 user: str = "presto", schema: str = "default"):
         self.user = user
         self.catalog = catalog
+        self.schema = schema
         self._values: Dict[str, Any] = {}
         for k, v in (properties or {}).items():
             self.set(k, v)
