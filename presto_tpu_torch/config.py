@@ -153,6 +153,7 @@ ETC_SESSION_KEYS: Dict[str, str] = {
     "query.max-run-time-ms": "query_max_run_time",
     "join-skew.rebalance": "join_skew_rebalance",
     "adaptive-execution": "adaptive_execution",
+    "adaptive.max-replans": "adaptive_max_replans",
     "stage-scheduler": "stage_scheduler",
     "speculation.enabled": "speculation_enabled",
     "spool-exchange.bytes": "spool_exchange_bytes",

@@ -17,7 +17,7 @@ Distributions (PartitioningHandle analogs):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from presto_tpu_torch import types as T
 from presto_tpu_torch.exec import plan as P
@@ -80,12 +80,28 @@ def add_exchanges(
     *,
     broadcast_rows: int = BROADCAST_ROWS,
     gather_capacity: int = GATHER_CAPACITY,
+    broadcast_bytes: Optional[int] = None,
+    row_bytes_of: Optional[Callable[[P.PhysicalNode], int]] = None,
 ) -> Tuple[P.PhysicalNode, str]:
     """Rewrite a single-stream physical plan into a distributed one.
-    Returns (plan', distribution of its output). A build side
-    replicates when its estimated rows fit ``broadcast_rows`` (the
-    reference's row-count rule; its stats-driven byte share needs the
-    memory governor, which is not ported)."""
+    Returns (plan', distribution of its output).
+
+    Broadcast-vs-partitioned: with ``broadcast_bytes`` and
+    ``row_bytes_of`` (the runner wires them from the connectors' row
+    counts and the memory governor's per-device share), a build side
+    replicates only when its estimated bytes fit that share and its
+    rows stay under the per-buffer ceiling; otherwise when its
+    estimated rows fit ``broadcast_rows`` (the reference's row-count
+    fallback)."""
+
+    def build_broadcasts(n_right) -> bool:
+        rows = est_rows(n_right, catalogs)
+        if broadcast_bytes is not None and row_bytes_of is not None:
+            from presto_tpu_torch.exec import shapes as SH
+
+            return (rows <= SH.SAFE_BUFFER_ROWS
+                    and rows * row_bytes_of(n_right) <= broadcast_bytes)
+        return rows <= broadcast_rows
 
     def rewrite(n) -> Tuple[P.PhysicalNode, str]:
         if isinstance(n, P.TableScan):
@@ -135,7 +151,7 @@ def add_exchanges(
                 return dataclasses.replace(
                     n, left=left, right=right), REPLICATED
             if dr == SHARDED:
-                if est_rows(n.right, catalogs) <= broadcast_rows:
+                if build_broadcasts(n.right):
                     right = P.Exchange(source=right, kind="broadcast")
                     dr = REPLICATED
                 elif dl == REPLICATED:
@@ -187,7 +203,10 @@ class Fragment:
     output_kind: "gather"/"broadcast" consumers read every producer
         task's whole spool; "repartition" producers spool P hash
         partitions and consumer task t reads partition t of every
-        producer task.
+        producer task; "passthrough" (written only by adaptive/, the
+        degrade of a repartition producer under a broadcast-flipped
+        join) spools ONE partition per task and consumer task t reads
+        producer task t's whole spool.
     output_keys: partition channels for a repartition edge.
     sharded: run one task per pooled worker (leaf scans split
         round-robin on split_table; repartition consumers read their
@@ -208,17 +227,39 @@ class Fragment:
 @dataclasses.dataclass
 class StageDag:
     """Topologically ordered fragments plus the coordinator-side root
-    plan (RemoteSource leaves referencing the final fragments)."""
+    plan (RemoteSource leaves referencing the final fragments).
+
+    Two fields start empty and are written only by adaptive/ between
+    stage dispatches:
+
+    reads: (consumer_fid, producer_fid) -> "broadcast" overrides how a
+        consumer ingests an edge whose producer already spooled: a
+        repartition spool read broadcast-style drains every partition
+        of every producer task (their union is the full output). -1 as
+        consumer_fid addresses the coordinator's root fragment.
+    hints: fid -> payload hints for not-yet-dispatched fragments
+        ({"skew": True} starts the consumer's joins in the
+        position-chunked rebalance).
+    """
 
     fragments: List[Fragment]
     root: P.PhysicalNode
     root_inputs: Tuple[int, ...]
+    reads: Dict[Tuple[int, int], str] = dataclasses.field(
+        default_factory=dict)
+    hints: Dict[int, Dict] = dataclasses.field(default_factory=dict)
 
     def fragment(self, fid: int) -> Fragment:
         return self.fragments[fid]
 
     def consumers(self, fid: int) -> List[int]:
         return [f.fid for f in self.fragments if fid in f.inputs]
+
+    def read_kind(self, consumer_fid: int, producer_fid: int) -> str:
+        """Effective ingest mode of one edge: the producer's spooled
+        output_kind unless an adaptive read override redirects it."""
+        override = self.reads.get((consumer_fid, producer_fid))
+        return override or self.fragments[producer_fid].output_kind
 
 
 def stage_key(fid: int) -> str:
@@ -323,6 +364,8 @@ def fragment_dag(
     *,
     broadcast_rows: int = BROADCAST_ROWS,
     gather_capacity: int = GATHER_CAPACITY,
+    broadcast_bytes: Optional[int] = None,
+    row_bytes_of: Optional[Callable[[P.PhysicalNode], int]] = None,
 ) -> Optional[StageDag]:
     """Cut ANY single-stream physical plan into a stage DAG.
 
@@ -336,7 +379,9 @@ def fragment_dag(
 
     exd, _dist = add_exchanges(plan, catalogs,
                                broadcast_rows=broadcast_rows,
-                               gather_capacity=gather_capacity)
+                               gather_capacity=gather_capacity,
+                               broadcast_bytes=broadcast_bytes,
+                               row_bytes_of=row_bytes_of)
     if not _dag_safe(exd):
         return None
     frags: List[Fragment] = []

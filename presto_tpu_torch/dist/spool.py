@@ -383,14 +383,21 @@ def iter_response_frames(r) -> Iterator[bytes]:
 
 def fetch_spool_blobs(uri: str, task_id: str, part: int, *,
                       retries: int = 3, backoff_s: float = 0.1,
-                      deadline: Optional[float] = None) -> Iterator[bytes]:
+                      deadline: Optional[float] = None,
+                      decode=None) -> Iterator:
     """Token-acked streaming fetch of one spool partition
     (at-least-once + dedupe-by-token, the HttpPageBufferClient protocol
     with the partition dimension added). The token advances one per
     yielded frame, so a mid-stream transport failure resumes at the
-    first unconsumed page. Raises SourceTaskFailed on X-Task-Error or a
-    released partition, SourceLost after bounded transport retries."""
+    first unconsumed page. With ``decode`` each frame is yielded as
+    ``decode(frame)``, and a frame it rejects as corrupt
+    (serde.PageWireError) is fetched again at the same token, as the
+    coordinator's root fetch does; past the retries the PageWireError
+    fails the consuming task. Raises SourceTaskFailed on X-Task-Error
+    or a released partition, SourceLost after bounded transport
+    retries."""
     from presto_tpu_torch.dist import connpool as CONNPOOL
+    from presto_tpu_torch.dist.serde import PageWireError
 
     token = 0
     while True:
@@ -407,9 +414,15 @@ def fetch_spool_blobs(uri: str, task_id: str, part: int, *,
                             return
                         break  # long-poll timeout; re-ask same token
                     for body in iter_response_frames(r):
+                        item = body if decode is None else decode(body)
                         token += 1
-                        yield body
+                        yield item
                     break
+            except PageWireError:
+                attempt += 1
+                if attempt > retries:
+                    raise
+                time.sleep(backoff_s * attempt)
             except urllib.error.HTTPError as e:
                 if e.headers.get("X-Task-Error"):
                     try:
@@ -499,22 +512,30 @@ def iter_source_pages(spec: dict, *, retries: int = 3,
                       deadline: Optional[float] = None, on_local=None):
     """Worker-side exchange ingest: the pages of one RemoteSource edge
     — partition `spec['partition']` of every producer task, in payload
-    order (deterministic). Same-process producers serve their spooled
-    Pages directly (`on_local` fires once per such producer task)."""
+    order (deterministic, so a replayed consumer regenerates the same
+    stream from the same spools). Same-process producers serve their
+    spooled Pages directly (`on_local` fires once per such read).
+
+    An adaptive BROADCAST READ of a repartitioned spool passes
+    ``spec['partitions']``, an explicit list: every listed partition of
+    every producer task is drained (their union is the producer's whole
+    output, the rows a broadcast spool would have held)."""
     from presto_tpu_torch.dist import serde
 
-    part = int(spec.get("partition", 0))
+    parts = [int(p) for p in (spec.get("partitions")
+                              or (spec.get("partition", 0),))]
     for t in spec["tasks"]:
-        pages = local_source_pages(t["uri"], t["taskId"], part)
-        if pages is not None:
-            if on_local is not None:
-                on_local()
-            yield from pages
-            continue
-        for blob in fetch_spool_blobs(t["uri"], t["taskId"], part,
-                                      retries=retries, backoff_s=backoff_s,
-                                      deadline=deadline):
-            yield serde.deserialize_page(blob)
+        for part in parts:
+            pages = local_source_pages(t["uri"], t["taskId"], part)
+            if pages is not None:
+                if on_local is not None:
+                    on_local()
+                yield from pages
+                continue
+            yield from fetch_spool_blobs(
+                t["uri"], t["taskId"], part, retries=retries,
+                backoff_s=backoff_s, deadline=deadline,
+                decode=serde.deserialize_page)
 
 
 def ack_spool(uri: str, task_id: str, part: int,

@@ -11,9 +11,8 @@ counter of the executor family is missing here.
 
 Only the counters the port maintains are declared, each under the
 reference's name and kind. The reference's counters of planes the port
-lacks (result cache, IVM, checkpoints, the mesh exchange, adaptive
-re-planning, fault-tolerant replay, ...) are listed in ROADMAP.md
-beside the plane that brings each one.
+lacks (result cache, IVM, checkpoints, the mesh exchange, ...) are
+listed in ROADMAP.md beside the plane that brings each one.
 
 Adding a counter = initialize it to 0 in Executor.__init__, increment
 it, and add one row here.
@@ -85,6 +84,12 @@ QUERY_COUNTERS: Dict[str, tuple] = {
     "device_oom_retries": (
         "gauge", "device-OOM re-entries this query, each under a "
         "halved device-memory budget"),
+    "task_retries": (
+        "counter", "DCN fragments re-dispatched to a surviving worker "
+        "(coordinator lifetime)"),
+    "workers_excluded": (
+        "counter", "DCN nodes dropped from the dispatch pool after a "
+        "mid-query failure (coordinator lifetime)"),
     "release_skips": (
         "counter", "worker page-buffer DELETE releases skipped because "
         "the worker was unreachable (dead-worker cleanup, counted not "
@@ -96,6 +101,17 @@ QUERY_COUNTERS: Dict[str, tuple] = {
     "spooled_exchange_pages": (
         "counter", "pages published into worker-side spooled-exchange "
         "partitions (coordinator lifetime)"),
+    "nonleaf_replays": (
+        "counter", "lost NON-LEAF stage-DAG tasks re-dispatched to "
+        "replay from spooled upstream pages instead of failing the "
+        "query (coordinator lifetime)"),
+    "speculative_tasks_won": (
+        "counter", "straggler speculation races where the "
+        "re-dispatched copy finished first and became the task's "
+        "placement"),
+    "speculative_tasks_lost": (
+        "counter", "straggler speculation races the original "
+        "placement won (the speculated copy was cancelled)"),
     "capacity_boost_retries": (
         "gauge", "overflow-ladder boosted re-entries this query "
         "(0 on a profile-seeded repeat run — the observed-stats "
@@ -122,6 +138,31 @@ QUERY_COUNTERS: Dict[str, tuple] = {
         "edges served Pages directly between same-process placements "
         "(dist/spool.local_source_pages — no HTTP, no serde; executor "
         "lifetime)"),
+    "adaptive_replans": (
+        "counter", "stage-boundary re-plans applied by the adaptive "
+        "executor (adaptive/): the not-yet-dispatched suffix of a "
+        "stage DAG was re-optimized from exact spool stats and "
+        "re-verified before dispatch (coordinator lifetime)"),
+    "adaptive_dist_flips": (
+        "counter", "join distributions flipped at runtime by the "
+        "adaptive re-planner (partitioned -> broadcast reads of a "
+        "small observed build, repartition producers degraded to "
+        "passthrough, build re-orders)"),
+    "adaptive_capacity_seeds": (
+        "counter", "downstream fragment capacities re-bucketed onto "
+        "the shapes.py ladder from observed exchange cardinality "
+        "(aggregation capacities, RemoteSource est_rows stamps)"),
+    "adaptive_replan_rejected": (
+        "counter", "adaptive re-plans DISCARDED because the mutated "
+        "DAG failed plan_check.verify_dag (or the per-query "
+        "adaptive_max_replans bound was hit): the static plan runs, "
+        "counted loudly"),
+    "skew_preempted": (
+        "counter", "grace-join passes that started in the skew-"
+        "rebalanced position chunking on their FIRST attempt because "
+        "the adaptive re-planner saw a hot partition in the upstream "
+        "spool histogram (worker counts mirror onto the "
+        "coordinator)"),
     "trace_spans": (
         "gauge", "spans recorded into this query's lifecycle trace "
         "(obs/trace.py; pinned 0 when tracing is off)"),

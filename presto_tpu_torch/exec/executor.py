@@ -345,6 +345,19 @@ class Executor:
         self.mesh_local_exchanges = 0
         self.stages_scheduled = 0
         self.release_skips = 0
+        # fault-tolerant stage scheduling (dist/dcn.py,
+        # dist/scheduler.py; the coordinator's, lifetime counters)
+        self.task_retries = 0
+        self.workers_excluded = 0
+        self.nonleaf_replays = 0
+        self.speculative_tasks_won = 0
+        self.speculative_tasks_lost = 0
+        # adaptive re-planning at stage boundaries (adaptive/; the
+        # coordinator's)
+        self.adaptive_replans = 0
+        self.adaptive_dist_flips = 0
+        self.adaptive_capacity_seeds = 0
+        self.adaptive_replan_rejected = 0
         # ---- memory governor, spill and the device-OOM ladder (the
         # reference's session properties of the same names; runner.
         # apply_session wires them). Page footprints are computed from
@@ -374,6 +387,11 @@ class Executor:
         # partition)
         self.join_skew_rebalance = True
         self.skew_chunks_used = 0
+        # the re-planner's skew hint (a worker task's payload): inner
+        # grace joins start in the rebalance on the FIRST attempt, each
+        # such engagement counted on skew_preempted
+        self.skew_preengaged = False
+        self.skew_preempted = 0
         # device-memory budget in bytes (0 = auto, exec/membudget.py);
         # memory_chunked_pipelines: governed rewrites this attempt
         self.device_memory_budget = 0
@@ -2227,8 +2245,14 @@ class Executor:
         pfilter = self._partition_filter(node.left_keys, parts)
         right_stream = self._source_stream(node.right)
         left_stream = self._source_stream(node.left)
-        rebalance = (self.join_skew_rebalance and self._capacity_boost > 1
+        rebalance = (self.join_skew_rebalance
+                     and (self._capacity_boost > 1 or self.skew_preengaged)
                      and node.join_type == "inner")
+        if rebalance and self._capacity_boost == 1:
+            # adaptive pre-engagement: the upstream spool histogram
+            # showed a hot partition, so the rebalanced chunking starts
+            # now instead of being discovered by an overflow
+            self.skew_preempted += 1
         for p in range(parts):
             if rebalance:
                 yield from self._join_partition_rebalanced(

@@ -18,9 +18,8 @@ QueryMonitor building EventListener payloads):
 SPAN_KINDS is the span analog of exec/counters.QUERY_COUNTERS: every
 span kind the port emits is declared here, and
 tests/test_torch_obs.py fails when an emission site uses an undeclared
-kind or a declared kind has no emission site. The reference's retry,
-speculate, replan, cache and checkpoint kinds wait for the planes that
-emit them (ROADMAP).
+kind or a declared kind has no emission site. The reference's cache
+and checkpoint kinds wait for the planes that emit them (ROADMAP).
 
 Tracing stays off the device path: spans are recorded at page, attempt
 and stage boundaries by host control code only, never inside a captured
@@ -53,6 +52,14 @@ SPAN_KINDS: Dict[str, str] = {
     "queue": "worker-side: task created -> fragment execution started",
     "run": "worker-side: fragment execution (attrs: pages, spooled)",
     "fetch": "coordinator-side page drain of one task's results",
+    "retry": "one task re-dispatch (attrs: to uri, attempt, cause, "
+             "replay) — the fault-tolerance paths' trace annotation",
+    "speculate": "one straggler-speculation copy dispatched (attrs: "
+                 "uri); win/loss lands on the task span",
+    "replan": "one adaptive re-plan evaluated at a stage boundary "
+              "(adaptive/): attrs carry the flip/seed/skew-hint "
+              "counts, or rejected=true with the verify_dag reason "
+              "when the mutation rolled back",
     "xfer": "one metered host<->device crossing (exec/xfer.py choke "
             "points): d2h:<label> pulls pages/arrays to host (spill, "
             "exchange serialization, result decode), h2d:<label> "

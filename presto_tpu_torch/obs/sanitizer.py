@@ -102,6 +102,12 @@ LOCK_REGISTRY: Dict[str, str] = {
         "mesh-local exchange fast path reads",
     "server.worker.TaskRuntime._tasks_lock":
         "the task registry (create/expire/cancel vs data-plane lookups)",
+    "server.worker.TaskRuntime._fault_lock":
+        "the runtime fault overlay and its call counters (POST "
+        "/v1/fault vs the fetch and submit handlers)",
+    "server.worker._TrackingHTTPServer._conns_lock":
+        "a worker's set of open connections (handler threads vs "
+        "stop(), which drops them)",
     "server.worker._Task.lock":
         "one task's spool and lifecycle flags (its execution thread vs "
         "the fetch/status/cancel handlers)",
@@ -118,6 +124,9 @@ THREAD_REGISTRY: Dict[str, str] = {
         "one thread per task: fragment execution into the spool",
     "server.worker:self._httpd.serve_forever":
         "the worker's HTTP accept loop",
+    "server.worker:self.stop":
+        "an in-process worker's death under FAULT_KILL_AFTER_FETCHES, "
+        "off the handler thread that stop() waits on",
 }
 
 # ---------------------------------------------------------------------

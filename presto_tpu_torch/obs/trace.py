@@ -69,6 +69,8 @@ class QueryTrace:
         self._lock = make_lock("obs.trace.QueryTrace._lock")
         self._spans: List[Span] = []
         self._seq = 0
+        # host seconds write_chrome took (after the root span's end)
+        self.write_s = 0.0
         attrs = {"sql": sql} if sql else {}
         self.root = self._new("query", query_id, None, 0.0, None, attrs)
         register_owner(self)
@@ -286,8 +288,10 @@ class QueryTrace:
         }
 
     def write_chrome(self, path: str) -> str:
+        t0 = time.monotonic()
         with open(path, "w") as f:
             json.dump(self.to_chrome(), f, indent=1, default=str)
+        self.write_s = time.monotonic() - t0
         return path
 
 

@@ -98,8 +98,27 @@ def _scatter_min(size: int, fill: int, index: torch.Tensor,
 
 def _segment_sum(data: torch.Tensor, ids: torch.Tensor,
                  nseg: int) -> torch.Tensor:
+    if data.is_floating_point() and data.is_cuda:
+        return segment_sum_ordered(data, ids, nseg)
     out = torch.zeros(nseg, dtype=data.dtype, device=data.device)
     return out.index_add_(0, ids, data)
+
+
+def segment_sum_ordered(data: torch.Tensor, ids: torch.Tensor,
+                        nseg: int) -> torch.Tensor:
+    """Float segment sums without atomics: rows sorted stably by
+    segment, each segment reduced in a fixed order. On the card,
+    ``index_add_`` on floats adds in whatever order its atomics land,
+    so two runs of one task could spool different bits — and a replayed
+    task must regenerate the consumed pages byte for byte (the stage
+    scheduler's prefix check, dist/dcn._prefix_matches). Capturable in
+    a CUDA graph: no host sync."""
+    order = torch.argsort(ids, stable=True)
+    lengths = torch.zeros(nseg, dtype=torch.int64,
+                          device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.int64))
+    return torch.segment_reduce(data[order], "sum", lengths=lengths,
+                                unsafe=True, initial=0)
 
 
 def compute_groups_sorted(
@@ -313,7 +332,9 @@ def _sorted_aggregate(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Scatter-free segmented reduction over the sorted group layout:
     gather rows into group order, one cumulative sum, difference at group
-    boundaries. Exact for integers."""
+    boundaries. Exact for integers. A float SUM (on the card only)
+    reduces each group's span instead, in a fixed order: the rows are
+    already in group order, so no second sort (segment_sum_ordered)."""
     perm, gidx = groups.sort_perm, groups.gid_sorted
     contributing_sorted = gidx < out_capacity
     if nulls is not None:
@@ -327,9 +348,15 @@ def _sorted_aggregate(
         x = contributing_sorted.to(torch.int64)
 
     zero = x.new_zeros(1)
-    pcs = torch.cat([zero, torch.cumsum(x, 0, dtype=x.dtype)])
     start, end = groups.seg_start, groups.seg_end
-    totals = pcs[end] - pcs[start]
+    if x.is_floating_point():
+        # valid rows sort first and group g spans [start[g], end[g]),
+        # so the spans tile the valid prefix in order
+        totals = torch.segment_reduce(x, "sum", lengths=end - start,
+                                      unsafe=True, initial=0)
+    else:
+        pcs = torch.cat([zero, torch.cumsum(x, 0, dtype=x.dtype)])
+        totals = pcs[end] - pcs[start]
 
     if kind == COUNT_STAR:
         return totals, None
@@ -367,7 +394,7 @@ def aggregate(
     if (groups.sort_perm is not None
             and kind in (SUM, COUNT, COUNT_STAR, BOOL_OR, BOOL_AND)
             and (data is None or not isinstance(data, tuple))
-            and (kind != SUM or _is_integer(data))):
+            and (kind != SUM or _is_integer(data) or data.is_cuda)):
         return _sorted_aggregate(groups, kind, out_capacity, data, nulls)
 
     if kind == COUNT_STAR:

@@ -64,6 +64,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from presto_tpu_torch import obs as OBS
+from presto_tpu_torch.exec import membudget as MB
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec.executor import Executor, _row_bytes
 from presto_tpu_torch.exec.prune import prune_plan
@@ -165,19 +166,29 @@ class LocalRunner:
 
     def session_dist_options(self) -> Dict:
         """fragment_dag's distribution knobs from the session: the
-        join_distribution_type override, else the broadcast row
-        threshold (the reference's row-count fallback; its stats-driven
-        byte share needs the memory governor, not ported)."""
+        join_distribution_type override, else — unless the session pins
+        ``broadcast_join_rows`` — the stats-driven byte share: a build
+        replicates only when its estimated bytes fit one device's
+        broadcast share of the memory governor's budget (budget //
+        PAGE_SHARE_DIV), with the row threshold kept as the fallback.
+        The adaptive re-planner reads the same share."""
         jd = self.session.get("join_distribution_type")
+        opts: Dict = {"gather_capacity": int(self.session.get(
+            "agg_gather_capacity"))}
         if jd == "broadcast":
-            rows = 1 << 62
+            opts["broadcast_rows"] = 1 << 62
         elif jd == "partitioned":
-            rows = 0
+            opts["broadcast_rows"] = 0
         else:
-            rows = int(self.session.get("broadcast_join_rows"))
-        return {"broadcast_rows": rows,
-                "gather_capacity": int(self.session.get(
-                    "agg_gather_capacity"))}
+            opts["broadcast_rows"] = int(self.session.get(
+                "broadcast_join_rows"))
+            if not self.session.is_set("broadcast_join_rows"):
+                ex = self.executor
+                opts["broadcast_bytes"] = (ex._budget()
+                                           // MB.PAGE_SHARE_DIV)
+                opts["row_bytes_of"] = lambda n: _row_bytes(
+                    ex.output_types(n))
+        return opts
 
     def estimate_memory(self, sql: str) -> int:
         """Peak device-memory estimate for the server's admission

@@ -641,6 +641,9 @@ class _DcnServerRunner:
 class _Handler(BaseHTTPRequestHandler):
     server_version = "presto-tpu/0.2"
     protocol_version = "HTTP/1.1"
+    # no Nagle: a kept-alive client would wait out its delayed ACK
+    # between a response's headers and its body (server/worker.py)
+    disable_nagle_algorithm = True
 
     def log_message(self, fmt, *args):  # noqa: A003 - silence stderr
         pass
@@ -1036,6 +1039,8 @@ class PrestoTpuServer:
             self.task_runtime.free_all()
         if self.failure_detector:
             self.failure_detector.stop()
+        if self._dcn is not None:
+            self._dcn.close()  # its heartbeat detector's thread
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()

@@ -24,11 +24,31 @@ PageStore files. A spool is published only after the fragment's
 attempt completes overflow-free, and is freed on DELETE and on task
 expiry.
 
-Routes: ``POST /v1/task`` (create), ``GET /v1/task/{id}`` (status),
-``GET /v1/task/{id}/results/{token}?part=p&max=N`` (token-indexed
-long-poll fetch of one partition, consecutive frames packed up to N
-bytes), ``DELETE /v1/task/{id}/spool/{p}`` (ack one partition) and
-``DELETE /v1/task/{id}`` (release the task).
+Routes: ``POST /v1/task`` (create), ``GET /v1/task/{id}`` (status:
+state, the spool's per-partition rows, bytes and wire bytes, the
+task's boost retries and pre-engaged skew passes), ``GET
+/v1/task/{id}/results/{token}?part=p&max=N`` (token-indexed long-poll
+fetch of one partition, consecutive frames packed up to N bytes),
+``DELETE /v1/task/{id}/spool/{p}`` (ack one partition), ``DELETE
+/v1/task/{id}`` (release the task), ``POST /v1/fault`` (the runtime
+fault overlay) and ``GET /v1/info`` (the heartbeat's ping).
+
+Fault injection at the page proxy: FAULT_DELAY_MS delays every results
+fetch; FAULT_DROP_EVERY=n answers HTTP 500 on every nth fetch;
+FAULT_KILL_AFTER_FETCHES=n kills the worker once n result fetches have
+been served (a TaskRuntime serving its own process, as the HTTP
+server's embedded one does, hard-exits; a WorkerServer, which shares its
+process with others, stops); FAULT_SUBMIT_DROP_EVERY=n
+answers HTTP 500 on every nth task submit; FAULT_TASK_EXEC_DELAY_MS
+stalls task EXECUTION (a deterministic straggler for speculation);
+FAULT_SPOOL_CORRUPT_EVERY=n flips one byte inside every nth served page
+body. Each knob reads the config posted to ``POST /v1/fault`` as an
+OVERLAY on the environment: posted keys win (an explicit 0 disables an
+environment fault), absent keys fall back to the environment, and
+``{}`` restores the environment's rule. A task whose upstream fetch
+failed fails with a ``[source-lost <uri> <task>]`` marker
+(dist/spool.SourceLost) that the scheduler reads to replay the
+upstream placements first.
 
 Threads and the card: each task runs in its own thread and HTTP handler
 threads serve fetches; every tensor op stays on the default stream, so
@@ -40,10 +60,12 @@ produced it.
 from __future__ import annotations
 
 import json
+import os
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -87,8 +109,15 @@ class _PartitionSpool:
         self._spill_dir = spill_dir
         self.entries: List = []
         self.released = False
-        # exact rows published into this partition
+        # the spool-stats plane: exact rows, bytes and wire bytes
+        # published into this partition, accumulated at put time and
+        # kept past release, so the coordinator's re-planner reads
+        # stable numbers and a replayed task re-accumulates identical
+        # ones. Lazy device pages count their footprint as wire bytes
+        # (an upper bound: freight costing never under-counts)
         self.stat_rows = 0
+        self.stat_bytes = 0
+        self.stat_wire_bytes = 0
 
     def put(self, blob: bytes, to_disk: bool, rows: int = 0) -> None:
         if to_disk:
@@ -101,11 +130,16 @@ class _PartitionSpool:
         store.put_bytes(blob)
         self.entries.append((store, store.page_count - 1))
         self.stat_rows += int(rows)
+        self.stat_bytes += len(blob)
+        self.stat_wire_bytes += len(blob)
 
-    def put_page(self, page, rows: int = 0) -> None:
-        """Spool one partition Page WITHOUT serializing (device tier)."""
+    def put_page(self, page, est_bytes: int, rows: int = 0) -> None:
+        """Spool one partition Page WITHOUT serializing (device tier);
+        ``est_bytes`` is its footprint."""
         self.entries.append(("page", page))
         self.stat_rows += int(rows)
+        self.stat_bytes += int(est_bytes)
+        self.stat_wire_bytes += int(est_bytes)
 
     @property
     def count(self) -> int:
@@ -152,11 +186,20 @@ class _TaskSpool:
             self.put(p, SPOOL.spool_blob(page), rows=rows)
             return
         self.host_bytes += est
-        self.parts[p].put_page(page, rows=rows)
+        self.parts[p].put_page(page, est, rows=rows)
 
     @property
     def page_count(self) -> int:
         return sum(p.count for p in self.parts)
+
+    def part_stats(self) -> Tuple[List[int], List[int], List[int]]:
+        """(rows, bytes, wire bytes) per partition: the stage-boundary
+        statistics the adaptive re-planner sums on the coordinator.
+        Exact and monotone, stable across release, identical after a
+        deterministic replay."""
+        return ([p.stat_rows for p in self.parts],
+                [p.stat_bytes for p in self.parts],
+                [p.stat_wire_bytes for p in self.parts])
 
     def release(self, p: int) -> bool:
         if 0 <= p < len(self.parts):
@@ -205,6 +248,10 @@ class _Task:
         self.done = False
         self.error: Optional[str] = None
         self.cancelled = False
+        # executor outcomes shipped on the status plane: overflow-ladder
+        # re-entries and passes started in the skew rebalance
+        self.boost_retries = 0
+        self.skew_preempted = 0
         self.lock = make_lock("server.worker._Task.lock")
         # the worker-side trace's anchors (task creation) and its
         # exported spans, shipped to a tracing coordinator on the
@@ -273,8 +320,16 @@ def write_task_response(handler, resp) -> None:
 
 
 def route_task_post(app, path: str, body: bytes):
+    if path.startswith("/v1/fault"):
+        # runtime fault reconfiguration: the posted overlay replaces the
+        # previous one; {} restores the environment's rule
+        app.set_fault_config({
+            k: int(v) for k, v in json.loads(body or b"{}").items()})
+        return _jresp({"ok": True, "fault": app.fault_config})
     if not path.startswith("/v1/task"):
         return None
+    if app.maybe_inject_submit_fault():
+        return _jresp({"error": "injected submit fault"}, 500)
     task = app.create_task(json.loads(body))
     return _jresp({"taskId": task.task_id, "state": "RUNNING"})
 
@@ -291,12 +346,14 @@ def _entry_blob(entry) -> bytes:
     return store.blob_at(i)
 
 
-def _results(task: _Task, part: int, token: int, max_bytes: int):
+def _results(app, task: _Task, part: int, token: int, max_bytes: int):
     """GET .../results/{token}?part=p&max=N: bounded long-poll until the
     page at `token` exists or the task finishes, then the frames from
     `token` on, packed up to max_bytes (at least one)."""
     from presto_tpu_torch.dist import spool as SPOOL
 
+    if app.maybe_inject_fault():
+        return _jresp({"error": "injected fault"}, 500)
     deadline = time.monotonic() + 10.0
     while time.monotonic() < deadline:
         entry = None
@@ -324,7 +381,9 @@ def _results(task: _Task, part: int, token: int, max_bytes: int):
                 if not frames:  # raced a concurrent release
                     return _jresp({"error": _RELEASED.format(part)}, 410)
                 break
-            frames.append(blob)
+            # the corruption lands INSIDE one page body (framing
+            # intact), so the consumer's decode catches it
+            frames.append(app.maybe_corrupt_blob(blob))
             total += 8 + len(blob)
             entry = None
             if total >= max_bytes:
@@ -350,7 +409,7 @@ def route_task_get(app, path: str, query: str):
         if task is None:
             return _jresp({"error": "no such task"}, 404)
         qs = parse_qs(query or "")
-        return _results(task, int(qs.get("part", ["0"])[0]),
+        return _results(app, task, int(qs.get("part", ["0"])[0]),
                         int(parts[4]), int(qs.get("max", ["0"])[0]))
     if len(parts) == 3 and parts[:2] == ["v1", "task"]:
         task = app.get_task(parts[2])
@@ -363,10 +422,19 @@ def route_task_get(app, path: str, query: str):
                 "state": ("FAILED" if task.error else
                           "FINISHED" if task.done else "RUNNING"),
                 "spooledPages": spool.page_count if spool else 0,
-                "spoolRows": ([p.stat_rows for p in spool.parts]
-                              if spool else []),
+                "partitions": len(spool.parts) if spool else 1,
                 "error": task.error,
+                # the spool-stats plane: exact per-partition rows,
+                # bytes and wire bytes plus the executor's outcomes,
+                # summed on the coordinator at the stage boundary
+                "boostRetries": task.boost_retries,
+                "skewPreempted": task.skew_preempted,
             }
+            if spool is not None:
+                rows, nbytes, wire = spool.part_stats()
+                body["spoolRows"] = rows
+                body["spoolBytes"] = nbytes
+                body["spoolWireBytes"] = wire
             if task.spans is not None:
                 # worker-side spans for the coordinator's cross-node
                 # timeline: offsets from this task's creation
@@ -408,6 +476,11 @@ class _WorkerHandler(BaseHTTPRequestHandler):
     # alive; every response sends Content-Length (204s ship no body)
     protocol_version = "HTTP/1.1"
     timeout = 120
+    # TCP_NODELAY: a response goes out as two writes (the headers, then
+    # the body); with Nagle on, the body waits for the client's delayed
+    # ACK of the headers, about 40 ms on a kept-alive connection, which
+    # every status poll, ack and small fetch of a query would pay
+    disable_nagle_algorithm = True
 
     def log_message(self, fmt, *args):  # noqa: A003
         pass
@@ -429,6 +502,11 @@ class _WorkerHandler(BaseHTTPRequestHandler):
         from urllib.parse import urlsplit
 
         split = urlsplit(self.path)
+        if split.path.startswith("/v1/info"):
+            self._write(_jresp({"nodeId": self.app.node_id,
+                                "state": "ACTIVE",
+                                "tasks": self.app.task_count()}))
+            return
         self._write(route_task_get(self.app, split.path, split.query))
 
     def do_DELETE(self):
@@ -442,7 +520,11 @@ class TaskRuntime:
 
     # finished tasks kept before the oldest expire (reference:
     # SqlTaskManager task expiry); the scheduler releases its tasks
-    # explicitly at query end, so expiry only bounds leaks
+    # explicitly at query end, so expiry only bounds leaks. Spooled
+    # tasks expire far later: their partitions are replay inputs of
+    # downstream tasks, and evicting one mid-query would turn a healthy
+    # worker into a [source-lost] node
+    MAX_RETAINED_TASKS = 32
     MAX_RETAINED_SPOOLED = 256
 
     def __init__(self, catalogs, *, node_id: str = "w0",
@@ -455,6 +537,13 @@ class TaskRuntime:
         self.device = resolve_device(device)
         self.tasks: Dict[str, _Task] = {}
         self._tasks_lock = make_lock("server.worker.TaskRuntime._tasks_lock")
+        # the runtime fault overlay (POST /v1/fault) and its call
+        # counters, under _fault_lock
+        self._fault_lock = make_lock("server.worker.TaskRuntime._fault_lock")
+        self.fault_config: Dict[str, int] = {}
+        self._results_calls = 0
+        self._submit_calls = 0
+        self._corrupt_calls = 0
 
     def get_task(self, task_id: str) -> Optional[_Task]:
         with self._tasks_lock:
@@ -478,14 +567,87 @@ class TaskRuntime:
                 t.cancelled = True
                 t.free()
 
+    # ------------------------------------------------- fault injection
+    def set_fault_config(self, cfg: Dict[str, int]) -> None:
+        """Install a runtime fault overlay and reset the call counters:
+        "drop every nth" and "kill after n" count from the post."""
+        with self._fault_lock:
+            self.fault_config = cfg
+            self._results_calls = 0
+            self._submit_calls = 0
+            self._corrupt_calls = 0
+
+    def _fault(self, name: str) -> int:
+        if name in self.fault_config:
+            return int(self.fault_config[name])
+        return int(os.environ.get(name, "0") or 0)
+
+    def _kill(self) -> None:
+        """FAULT_KILL_AFTER_FETCHES: a worker in its own process
+        hard-exits, bypassing every finally and atexit, like an OOM
+        kill or the loss of its host."""
+        os._exit(137)
+
+    def maybe_inject_fault(self) -> bool:
+        """Faults at the page proxy (delay, drop, kill) on one results
+        fetch; True = answer this fetch with HTTP 500. Token-indexed
+        re-fetch makes drops recoverable; a kill only the scheduler's
+        re-dispatch recovers."""
+        delay = self._fault("FAULT_DELAY_MS")
+        if delay:
+            time.sleep(delay / 1000.0)
+        with self._fault_lock:
+            self._results_calls += 1
+            calls = self._results_calls
+        kill_after = self._fault("FAULT_KILL_AFTER_FETCHES")
+        if kill_after and calls > kill_after:
+            self._kill()
+            return True
+        drop = self._fault("FAULT_DROP_EVERY")
+        return bool(drop and calls % drop == 0)
+
+    def maybe_corrupt_blob(self, blob: bytes) -> bytes:
+        """FAULT_SPOOL_CORRUPT_EVERY=n: flip one byte of every nth
+        served page body. The consumer's decode rejects the frame
+        before its token advances (dist/serde.PageWireError), retries
+        the token, then replays or fails the query: never garbage
+        rows."""
+        every = self._fault("FAULT_SPOOL_CORRUPT_EVERY")
+        if not every or not blob:
+            return blob
+        with self._fault_lock:
+            self._corrupt_calls += 1
+            if self._corrupt_calls % every:
+                return blob
+        flipped = bytearray(blob)
+        flipped[len(flipped) // 2] ^= 0x01
+        return bytes(flipped)
+
+    def maybe_inject_submit_fault(self) -> bool:
+        """HTTP 500 on every nth task submit: the coordinator's submit
+        retry re-dispatches to another worker."""
+        drop = self._fault("FAULT_SUBMIT_DROP_EVERY")
+        if drop:
+            with self._fault_lock:
+                self._submit_calls += 1
+                return self._submit_calls % drop == 0
+        return False
+
+    # ------------------------------------------------------------ tasks
     def create_task(self, req: Dict) -> _Task:
         doomed: List[_Task] = []
         with self._tasks_lock:
-            finished = [tid for tid, t in self.tasks.items() if t.done]
-            while len(finished) > self.MAX_RETAINED_SPOOLED:
-                old = self.tasks.pop(finished.pop(0), None)
-                if old is not None:
-                    doomed.append(old)
+            for pool, cap in (
+                    ([tid for tid, t in self.tasks.items()
+                      if t.done and t.spool is None],
+                     self.MAX_RETAINED_TASKS),
+                    ([tid for tid, t in self.tasks.items()
+                      if t.done and t.spool is not None],
+                     self.MAX_RETAINED_SPOOLED)):
+                while len(pool) > cap:
+                    old = self.tasks.pop(pool.pop(0), None)
+                    if old is not None:
+                        doomed.append(old)
             task = _Task(req.get("taskId") or f"t{len(self.tasks)}")
             self.tasks[task.task_id] = task
         for old in doomed:  # frees outside the registry lock
@@ -512,6 +674,11 @@ class TaskRuntime:
             wtr.complete("queue", task.task_id, 0.0, wtr.now())
         run_t0 = wtr.now() if wtr is not None else 0.0
         try:
+            # FAULT_TASK_EXEC_DELAY_MS: stall task EXECUTION (not the
+            # fetch path), a deterministic straggler
+            exec_delay = self._fault("FAULT_TASK_EXEC_DELAY_MS")
+            if exec_delay:
+                time.sleep(exec_delay / 1000.0)
             index, count = int(req["splitIndex"]), int(req["splitCount"])
             sources = req.get("sources") or {}
             if req.get("splitTable"):
@@ -580,6 +747,9 @@ class TaskRuntime:
                             rows=int(part_page.valid.sum()))
                     return len(pp)
 
+            # the re-planner's skew hint: grace joins start in the
+            # position-chunked rebalance on the first attempt
+            ex.skew_preengaged = bool(req.get("skewHint"))
             ex.stream_fragment(fragment, emit,
                                cancelled=lambda: task.cancelled,
                                on_attempt=on_attempt)
@@ -593,6 +763,8 @@ class TaskRuntime:
                     state["spool"].close()  # released while running
                 else:
                     task.spool = state["spool"]
+                task.boost_retries = ex.capacity_boost_retries
+                task.skew_preempted = ex.skew_preempted
                 task.done = True
         except Exception as e:  # noqa: BLE001 - a task failure reaches
             # the coordinator as FAILED status / X-Task-Error, never as
@@ -607,8 +779,57 @@ class TaskRuntime:
                 task.done = True
 
 
+class _TrackingHTTPServer(ThreadingHTTPServer):
+    """A ThreadingHTTPServer that knows its open connections, so a
+    stopped worker drops its keep-alive sockets too: a pooled client
+    then sees the node gone instead of a handler thread that still
+    answers. The listening socket reuses its address, so a worker
+    restarted on the same port binds at once, and its accept queue is
+    deeper than socketserver's 5: a burst of connects (every consumer's
+    fetches, the coordinators' heartbeats) arrives while the accept
+    loop waits for the GIL, and a connect the queue drops waits out SYN
+    retransmits of 1, 3, 7 ... s."""
+
+    daemon_threads = True
+    allow_reuse_address = True
+    request_queue_size = 128
+
+    def __init__(self, *a, **kw):
+        self._conns: set = set()
+        self._conns_lock = make_lock(
+            "server.worker._TrackingHTTPServer._conns_lock")
+        super().__init__(*a, **kw)
+
+    def process_request(self, request, client_address):
+        with self._conns_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def drop_connections(self) -> None:
+        with self._conns_lock:
+            conns = list(self._conns)
+            self._conns.clear()
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+
 class WorkerServer(TaskRuntime):
-    """One task runtime behind its own HTTP server on 127.0.0.1."""
+    """One task runtime behind its own HTTP server on 127.0.0.1, in the
+    process that starts it.
+
+    ``port`` 0 picks a free port; a stopped worker can be restarted on
+    its uri by constructing another with that port. Unregistered from
+    the same-process placement registry (unregister_local_runtime), a
+    started worker serves its spools only over HTTP, as a worker in
+    another process does."""
 
     def __init__(self, catalogs, *, port: int = 0, node_id: str = "w0",
                  default_catalog: Optional[str] = None,
@@ -616,13 +837,13 @@ class WorkerServer(TaskRuntime):
         super().__init__(catalogs, node_id=node_id,
                          default_catalog=default_catalog,
                          page_rows=page_rows, device=device)
-        self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
+        self._httpd = _TrackingHTTPServer(("127.0.0.1", port),
                                           _WorkerHandler)
-        self._httpd.daemon_threads = True
         self._httpd.app = self  # type: ignore[attr-defined]
         self.port = self._httpd.server_address[1]
         self.uri = f"http://127.0.0.1:{self.port}"
         self._thread: Optional[threading.Thread] = None
+        self._stopped = False
 
     def start(self) -> int:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
@@ -631,10 +852,24 @@ class WorkerServer(TaskRuntime):
         register_local_runtime(self.uri, self)
         return self.port
 
+    def _kill(self) -> None:
+        # a worker sharing its process with others dies by its stop(),
+        # not os._exit; off the handler thread, which stop() would
+        # otherwise wait on
+        threading.Thread(target=self.stop, daemon=True).start()
+
     def stop(self) -> None:
-        # unregister FIRST: a stopped worker must look remote-and-dead
-        # to local consumers, never serve stale spools
-        unregister_local_runtime(self.uri)
-        self._httpd.shutdown()
+        """The worker's death: unregister FIRST (a stopped worker must
+        look remote-and-dead to local consumers, never serve stale
+        spools), stop serving, drop open connections and free every
+        task's spool. Idempotent."""
+        if self._stopped:
+            return
+        self._stopped = True
+        if local_runtime(self.uri) is self:
+            unregister_local_runtime(self.uri)
+        if self._thread is not None:
+            self._httpd.shutdown()
         self._httpd.server_close()
+        self._httpd.drop_connections()
         self.free_all()

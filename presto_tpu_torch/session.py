@@ -16,12 +16,18 @@ different mode by design:
     fused program is a replayed CUDA graph and join chains are gather
     bound;
   - ``device_memory_budget``'s auto is the card's memory minus 1/8 on a
-    CUDA executor (the reference: the TPU's HBM), and
-    ``task_retry_attempts`` bounds only the executor's device-OOM
-    ladder (DCN task re-dispatch is not ported);
+    CUDA executor (the reference: the TPU's HBM);
   - ``stage_scheduler`` defaults to "true": the stage DAG is the only
     distributed plane ported;
-  - ``mesh_exchange_mode``, ``adaptive_execution`` default to "false".
+  - ``mesh_exchange_mode`` defaults to "false".
+
+``task_retry_attempts`` governs both of its reference planes: the
+executor's device-OOM ladder and the stage scheduler's fault tolerance
+(re-dispatch of lost tasks, replay of non-leaf tasks from surviving
+spools, the heartbeat-gated pool); 0 pins the fail-the-query-cleanly
+model. ``speculation_enabled`` races a straggler's copy;
+``adaptive_execution`` ("auto" = on under the stage scheduler) re-plans
+the not-yet-dispatched stages from observed spool statistics.
 
 A plane that is not ported defaults to off, and asking for it raises
 NotImplementedError naming its ROADMAP item (``Session.set``, at
@@ -174,11 +180,17 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         ),
         PropertyMetadata(
             "task_retry_attempts",
-            "bounds the executor's device-OOM re-entries, each under a "
-            "halved device-memory budget (0 = a device fault raises "
-            "through). Re-dispatch of a lost DCN task is not ported: "
-            "there the first task failure fails the query whatever the "
-            "value",
+            "fault-tolerant execution (reference: Project Tardigrade's "
+            "task-level retry): re-dispatch a lost DCN task to a "
+            "surviving ALIVE worker up to this many times — a leaf "
+            "task re-generates its split share, a non-leaf task "
+            "re-reads the surviving upstream spools, and pages the "
+            "coordinator already consumed dedupe by fetch token after "
+            "a sha256 check of the replayed prefix. Also bounds the "
+            "executor's device-OOM re-entries (each under a halved "
+            "device-memory budget). 0 pins the fail-query-cleanly "
+            "model: every configured worker is used and the first "
+            "task failure fails the query",
             int, 2,
         ),
         PropertyMetadata(
@@ -258,7 +270,7 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         PropertyMetadata(
             "retry_backoff_ms",
             "base delay for the exponential-backoff-with-jitter ladder "
-            "between DCN fetch retries (reference: "
+            "between DCN fetch/submit retries (reference: "
             "HttpPageBufferClient backoff)",
             int, 100,
         ),
@@ -280,7 +292,13 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         ),
         PropertyMetadata(
             "speculation_enabled",
-            "straggler speculation; not ported (false)",
+            "straggler speculation as a stage-scheduler policy "
+            "(reference: Project Tardigrade speculative execution): "
+            "race a re-dispatched copy of a stage's slowest running "
+            "task on another worker and take whichever placement "
+            "finishes first (deterministic fragments make the outputs "
+            "byte-identical, so the loser is simply cancelled). "
+            "Counters: speculative_tasks_won / speculative_tasks_lost",
             bool, False,
         ),
         PropertyMetadata(
@@ -343,10 +361,27 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         ),
         PropertyMetadata(
             "adaptive_execution",
-            "runtime re-planning at stage boundaries; not ported "
-            "(false)",
-            str, "false",
+            "runtime re-planning at spooled-exchange stage boundaries "
+            "(adaptive/): when a stage's spools finish, the "
+            "not-yet-dispatched DAG suffix re-optimizes from EXACT "
+            "observed row/byte counts — broadcast-vs-partitioned "
+            "flips, join build re-orders, capacity re-buckets onto the "
+            "shapes ladder, skew pre-engagement — re-verified by "
+            "plan_check.verify_dag before dispatch (a failed re-verify "
+            "falls back to the static plan, counted on "
+            "adaptive_replan_rejected). auto = on under the stage "
+            "scheduler; false disables. Counters: adaptive_replans / "
+            "adaptive_dist_flips / adaptive_capacity_seeds / "
+            "adaptive_replan_rejected / skew_preempted",
+            str, "auto",
             validate=_tristate,
+        ),
+        PropertyMetadata(
+            "adaptive_max_replans",
+            "per-query bound on adaptive re-plans applied at stage "
+            "boundaries (each re-plan re-verifies the mutated DAG). 0 "
+            "observes stats but never mutates",
+            int, 4,
         ),
         PropertyMetadata(
             "result_cache_remote_probe",
@@ -401,14 +436,6 @@ _NOT_PORTED = {
         lambda v: v != "false",
         "mesh_exchange_mode: the ICI mesh exchange plane is not ported "
         "(ROADMAP queue 1: torch.distributed over 4 cards)"),
-    "adaptive_execution": (
-        lambda v: v != "false",
-        "adaptive_execution: runtime re-planning is not ported "
-        "(ROADMAP queue 1)"),
-    "speculation_enabled": (
-        lambda v: v is True,
-        "speculation_enabled: straggler speculation is not ported "
-        "(ROADMAP queue 1)"),
     "result_cache_remote_probe": (
         lambda v: v is True,
         "result_cache_remote_probe: the fleet cache probe is not "

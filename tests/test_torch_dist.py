@@ -11,8 +11,11 @@ default session (generated joins, and the workers' leaf fragments fused
 with split batching forced) gives the same rows. Also:
 the device spool's HTTP fetch equals its local read and re-fetches
 byte-identically, the spool_exchange_bytes budget spills to disk, a
-failed task fails the query with DcnQueryFailed, and each plane the
-port leaves out raises NotImplementedError."""
+failed task fails the query with DcnQueryFailed under
+task_retry_attempts=0 and re-dispatches to the healthy worker under the
+default, and each plane the port leaves out raises
+NotImplementedError. Every coordinator is closed (its heartbeat
+thread) when the module's workers stop."""
 
 import collections
 import json
@@ -58,10 +61,16 @@ def _worker(node_id, conn=None):
     return w
 
 
+_COORDS = []
+
+
 @pytest.fixture(scope="module")
 def workers():
     ws = [_worker("w1"), _worker("w2")]
     yield [w.uri for w in ws]
+    for c in _COORDS:
+        c.close()
+    _COORDS.clear()
     for w in ws:
         w.stop()
 
@@ -86,9 +95,11 @@ def _coord(workers, **props):
                "generated_join_enabled": "false",
                "page_rows": PAGE_ROWS, "retry_backoff_ms": 20}
     session.update(props)
-    return DcnRunner({"tpch": TpchConnector(SF, device="cpu")}, workers,
-                     default_catalog="tpch", session_props=session,
-                     device="cpu")
+    coord = DcnRunner({"tpch": TpchConnector(SF, device="cpu")}, workers,
+                      default_catalog="tpch", session_props=session,
+                      device="cpu")
+    _COORDS.append(coord)
+    return coord
 
 
 @pytest.mark.parametrize("kernels", ["true", "false"])
@@ -212,14 +223,36 @@ class _Broken:
 
 
 def test_failed_task_fails_the_query(workers):
+    """task_retry_attempts=0: the first task failure fails the query
+    cleanly, every task released."""
     bad = _worker("bad", _Broken(TpchConnector(SF, device="cpu")))
     try:
-        coord = _coord([workers[0], bad.uri])
+        coord = _coord([workers[0], bad.uri], task_retry_attempts=0)
         t0 = time.monotonic()
         with pytest.raises(DcnQueryFailed, match="injected scan failure"):
             coord.execute(Q3_FAMILY)
         assert time.monotonic() - t0 < 60
         # every task of the failed query was released
+        assert local_runtime(workers[0]).task_count() == 0
+        assert coord.runner.executor.task_retries == 0
+    finally:
+        bad.stop()
+
+
+def test_failed_task_redispatches_to_the_healthy_worker(workers,
+                                                        local_rows):
+    """The default task_retry_attempts re-dispatches each failed scan
+    task to the healthy worker: the rows equal, the failing worker (a
+    task error, not a lost node) is not excluded."""
+    bad = _worker("bad", _Broken(TpchConnector(SF, device="cpu")))
+    try:
+        coord = _coord([workers[0], bad.uri])
+        rows = coord.execute(Q3_FAMILY)
+        assert _multiset(rows) == _multiset(local_rows["q3_family"])
+        ex = coord.runner.executor
+        # one scan task per leaf stage landed on the bad worker
+        assert ex.task_retries == 2
+        assert ex.workers_excluded == 0
         assert local_runtime(workers[0]).task_count() == 0
     finally:
         bad.stop()
@@ -236,8 +269,6 @@ def test_unsplittable_plan_runs_locally(workers):
 @pytest.mark.parametrize("prop,value", [
     ("mesh_exchange_mode", "true"),
     ("mesh_exchange_mode", "auto"),
-    ("adaptive_execution", "auto"),
-    ("speculation_enabled", "true"),
     ("result_cache_remote_probe", "true"),
     ("checkpoint_dir", "/nonexistent"),
     ("stage_scheduler", "auto"),
