@@ -46,8 +46,8 @@ Phases:
            and Q6 at SF 10 must match the reference's row checksums
            (val_q1_sf10.json, val_q6_sf10.json)
   dist     the distributed path: 4 in-process WorkerServers on the card
-           and a DcnRunner (stage DAG, partitioned joins, every exchange
-           partitioned on the card through K4). Q3 and Q5 at SF 0.01 ==
+           and a DcnRunner (the stage DAG forced, partitioned joins,
+           every exchange partitioned on the card through K4). Q3 and Q5 at SF 0.01 ==
            the card's LocalRunner == sqlite; then Q1 at SF 10, Q3 and Q5
            at SF 1 (page_rows 2^20): one warm-up and 3 timed runs each,
            rows == the single-process rows, and == again with K4 off;
@@ -65,7 +65,16 @@ Phases:
            process == sqlite, at least one distribution flip); every
            run's wall, fault-free and faulted, its counters and the
            host's accept-queue drops (TcpExt ListenOverflows and
-           ListenDrops); each dist rung logs its adaptive counters
+           ListenDrops); each dist rung logs its adaptive counters.
+           Then the legacy part on the default session (stage_scheduler
+           auto): the aggregation cut of Q1 and Q6 at SF 10 (== the
+           reference's checksums), Q3 and Q5 at SF 1 with the generated
+           join off fanned out round-robin and by key hash, a top-N over
+           orders joined to lineitem through the union cut (== sqlite),
+           each
+           beside the forced DAG and == the single process, K1-K3
+           counted; Q3 with a worker killed after its first results
+           fetch, recovered by re-running its split share
   surface  the relational surface at size, under default and eager (one
            warm-up, median of 3): the ten window shapes over orders SF 1
            (== sqlite), count(DISTINCT) beside plain aggregates
@@ -114,7 +123,12 @@ Phases:
            memory against the arbiter's estimates) and again beside an
            injected device OOM (the programs its ladder drops); a server
            over the DistCluster's 4 workers running Q3 at SF 1
-           partitioned (K4)
+           partitioned (K4); (e) a server with a checkpoint journal:
+           Q3 at SF 1 parked before its root drain and the server
+           replaced (the stream resumes, one re-attach, no task
+           relaunched), again with a dead root-input spool (only .ra
+           tasks), and a paged orders stream cut after its first page
+           (resumed at its token, no row missing or repeated)
   profile  (only when asked for) the base scale rungs under each session
            and the dist queries once more under torch.profiler: device
            busy share, device kernels, graph replays, device time by
@@ -1966,12 +1980,16 @@ DIST_SCALE = ((1, 10.0), (3, 1.0), (5, 1.0))
 # the distributed phase's session: every join partitioned and every
 # exchange through K4 on the card, with the generated join off (the
 # materialized joins this phase has always held)
+# (stage_scheduler pinned to true: the default, auto, would take the
+# legacy cuts first, which the dist phase's legacy part drives)
 DIST_SESSION = {"join_distribution_type": "partitioned",
                 "device_exchange_enabled": "true",
-                "generated_join_enabled": "false"}
+                "generated_join_enabled": "false",
+                "stage_scheduler": "true"}
 # the fused phase's: the same distribution, the default TPC-H path
 FUSED_DIST_SESSION = {"join_distribution_type": "partitioned",
-                      "device_exchange_enabled": "true"}
+                      "device_exchange_enabled": "true",
+                      "stage_scheduler": "true"}
 # kernels each distributed query must launch (K4 wherever an exchange
 # repartitions: Q1's 4 groups gather)
 DIST_REQUIRED = {1: ("segsum",), 3: ("part_ids",), 5: ("part_ids",)}
@@ -2002,14 +2020,15 @@ class DistCluster:
         self.coords = []
 
     def coordinator(self, sf: float, page_rows: int,
-                    session: dict = DIST_SESSION):
+                    session: dict = DIST_SESSION, **kw):
         from presto_tpu_torch.dist.dcn import DcnRunner
 
         name = _catalog(sf)
         coord = DcnRunner({name: self.catalogs[name]},
                           [w.uri for w in self.workers],
                           default_catalog=name, device=self.dev,
-                          session_props={"page_rows": page_rows, **session})
+                          session_props={"page_rows": page_rows, **session},
+                          **kw)
         self.coords.append(coord)
         return coord
 
@@ -2074,8 +2093,9 @@ def _dist_run(coord, sql):
 
 def phase_dist(dev, cluster: "DistCluster") -> dict:
     """The distributed path (see the module docstring), then its replay
-    part (_dist_replay). The replay part's sqlite oracles load in a
-    child process from the start of the phase."""
+    part (_dist_replay) and its legacy part (_dist_legacy). The sqlite
+    oracles of both parts load in a child process from the start of the
+    phase."""
     import concurrent.futures
     import multiprocessing
 
@@ -2085,7 +2105,9 @@ def phase_dist(dev, cluster: "DistCluster") -> dict:
         oracle_future = pool.submit(_replay_oracles, REPLAY_SF)
         launches = _dist_rungs(dev, cluster)
         replay = _dist_replay(dev, cluster, oracle_future)
-        return {k: launches[k] + replay[k] for k in KERNEL_NAMES}
+        legacy = _dist_legacy(dev, cluster, oracle_future.result())
+        return {k: launches[k] + replay[k] + legacy[k]
+                for k in KERNEL_NAMES}
     finally:
         pool.shutdown(cancel_futures=True)
 
@@ -2238,6 +2260,9 @@ def _replay_oracles(sf: float) -> dict:
     out = {"load_s": time.perf_counter() - t0}
     for q in REPLAY_QUERIES:
         out[q] = db.execute(PQ.TPCH_ORACLE[q][0]).fetchall()
+    # the legacy part's union cut under top-N (decimals as the engine's
+    # scaled integers)
+    out["topn"] = db.execute(LEGACY_TOPN_ORACLE).fetchall()
     out["total_s"] = time.perf_counter() - t0
     db.close()
     return out
@@ -2508,6 +2533,7 @@ def _dist_replay(dev, cluster: "DistCluster", oracle_future) -> dict:
             coord = cluster.coordinator_over(misstated, pr, {
                 "device_exchange_enabled": "true",
                 "generated_join_enabled": "false",
+                "stage_scheduler": "true",
                 "retry_backoff_ms": 20, "adaptive_execution": mode})
             _replay_run(coord, sql("tpch", q))  # warm-up
             torch.cuda.reset_peak_memory_stats()
@@ -2538,6 +2564,172 @@ def _dist_replay(dev, cluster: "DistCluster", oracle_future) -> dict:
         f"load {oracle['load_s']:.1f} s, oracles {oracle['total_s']:.1f} "
         f"s in a child process); launches {launches}; "
         + json.dumps({"readings": readings}, default=str))
+    return launches
+
+
+# the dist phase's legacy part: the reference's default distributed path
+# (stage_scheduler auto) over the same 4 workers
+LEGACY_PAGE_ROWS = 1 << 20
+LEGACY_SESSION = {"retry_backoff_ms": 20}
+LEGACY_GJ_OFF = {**LEGACY_SESSION, "generated_join_enabled": "false"}
+# the union cut under top-N: a join with no aggregation (~600,000
+# joined rows reach the coordinator)
+LEGACY_TOPN = (
+    "select o_orderkey, o_orderdate, l_extendedprice from orders "
+    "join lineitem on l_orderkey = o_orderkey "
+    "where l_quantity > 45 "
+    "order by l_extendedprice desc, o_orderkey, o_orderdate limit 100")
+LEGACY_TOPN_ORACLE = LEGACY_TOPN.replace("> 45", "> 4500")
+# (label, query, sf, session, partition_threshold, the distribution the
+# cut analysis must choose, the kernels its runs must launch). At the
+# default threshold (2^17) customer is big at SF 1 and orders would
+# need two partition keys, so Q3 and Q5 fan out round-robin; at 2^20
+# only orders and lineitem are big and co-partition on orderkey
+LEGACY_RUNGS = (
+    ("Q1", 1, 10.0, LEGACY_SESSION, 1 << 17, "roundrobin", ("segsum",)),
+    ("Q6", 6, 10.0, LEGACY_SESSION, 1 << 17, "roundrobin", ("segsum",)),
+    ("Q3", 3, 1.0, LEGACY_GJ_OFF, 1 << 17, "roundrobin", ("probe_radix",)),
+    ("Q3 hash", 3, 1.0, LEGACY_GJ_OFF, 1 << 20, "hash", ("probe_radix",)),
+    ("Q5", 5, 1.0, LEGACY_GJ_OFF, 1 << 17, "roundrobin",
+     ("probe_dim", "probe_radix")),
+    ("Q5 hash", 5, 1.0, LEGACY_GJ_OFF, 1 << 20, None,
+     ("probe_dim", "probe_radix")),
+    # at the default threshold orders and lineitem co-partition
+    # ("union-hash", the masked scans the hash rungs time); above
+    # lineitem's 6,000,000 rows the union cut splits round-robin
+    ("top-N", "topn", 1.0, LEGACY_SESSION, 1 << 23, "union-roundrobin",
+     ()),
+)
+
+
+def _legacy_timed(coord, text):
+    """(rows, walls of TIMED_RUNS runs after one warm-up)."""
+    coord.execute(text)
+    walls, rows = [], None
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        rows = coord.execute(text)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return rows, walls
+
+
+def _dist_legacy(dev, cluster: "DistCluster", oracle: dict) -> dict:
+    """The legacy part: the reference's default distributed path
+    (stage_scheduler auto) — the partial-aggregation cut of Q1 and Q6
+    at SF 10, the round-robin and hash fan-outs of Q3 and Q5 at SF 1
+    with the generated join off, the union cut under top-N at SF 1 —
+    each (median of TIMED_RUNS after a warm-up) beside the same query
+    with the stage DAG forced, rows == the single process on the card
+    and == sqlite (Q1 and Q6 SF 10: == the reference's checksums);
+    then Q3 at SF 1 with a worker killed after its first results fetch,
+    recovered by re-running only its split share (_recover_task).
+    Returns the kernel launches of the default-session runs, counted
+    from 0."""
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch import queries as PQ
+
+    card = card_line()
+    t_part = time.perf_counter()
+    cuda.reset_counts()
+    launches = {k: 0 for k in KERNEL_NAMES}
+    readings = {}
+    fault_free_q3 = None
+    # the forced DAG's walls and the single process's rows of each
+    # (query, session): a hash rung shares its round-robin rung's (the
+    # threshold steers the legacy cuts only)
+    yardsticks = {}
+    for label, q, sf, session, thr, dist, required in LEGACY_RUNGS:
+        text = LEGACY_TOPN if q == "topn" else sql("tpch", q)
+        coord = cluster.coordinator(sf, LEGACY_PAGE_ROWS, session,
+                                    partition_threshold=thr)
+        before = dict(cuda.launches)
+        rows, walls = _legacy_timed(coord, text)
+        counts = {k: cuda.launches.get(k, 0) - before.get(k, 0)
+                  for k in KERNEL_NAMES}
+        got_dist = coord.last_distribution
+        if (dist is not None and got_dist != dist) or \
+                got_dist in ("stage-dag", "local"):
+            raise AssertionError(f"legacy {label}: distribution "
+                                 f"{got_dist}, expected {dist}")
+        for k in required:
+            if counts[k] <= 0:
+                raise AssertionError(f"legacy {label}: kernel {k} never "
+                                     f"launched")
+        for k in KERNEL_NAMES:
+            launches[k] += counts[k]
+        # outside the counted runs: the DAG forced, the single process
+        key = (q, sf, id(session))
+        if key not in yardsticks:
+            dag = cluster.coordinator(sf, LEGACY_PAGE_ROWS,
+                                      {**session, "stage_scheduler": "true"})
+            dag_rows, dag_walls = _legacy_timed(dag, text)
+            if dag.last_distribution != "stage-dag":
+                raise AssertionError(f"legacy {label}: the forced DAG did "
+                                     f"not engage")
+            yardsticks[key] = (dag_rows, dag_walls, cluster.local(
+                sf, LEGACY_PAGE_ROWS, session).execute(text).rows)
+        dag_rows, dag_walls, want = yardsticks[key]
+        if not (same_rows(rows, want) and same_rows(dag_rows, want)):
+            raise AssertionError(f"legacy {label}: rows != the single "
+                                 f"process\n cut {rows[:3]}\n local "
+                                 f"{want[:3]}")
+        if q == "topn":
+            if [tuple(r) for r in rows] != \
+                    [tuple(r) for r in oracle["topn"]]:
+                raise AssertionError("legacy top-N: rows != sqlite")
+            checked = "== sqlite"
+        elif sf == REPLAY_SF and q in oracle:
+            PQ.compare_tpch(q, rows, oracle[q], PQ.TPCH_ORACLE[q][1])
+            checked = "== sqlite"
+        else:
+            checked = check_validated(q, sf, rows).lstrip(", ")
+        if label == "Q3":
+            fault_free_q3 = rows
+        med, dag_med = statistics.median(walls), statistics.median(dag_walls)
+        log(f"legacy: {label} SF {sf:g} x{N_WORKERS} workers, "
+            f"{got_dist}: {len(rows)} rows (== single process, {checked}),"
+            f" wall s {[round(w, 4) for w in walls]} (median {med:.4f}) "
+            f"against the forced DAG's median {dag_med:.4f}, launches per "
+            f"run { {k: v // (1 + TIMED_RUNS) for k, v in counts.items()} }"
+            f"; {card}")
+        readings[label] = dict(sf=sf, distribution=got_dist, wall_s=walls,
+                               dag_wall_s=dag_walls, rows=len(rows),
+                               launches=counts)
+        cluster.close_coordinators()
+
+    # Q3 with worker 3 killed after serving its first results fetch: its
+    # split share re-runs on a survivor, the fetch resuming at the
+    # consumed token after the prefix check
+    coord = cluster.coordinator(REPLAY_SF, LEGACY_PAGE_ROWS, LEGACY_GJ_OFF)
+    coord.execute(sql("tpch", 3))  # warm
+    ex = coord.runner.executor
+    retries0, excl0 = ex.task_retries, ex.workers_excluded
+    _post_fault(cluster.workers[3].uri, FAULT_KILL_AFTER_FETCHES=1)
+    try:
+        t0 = time.perf_counter()
+        rows = coord.execute(sql("tpch", 3))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cluster.restart(3)
+    retries = ex.task_retries - retries0
+    excluded = ex.workers_excluded - excl0
+    if rows != fault_free_q3 or retries < 1 or excluded != 1:
+        raise AssertionError(f"legacy Q3 recovery: rows == fault-free "
+                             f"{rows == fault_free_q3}, task_retries "
+                             f"{retries}, workers_excluded {excluded}")
+    log(f"legacy: Q3 SF {REPLAY_SF:g}, worker 3 killed after its first "
+        f"results "
+        f"fetch: {wall:.4f} s (fault-free median "
+        f"{statistics.median(readings['Q3']['wall_s']):.4f} s), "
+        f"task_retries {retries}, workers_excluded {excluded}, rows == "
+        f"fault-free; {card}")
+    readings["Q3 recovered"] = dict(wall_s=wall, task_retries=retries,
+                                    workers_excluded=excluded)
+    cluster.close_coordinators()
+    log(f"legacy: part {time.perf_counter() - t_part:.1f} s; launches "
+        f"{launches}; " + json.dumps({"readings": readings}))
     return launches
 
 
@@ -3205,6 +3397,192 @@ def _heavy_at_once(url: str, texts: dict) -> dict:
     return out
 
 
+# (e) re-attach: the journal's directory (git-ignored, emptied first)
+JOURNAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_journal")
+# the stream a restart cuts after its first 4,096-row protocol page
+REATTACH_STREAM = ("select o_orderkey, o_custkey, o_totalprice from orders "
+                   "where o_orderdate < date '1992-04-01' "
+                   "order by o_orderkey")
+REATTACH_PROPS = {"join_distribution_type": "partitioned",
+                  "stage_scheduler": "true"}
+
+
+def _journal_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _serve_reattach(dev, cluster, counted, servers, card) -> None:
+    """(e) A server with a checkpoint journal over the cluster's
+    workers: (1) Q3 SF 1 through the stage DAG, parked before the root's
+    drain, the server stopped and a successor booted on the journal: the
+    client's stream resumes with the uninterrupted rows, one re-attach,
+    no producer task relaunched; (2) the same with one root-input spool
+    deleted: only .ra tasks re-dispatch; (3) a 4,096-row-paged stream
+    over orders cut after its first page: it resumes at the client's
+    token, no row missing or repeated. Logs each re-attach wall against
+    the uninterrupted one, checkpoints_written and the journal's
+    bytes."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from presto_tpu_torch.server import PrestoTpuServer
+
+    name = _catalog(SERVE_SMALL_SF)
+    shutil.rmtree(JOURNAL_DIR, ignore_errors=True)
+
+    def boot():
+        srv = PrestoTpuServer(
+            {name: cluster.catalogs[name]}, name, port=0,
+            page_rows=SERVE_PAGE_ROWS, device=dev,
+            worker_uris=[w.uri for w in cluster.workers],
+            checkpoint_dir=JOURNAL_DIR)
+        servers.append(srv)
+        return srv, f"http://127.0.0.1:{srv.start()}"
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=600) as r:
+            return json.loads(r.read().decode())
+
+    def post(url, text, props):
+        headers = {"X-Presto-Catalog": name, "Content-Type": "text/plain"}
+        if props:
+            headers["X-Presto-Session"] = ",".join(
+                f"{k}={v}" for k, v in props.items())
+        req = urllib.request.Request(f"{url}/v1/statement",
+                                     data=text.encode(), headers=headers)
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read().decode())
+
+    def drain(doc):
+        rows = []
+        while True:
+            if doc.get("error"):
+                raise AssertionError(f"serve (e): {doc['error']}")
+            rows.extend(doc.get("data") or [])
+            if not doc.get("nextUri"):
+                return rows
+            doc = get(doc["nextUri"])
+
+    def uninterrupted(text, props):
+        srv, url = boot()
+        counted(lambda: drain(post(url, text, props)))  # warm-up
+        t0 = time.perf_counter()
+        rows = counted(lambda: drain(post(url, text, props)))
+        wall = time.perf_counter() - t0
+        srv.stop()
+        return rows, wall
+
+    def created_counter():
+        created, saved = [], []
+        for w in cluster.workers:
+            orig = w.create_task
+            saved.append((w, orig))
+            w.create_task = (lambda req, _o=orig:
+                             (created.append(req.get("taskId")), _o(req))[1])
+        return created, lambda: [setattr(w, "create_task", o)
+                                 for w, o in saved]
+
+    q3 = sql("tpch", 3)
+    want, free_wall = uninterrupted(q3, REATTACH_PROPS)
+    for label, kill_spool in (("zero relaunch", False),
+                              ("dead spool", True)):
+        shutil.rmtree(JOURNAL_DIR, ignore_errors=True)
+        srv, url = boot()
+        park = threading.Event()
+
+        def hook(sched, park=park):
+            park.wait(300)
+            raise RuntimeError("superseded coordinator: parked root drain "
+                               "aborted")
+
+        srv._dcn._root_hook = hook
+        qid = post(url, q3, REATTACH_PROPS)["id"]
+        rec = None
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            rec = srv._journal.pending().get(qid)
+            if rec and rec.get("root") and all(
+                    str(f) in rec["stages"] for f in rec["root_inputs"]):
+                break
+            time.sleep(0.05)
+        else:
+            raise AssertionError("serve (e): the journal never reached the "
+                                 "root barrier")
+        written = srv._runner.executor.checkpoints_written
+        journal_bytes = _journal_bytes(JOURNAL_DIR)
+        srv.manager.get(qid).checkpoint.detach()  # the crash
+        srv.stop()
+        if kill_spool:
+            victim = rec["stages"][str(rec["root_inputs"][0])]["tasks"][0]
+            urllib.request.urlopen(urllib.request.Request(
+                f"{victim['uri']}/v1/task/{victim['task_id']}",
+                method="DELETE"), timeout=30).close()
+        created, restore = created_counter()
+        try:
+            t0 = time.perf_counter()
+            srv2, url2 = boot()
+            got = counted(lambda: drain(get(
+                f"{url2}/v1/statement/{qid}/0")))
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+            park.set()
+        ex = srv2._runner.executor
+        ok_tasks = (all(".ra" in t for t in created) and created
+                    if kill_spool else not created)
+        if got != want or ex.coordinator_reattaches != 1 or not ok_tasks \
+                or (ex.reattach_redispatches >= 1) != kill_spool:
+            raise AssertionError(
+                f"serve (e) {label}: rows == uninterrupted {got == want}, "
+                f"reattaches {ex.coordinator_reattaches}, redispatches "
+                f"{ex.reattach_redispatches}, tasks created {created}")
+        log(f"serve: (e) {label}: Q3 SF {SERVE_SMALL_SF:g} re-attached "
+            f"after a coordinator restart at the root drain: {len(got)} "
+            f"rows == uninterrupted; reattach wall (boot to last row) "
+            f"{wall:.4f} s against the uninterrupted {free_wall:.4f} s; "
+            f"coordinator_reattaches 1, reattach_redispatches "
+            f"{ex.reattach_redispatches}, tasks created {created}; "
+            f"checkpoints_written before the crash {written}, journal "
+            f"{journal_bytes} bytes; {card}")
+        srv2.stop()
+
+    # (3) the paged stream, cut after its first protocol page
+    want, free_wall = uninterrupted(REATTACH_STREAM, {})
+    shutil.rmtree(JOURNAL_DIR, ignore_errors=True)
+    srv, url = boot()
+    doc = post(url, REATTACH_STREAM, {})
+    rows = []
+    while not doc.get("data"):
+        doc = get(doc["nextUri"])
+    rows.extend(doc["data"])
+    token = int(doc["nextUri"].rstrip("/").rsplit("/", 1)[1])
+    qid = doc["id"]
+    written = srv._runner.executor.checkpoints_written
+    journal_bytes = _journal_bytes(JOURNAL_DIR)
+    srv.stop()
+    t0 = time.perf_counter()
+    srv2, url2 = boot()
+    rest = counted(lambda: drain(get(f"{url2}/v1/statement/{qid}/{token}")))
+    wall = time.perf_counter() - t0
+    got = rows + rest
+    ex = srv2._runner.executor
+    if got != want or ex.coordinator_reattaches != 1 or \
+            qid in srv2._journal.pending():
+        raise AssertionError(
+            f"serve (e) stream: {len(got)} rows against {len(want)}, "
+            f"equal {got == want}, reattaches {ex.coordinator_reattaches}")
+    log(f"serve: (e) a {len(want)}-row stream cut after page 1 (token "
+        f"{token}) resumed: no row missing or repeated; reattach wall "
+        f"(boot to last row) {wall:.4f} s against the uninterrupted "
+        f"{free_wall:.4f} s; checkpoints_written before the cut {written}, "
+        f"journal {journal_bytes} bytes; {card}")
+    srv2.stop()
+    shutil.rmtree(JOURNAL_DIR, ignore_errors=True)
+
+
 def phase_serve(dev, cluster: "DistCluster") -> dict:
     """The coordinator's /v1/statement protocol on the card, driven by
     StatementClient with the lock sanitizer armed: (a) a serial server
@@ -3217,7 +3595,8 @@ def phase_serve(dev, cluster: "DistCluster") -> dict:
     then on (rows equal, shared launches, walls, histogram p50/p95,
     graph captures), then Q1 and Q5 SF 10 from 4 clients at once (rows
     == (a), peak memory against the arbiter's estimates); (d) a server
-    over the DistCluster's workers running Q3 SF 1 partitioned (K4).
+    over the DistCluster's workers running Q3 SF 1 partitioned (K4);
+    (e) coordinator checkpoints and re-attach (_serve_reattach).
     Returns the kernel launches of the server runs."""
     from presto_tpu_torch import cuda
     from presto_tpu_torch.connectors.tpch import TpchConnector
@@ -3447,7 +3826,8 @@ def phase_serve(dev, cluster: "DistCluster") -> dict:
         want = [_json_row(r) for r in cluster.local(
             SERVE_SMALL_SF, SERVE_PAGE_ROWS, {}).execute(text).rows]
         client = _serve_client(url, name,
-                               {"join_distribution_type": "partitioned"})
+                               {"join_distribution_type": "partitioned",
+                                "stage_scheduler": "true"})
         before = cuda.launches["part_ids"]
         counted(lambda: _client_run(client, text))
         walls = []
@@ -3464,6 +3844,10 @@ def phase_serve(dev, cluster: "DistCluster") -> dict:
         log(f"serve: (d) Q3 SF {SERVE_SMALL_SF:g} over {N_WORKERS} workers, "
             f"partitioned: {len(want)} rows == direct; K4 launches {k4}; "
             f"client wall median {statistics.median(walls):.4f} s")
+        fleet.stop()
+
+        # ---- (e) coordinator checkpoints and re-attach
+        _serve_reattach(dev, cluster, counted, servers, card)
     finally:
         for s in servers:
             s.stop()

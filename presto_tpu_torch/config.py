@@ -15,9 +15,10 @@ port's server unchanged:
 Unknown connector names or malformed files raise at load. The factories
 are those of the ported connectors (tpch, tpcds, memory, blackhole);
 ``connector.name=stream`` raises NotImplementedError (ROADMAP queue 5),
-and so do the structural keys of unported planes, ``checkpoint.dir``
-(queue 1 item 4) and ``compile-cache.dir`` (the port adopts no
-torch.compile). The server built here runs on the card unless the
+and so does the structural key of an unported plane,
+``compile-cache.dir`` (the port adopts no torch.compile).
+``checkpoint.dir`` binds the server's durable coordinator journal.
+The server built here runs on the card unless the
 caller passes ``device="cpu"``; the connectors follow it.
 """
 
@@ -165,6 +166,7 @@ ETC_SESSION_KEYS: Dict[str, str] = {
     "stream-tail.enabled": "stream_tail_enabled",
     "cross-query-batching": "cross_query_batching",
     "cross-query-batch.wait-ms": "cross_query_batch_wait_ms",
+    "checkpoint.enabled": "checkpoint_enabled",
     "checkpoint.dir": "checkpoint_dir",
 }
 
@@ -178,8 +180,6 @@ _ETC_STRUCTURAL_KEYS = frozenset({
 # structural keys of planes the port lacks: a deployment that sets one
 # fails at startup instead of silently running without it
 _NOT_PORTED_KEYS = {
-    "checkpoint.dir": "the coordinator checkpoint journal (ROADMAP "
-                      "queue 1 item 4)",
     "compile-cache.dir": "the persistent compile cache (the port "
                          "adopts no torch.compile)",
 }
@@ -225,6 +225,12 @@ def server_from_etc(etc_dir: str, port: Optional[int] = None,
             continue
         if conf.get(etc_key):
             session_defaults.setdefault(prop, conf[etc_key])
+    # the durable coordinator journal's directory (structural: bound
+    # once to the server process; the checkpoint_dir session property
+    # covers the per-session path)
+    ckpt_dir = conf.get("checkpoint.dir", "")
+    if ckpt_dir:
+        kw.setdefault("checkpoint_dir", ckpt_dir)
     return PrestoTpuServer(
         catalogs, port=port, default_catalog=default_catalog,
         memory_budget_bytes=mem, page_rows=page_rows,

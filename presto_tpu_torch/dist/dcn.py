@@ -1,46 +1,67 @@
 """DCN coordinator: multi-worker query execution over HTTP workers.
 
-Port of presto_tpu/dist/dcn.py for its stage-DAG branch (reference: the
-coordinator half of distributed execution —
-server/remotetask/HttpRemoteTask.java for task create/status and
-operator/ExchangeClient.java + HttpPageBufferClient.java for the
-token-acked page fetch with retries).
+Port of presto_tpu/dist/dcn.py (reference: the coordinator half of
+distributed execution — server/remotetask/HttpRemoteTask.java for task
+create/status and operator/ExchangeClient.java +
+HttpPageBufferClient.java for the token-acked page fetch with retries).
 
-``DcnRunner.execute(sql)`` plans the query, cuts it into a stage DAG
-(dist/fragmenter.fragment_dag: gather / broadcast / hash-repartition
-exchanges) and runs it through dist/scheduler.StageScheduler over the
-configured workers (server/worker.WorkerServer). Every task payload
-carries the SERIALIZED fragment (dist/plan_serde.py) and the session,
-so all producers of one exchange route rows alike. A plan the DAG
-refuses (nothing worth shipping, or not DAG-safe) runs locally.
+``DcnRunner.execute(sql)`` plans the query and ships fragments to the
+configured workers (server/worker.WorkerServer) at one of the
+reference's boundaries, chosen by ``stage_scheduler``:
 
-Under ``plan_check`` the DAG verifies before any task dispatches
-(exec/plan_check.verify_dag) and every task payload before its POST
-(check_task_payload). Under ``query_trace_enabled`` or
-``query_trace_dir`` one trace covers the stage DAG (stage, task,
+  - "auto" (the default): the legacy cuts first —
+      PARTIAL/FINAL aggregation cut (tiny state pages; preferred):
+        worker w: scan(its split share of the fact table) -> ... ->
+        partial agg; coordinator: RemoteSource(all workers) -> final
+        agg -> rest. The fact table splits round-robin
+        ("roundrobin") or, where both big join sides co-partition on
+        the join key, by key hash ("hash"; HashSplitConnector).
+      UNION cut (a row-local subtree with no decomposable
+      aggregation: multi-join pipelines):
+        worker w: row-local subtree over its split share -> result
+        pages; coordinator: RemoteSource union -> sort / topN /
+        window / agg -> rest ("union-roundrobin" / "union-hash").
+    and the stage DAG (dist/fragmenter.fragment_dag: gather /
+    broadcast / hash-repartition exchanges, run by
+    dist/scheduler.StageScheduler) only where none applies;
+  - "true": the stage DAG first, the legacy cuts where it refuses;
+  - "false": the legacy cuts only.
+
+A plan no path distributes runs locally. Every task payload carries the
+SERIALIZED fragment (dist/plan_serde.py) and the session; a legacy
+task's pages publish only after its fragment ran overflow-free
+(Executor.stream_fragment on the worker), so a union cut never ships
+truncated rows. ``last_distribution`` names the path taken.
+
+Under ``plan_check`` every task payload is checked before its POST
+(check_task_payload) and the DAG verifies before any task dispatches
+(exec/plan_check.verify_dag). Under ``query_trace_enabled`` or
+``query_trace_dir`` one trace covers the distributed run (stage, task,
 dispatch and fetch spans, the workers' queue and run spans ingested
-under their task) and the coordinator's root fragment.
+under their task or the root) and the coordinator's final fragment.
 
 Failure model: fault-tolerant task retry (reference: Project
 Tardigrade's task-level retry), made cheap by deterministic fragments.
 ``task_retry_attempts`` > 0: a lost task re-dispatches to a surviving
-ALIVE worker (dist/scheduler.py: a leaf re-generates its split share, a
-non-leaf task re-reads the surviving upstream spools), and pages the
-coordinator already consumed dedupe by fetch token once the new
-placement's prefix is VERIFIED byte-identical (a rolling sha256 of the
-consumed frames, `_prefix_matches`), so a non-deterministic replay
-fails loudly instead of skipping or duplicating rows. The pool is
-heartbeat-gated: a started HeartbeatFailureDetector
-(server/heartbeat.py) pings every configured worker on a daemon thread,
-nodes it marks FAILED are never picked, excluded nodes are re-probed at
-most once per heartbeat interval and rejoin when a probe succeeds.
-``task_retry_attempts=0`` pins the classic model end to end: every
-configured worker is used and the first failure fails the query with
-DcnQueryFailed. Recovery is counted on the coordinator executor
-(``task_retries``, ``workers_excluded``, ``nonleaf_replays``) and
-announced as TaskRetryEvent to the ``listeners``. ``close()`` stops the
-detector's thread. The legacy agg/union/hash-fanout cuts are not
-ported: the stage DAG is the only distributed plane.
+ALIVE worker — on the legacy cuts ``_recover_task`` re-runs only the
+lost split share, on the DAG the scheduler replays leaf and non-leaf
+tasks — and pages the coordinator already consumed dedupe by fetch
+token once the new placement's prefix is VERIFIED byte-identical (a
+rolling sha256 of the consumed frames, `_prefix_matches`), so a
+non-deterministic replay fails loudly instead of skipping or
+duplicating rows. The pool is heartbeat-gated: a started
+HeartbeatFailureDetector (server/heartbeat.py) pings every configured
+worker on a daemon thread, nodes it marks FAILED are never picked,
+excluded nodes are re-probed at most once per heartbeat interval and
+rejoin when a probe succeeds. ``task_retry_attempts=0`` pins the
+classic model end to end: every configured worker is used and the
+first failure fails the query with DcnQueryFailed. Recovery is counted
+on the coordinator executor (``task_retries``, ``workers_excluded``,
+``nonleaf_replays``) and announced as TaskRetryEvent to the
+``listeners``. ``checkpoint_handle`` (dist/checkpoint.QueryCheckpoint,
+set by the server per query) journals the DAG's stage, root and drain
+barriers. ``close()`` stops the detector's thread. The fleet cache
+probe of the legacy dispatch is not ported (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -55,10 +76,19 @@ import uuid
 from typing import Dict, List, Optional
 
 from presto_tpu_torch.dist import connpool as CONNPOOL
-from presto_tpu_torch.dist import serde
+from presto_tpu_torch.dist import plan_serde, serde
 from presto_tpu_torch.dist import spool as SPOOL
+from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec.executor import check_deadline
 from presto_tpu_torch.server.heartbeat import HeartbeatFailureDetector
+from presto_tpu_torch.server.worker import (
+    fanout_safe,
+    find_partial_cut,
+    find_union_cut,
+    hash_fanout_plan,
+    hash_fanout_source,
+    largest_table,
+)
 
 
 class DcnQueryFailed(RuntimeError):
@@ -81,16 +111,41 @@ class _TaskLost(RuntimeError):
 
 @dataclasses.dataclass
 class _TaskState:
-    """One task placement being drained. `next_token` is the count of
-    pages consumed so far and `hasher` a rolling sha256 of their
-    serialized bytes: a replayed placement resumes at next_token only
-    after its regenerated prefix hashes equal."""
+    """One logical task (one split share of a fragment) and its current
+    placement. `next_token` is the count of pages consumed so far and
+    `hasher` a rolling sha256 of their serialized bytes: a replayed
+    placement resumes at next_token only after its regenerated prefix
+    hashes equal. `payload` is what a re-dispatch re-POSTs (the legacy
+    cuts and the re-attach path), `retries_used` counts its placements
+    after the first."""
 
     uri: str
     task_id: str
+    payload: Optional[Dict] = None
     next_token: int = 0
+    retries_used: int = 0
+    trace_t0: float = 0.0  # dispatch instant on the trace clock
     hasher: "hashlib._Hash" = dataclasses.field(
         default_factory=hashlib.sha256)
+
+
+def _replace_node(root, target, repl):
+    """Structural replace of one subtree in a frozen plan tree."""
+    if root is target:
+        return repl
+    changes = {}
+    for f in dataclasses.fields(root):
+        v = getattr(root, f.name)
+        if isinstance(v, P.PhysicalNode):
+            nv = _replace_node(v, target, repl)
+            if nv is not v:
+                changes[f.name] = nv
+        elif isinstance(v, tuple) and v and isinstance(
+                v[0], P.PhysicalNode):
+            nv = tuple(_replace_node(x, target, repl) for x in v)
+            if any(a is not b for a, b in zip(nv, v)):
+                changes[f.name] = nv
+    return dataclasses.replace(root, **changes) if changes else root
 
 
 class DcnRunner:
@@ -102,15 +157,20 @@ class DcnRunner:
                  default_catalog: Optional[str] = None,
                  fetch_retries: int = 3,
                  session_props: Optional[Dict] = None,
+                 partition_threshold: int = 1 << 17,
                  listeners=(),
                  device=None):
         from presto_tpu_torch.runner import LocalRunner
 
         self.worker_uris = list(worker_uris)
         self.fetch_retries = fetch_retries
-        # introspection: "stage-dag" | "local", the last scheduler (its
-        # per-stage pools and placements) and the heartbeat-gated pool
-        # the last query started on
+        # row count from which a scanned table co-partitions in a hash
+        # fan-out (hash_fanout_source); smaller tables replicate
+        self.partition_threshold = partition_threshold
+        # introspection: "hash" | "roundrobin" | "union-hash" |
+        # "union-roundrobin" | "stage-dag" | "local", the last
+        # scheduler (its per-stage pools and placements) and the
+        # heartbeat-gated pool the last query started on
         self.last_distribution = "local"
         self.last_scheduler = None
         self.last_pool: List[str] = []
@@ -120,6 +180,11 @@ class DcnRunner:
         # the last stage barrier and the root fragment's drain
         self._stage_hook = None
         self._root_hook = None
+        # the active query's checkpoint handle
+        # (dist/checkpoint.QueryCheckpoint): the stage scheduler
+        # journals placements, the root and drain progress through it;
+        # None = checkpointing off
+        self.checkpoint_handle = None
         self.session_props = dict(session_props or {})
         self.listeners = list(listeners)
         # nodes excluded after a mid-query failure; re-admitted only
@@ -152,6 +217,19 @@ class DcnRunner:
         return int(self.runner.session.get("retry_backoff_ms"))
 
     # --------------------------------------------------------- protocol
+    def _task_spans(self, st: _TaskState) -> List[Dict]:
+        """One best-effort status poll for a task's worker-side spans
+        (queue / run / attempt, shipped on the status plane). A
+        transport error returns []: the timeline loses the worker
+        detail, the query loses nothing."""
+        try:
+            with CONNPOOL.request(f"{st.uri}/v1/task/{st.task_id}",
+                                  timeout=5) as r:
+                return json.loads(r.read().decode()).get("spans") or []
+        except (urllib.error.URLError, ConnectionError, OSError,
+                ValueError):
+            return []
+
     def _post_task(self, uri: str, payload: Dict) -> Dict:
         # connpool never replays a POST on a reused socket — a task
         # submit reaches the worker at most once
@@ -331,6 +409,86 @@ class DcnRunner:
             pool.append(u)
         return pool
 
+    def _recover_task(self, st: _TaskState, pool: List[str],
+                      retry_attempts: int, deadline: Optional[float],
+                      cause: BaseException) -> None:
+        """Re-dispatch one lost legacy task to a surviving ALIVE worker:
+        the same fragment and split assignment (splitIndex/splitCount),
+        a new taskId. The survivor re-generates the split share, and
+        the fetch resumes at st.next_token once the new placement's
+        prefix hashes equal. Raises DcnQueryFailed when retries are
+        exhausted (or pinned off), no survivor remains, or the replayed
+        prefix differs."""
+        from presto_tpu_torch import events as E
+
+        if not getattr(cause, "task_error", False):
+            # node loss. A task failure on a healthy worker does not
+            # exclude the node: re-dispatch is still tried, in case the
+            # fault was environmental (device pressure)
+            self._exclude(st.uri)
+        while True:
+            if st.retries_used >= retry_attempts:
+                raise DcnQueryFailed(
+                    f"worker {st.uri} task {st.task_id}: {cause} "
+                    f"(task retries exhausted: "
+                    f"task_retry_attempts={retry_attempts})") from cause
+            # prefer a DIFFERENT worker: the failed placement's node
+            # sorts last (it stays in the pool only for task_error)
+            survivors = sorted((u for u in pool if u not in self._excluded),
+                               key=lambda u: u == st.uri)
+            if not survivors:
+                raise DcnQueryFailed(
+                    f"task {st.task_id}: no surviving workers to "
+                    f"re-dispatch to (pool {pool}, all excluded)"
+                ) from cause
+            st.retries_used += 1
+            self._sleep_backoff(st.retries_used, deadline)
+            check_deadline(deadline, "in the DCN fetch loop")
+            target = survivors[(st.retries_used - 1) % len(survivors)]
+            base_id = st.payload["taskId"].split(".r", 1)[0]
+            new_id = f"{base_id}.r{st.retries_used}"
+            payload = dict(st.payload, taskId=new_id)
+            from_uri = st.uri
+            try:
+                self._post_task(target, payload)
+                prefix_ok = st.next_token == 0 or self._prefix_matches(
+                    target, new_id, st, deadline)
+            except (urllib.error.URLError, OSError) as e:
+                # the survivor failed too: exclude it and go on (each
+                # failed placement uses one retry)
+                self._exclude(target)
+                st.uri, cause = target, e
+                continue
+            except _TaskLost as e:
+                # the re-dispatched task itself failed during the prefix
+                # check
+                st.uri, cause = target, e
+                continue
+            if not prefix_ok:
+                raise DcnQueryFailed(
+                    f"task {new_id}: the re-dispatched placement "
+                    f"regenerated a DIFFERENT page sequence for the "
+                    f"already-consumed prefix ({st.next_token} pages) — "
+                    f"non-deterministic task output; failing loudly "
+                    f"instead of silently skipping or duplicating rows"
+                ) from cause
+            st.uri, st.task_id, st.payload = target, new_id, payload
+            ex = self.runner.executor
+            ex.task_retries += 1
+            tr = ex.trace
+            if tr is not None:
+                tr.complete("retry", new_id, tr.now(), tr.now(),
+                            to=target, attempt=st.retries_used,
+                            cause=str(cause)[:120])
+                ex.trace_spans += 1
+            E.dispatch(
+                self.listeners, "task_retried", E.TaskRetryEvent(
+                    query_id=base_id.split(".", 1)[0], task_id=new_id,
+                    from_uri=from_uri, to_uri=target,
+                    attempt=st.retries_used, cause=str(cause)[:400]),
+                on_error=ex.count_listener_error)
+            return
+
     # ----------------------------------------------------- stage DAG
     def _try_stage_dag(self, plan):
         """The plan cut into a stage DAG, or None when it is not worth
@@ -374,13 +532,198 @@ class DcnRunner:
     # ---------------------------------------------------------- execute
     def execute(self, sql: str):
         plan = self.runner.plan(sql)
-        dag = self._try_stage_dag(plan)
-        if dag is None:
-            # nothing distributable: run locally rather than wrong
-            self.last_distribution = "local"
-            res = self.runner.execute(sql)
-            self.last_output_names = list(res.column_names)
-            return res.rows
-        # anchors the query deadline (query_max_run_time) at the start
+        ex = self.runner.executor
+        retry_attempts = self._retry_attempts()
+        # "true" forces the DAG for every plan it cuts; "auto" keeps
+        # the legacy shapes first and engages the DAG only where they
+        # would fall back to one process; "false" never uses it
+        stage_mode = self.runner.session.get("stage_scheduler")
+        if stage_mode == "true":
+            dag = self._try_stage_dag(plan)
+            if dag is not None:
+                self.runner.apply_session()
+                return self._execute_dag(dag)
+        cut = find_partial_cut(plan)
+        partial = partition_cols = split_table = None
+        if cut is not None:
+            # the PARTIAL/FINAL aggregation split: workers ship small
+            # accumulator-state pages. The partitioned join first (both
+            # big join sides co-partitioned by key hash), else the
+            # round-robin split of the fact table (replicated builds)
+            partition_cols = hash_fanout_plan(
+                cut, self.runner.catalogs,
+                partition_threshold=self.partition_threshold)
+            split_table = largest_table(cut.source, self.runner.catalogs)
+            if partition_cols is not None or (
+                    split_table is not None
+                    and fanout_safe(cut, split_table)):
+                self.last_distribution = (
+                    "hash" if partition_cols is not None
+                    else "roundrobin")
+                partial = dataclasses.replace(cut, step="partial")
+        if partial is None:
+            # the UNION cut: workers run the topmost row-local subtree
+            # (multi-join pipelines, no aggregation needed) over their
+            # split share; the coordinator unions the pages and runs
+            # everything above (reference: a leaf-stage fragment under a
+            # GATHER exchange)
+            split_table = largest_table(plan, self.runner.catalogs)
+            ucut = (find_union_cut(plan, split_table)
+                    if split_table is not None else None)
+            if ucut is None:
+                if stage_mode == "auto":
+                    # no legacy shape applies: the gap the stage DAG
+                    # closes. With no ALIVE worker such a query still
+                    # runs locally, as before the DAG existed
+                    dag = self._try_stage_dag(plan)
+                    if dag is not None and (
+                            self._alive_for_submit()
+                            if retry_attempts > 0 else self.worker_uris):
+                        self.runner.apply_session()
+                        return self._execute_dag(dag)
+                # nothing distributable: run locally rather than wrong
+                # (no pool computed: local queries never pay dead-node
+                # probes)
+                self.last_distribution = "local"
+                self.last_pool = []
+                res = self.runner.execute(sql)
+                self.last_output_names = list(res.column_names)
+                return res.rows
+            partition_cols = hash_fanout_source(
+                ucut, self.runner.catalogs,
+                partition_threshold=self.partition_threshold)
+            self.last_distribution = (
+                "union-hash" if partition_cols is not None
+                else "union-roundrobin")
+            cut, partial = ucut, ucut
+        # the coordinator's final stage honors the session the workers
+        # were sent, and the query deadline starts here
         self.runner.apply_session()
-        return self._execute_dag(dag)
+        return self._execute_cut(sql, plan, cut, partial, split_table,
+                                 partition_cols, retry_attempts)
+
+    def _execute_cut(self, sql, plan, cut, partial, split_table,
+                     partition_cols, retry_attempts):
+        """Run one legacy cut: a task per pooled worker over its split
+        share, then the coordinator's plan over a RemoteSource of their
+        pages (FINAL over the state pages for an aggregation cut, the
+        union as-is for a union cut)."""
+        from presto_tpu_torch import obs as OBS
+
+        ex = self.runner.executor
+        deadline = ex.query_deadline
+        # the plan IS distributable from here on, so workers are
+        # mandatory. task_retry_attempts=0 pins the classic model:
+        # every configured worker, the first failure fails the query
+        pool = (self._alive_for_submit() if retry_attempts > 0
+                else list(self.worker_uris))
+        self.last_pool = list(pool)
+        if not pool:
+            raise DcnQueryFailed(f"no ALIVE workers among {self.worker_uris}")
+        # the task body carries the SERIALIZED fragment (reference:
+        # TaskUpdateRequest.fragment), not SQL to replay
+        fragment = plan_serde.dumps(partial)
+        qid = uuid.uuid4().hex[:12]
+        trace = OBS.maybe_trace(self.runner.session, query_id=qid, sql=sql)
+        if trace is not None:
+            OBS.attach(ex, trace)
+        tasks: List[_TaskState] = []
+        key = f"dcn-{qid}"
+        check_payloads = ex._plan_check_on()
+        try:
+            for w, uri in enumerate(pool):
+                payload = {
+                    "taskId": f"{qid}.{w}",
+                    "fragment": fragment,
+                    "splitTable": split_table,
+                    "splitIndex": w,
+                    "splitCount": len(pool),
+                    "session": self.session_props,
+                }
+                if trace is not None:
+                    payload["trace"] = True
+                if partition_cols is not None:
+                    payload["splitMode"] = "hash"
+                    payload["partitionColumns"] = partition_cols
+                if check_payloads:
+                    # a re-dispatch re-generates exactly this
+                    # (splitIndex, splitCount) share on a survivor
+                    from presto_tpu_torch.exec import plan_check as PC
+
+                    PC.check_task_payload(payload)
+                st = _TaskState(uri=uri, task_id=payload["taskId"],
+                                payload=payload)
+                d0 = trace.now() if trace is not None else 0.0
+                try:
+                    self._post_task(uri, payload)
+                except (urllib.error.URLError, OSError) as e:
+                    if retry_attempts <= 0:
+                        raise DcnQueryFailed(
+                            f"worker {uri}: task submit failed: {e}"
+                        ) from e
+                    # submit retry: this split share goes to another
+                    # ALIVE worker (which then runs two tasks)
+                    self._recover_task(st, pool, retry_attempts,
+                                       deadline, e)
+                if trace is not None:
+                    st.trace_t0 = d0
+                    trace.complete("dispatch", st.task_id, d0,
+                                   trace.now(), uri=st.uri)
+                    ex.trace_spans += 1
+                tasks.append(st)
+
+            # the coordinator's plan: shipped subtree -> RemoteSource
+            remote = P.RemoteSource(types=tuple(ex.output_types(partial)),
+                                    key=key, origin=partial)
+            if partial is cut:  # union cut: consume the union as-is
+                coord_plan = _replace_node(plan, cut, remote)
+            else:  # aggregation cut: FINAL over the state pages
+                coord_plan = _replace_node(plan, cut, dataclasses.replace(
+                    cut, step="final", source=remote))
+
+            def supplier():
+                for st in tasks:
+                    # a fresh supplier call (the coordinator's boosted
+                    # retry re-pulling the source) refetches from token
+                    # 0, the workers keep every page; within ONE call
+                    # next_token advances, so a re-dispatched task
+                    # resumes at the consumed token
+                    st.next_token = 0
+                    st.hasher = hashlib.sha256()
+                    f0 = trace.now() if trace is not None else 0.0
+                    while True:
+                        try:
+                            yield from self._fetch_pages(st, deadline)
+                            break
+                        except _TaskLost as e:
+                            if retry_attempts <= 0:
+                                raise DcnQueryFailed(str(e)) from e
+                            # worker death mid-query: exclude the node
+                            # and re-run ONLY the lost split share on a
+                            # survivor, resuming at the consumed token
+                            self._recover_task(st, pool, retry_attempts,
+                                               deadline, e)
+                    if trace is not None:
+                        trace.complete("fetch", st.task_id, f0,
+                                       trace.now(), uri=st.uri,
+                                       pages=st.next_token)
+                        ex.trace_spans += 1
+                        # one status poll per drained task ingests the
+                        # worker's queue/run/attempt spans
+                        ex.trace_spans += trace.ingest(
+                            self._task_spans(st), trace.root,
+                            st.trace_t0, trace.now())
+
+            ex.remote_sources[key] = supplier
+            names, rows = ex.execute(coord_plan)
+            self.last_output_names = list(names)
+            return rows
+        finally:
+            ex.remote_sources.pop(key, None)
+            # release the workers' page buffers (task expiry)
+            for st in tasks:
+                self._release_task(st.uri, st.task_id)
+            if trace is not None:
+                OBS.finalize(ex, trace,
+                             self.runner.session.get("query_trace_dir"))
+            self.runner.last_trace = trace

@@ -47,14 +47,22 @@ POST inside, the workers' ``queue``/``run``/``attempt`` spans ingested
 under it (clamped to its window), recovery as ``retry`` and
 ``speculate`` spans, each re-plan a ``replan`` span and each root-stage
 drain a ``fetch`` span. Under ``plan_check`` every payload is checked
-before its POST. The mesh exchange plane, the fleet cache probe and
-checkpoints are not ported (ROADMAP queue 1).
+before its POST.
+
+Checkpoints: with a ``checkpoint_handle`` on the coordinator
+(dist/checkpoint.QueryCheckpoint), each stage barrier journals its
+placements and re-dispatchable payloads, the root's registration its
+fragment and input stages, and each HTTP-drained root input its
+consumed token and prefix digest; a failed barrier write is counted in
+``checkpoint_drops`` and the query runs on. The mesh exchange plane and
+the fleet cache probe are not ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import time
 import urllib.error
 from typing import Dict, List, Optional
@@ -334,6 +342,7 @@ class StageScheduler:
         if self._adaptive_on():
             self.replanner = self._make_replanner()
         dispatched: set = set()
+        ckpt = self.coord.checkpoint_handle
         try:
             for f in dag.fragments:
                 self._run_stage(f.fid)
@@ -342,6 +351,14 @@ class StageScheduler:
                     self.stage_hook(f.fid)
                 if self.replanner is not None:
                     self._maybe_replan(f.fid, dispatched)
+                if ckpt is not None:
+                    # the spooled-stage barrier: placements and their
+                    # re-dispatchable payloads, rebuilt from CURRENT
+                    # placements, so a restarted coordinator re-POSTs
+                    # exactly what a live replay would
+                    self._checkpoint_stage(ckpt, f.fid)
+            if ckpt is not None:
+                self._checkpoint_root(ckpt)
             if self.coord._root_hook is not None:
                 # the window between the last stage barrier and the
                 # root's drain, every producer spool live
@@ -369,6 +386,39 @@ class StageScheduler:
                         self._delete(t.placement)
                     if t.spec is not None:
                         self._delete(t.spec)
+
+    # ------------------------------------------- checkpoint barriers
+    def _checkpoint_stage(self, ckpt, fid: int) -> None:
+        """Journal one completed stage: every live placement and its
+        full re-dispatchable payload. Best-effort: a failed write drops
+        THIS barrier, counted and logged, and the query runs on
+        (recovery then falls back to re-running the statement)."""
+        try:
+            tasks = [{"uri": t.placement.uri,
+                      "task_id": t.placement.task_id,
+                      "payload": self._payload_for(t, t.placement.task_id)}
+                     for t in self.tasks[fid] if t.placement is not None]
+            ckpt.record_stage(fid, key=stage_key(fid),
+                              parts=self._spooled_parts.get(fid, 1),
+                              tasks=tasks,
+                              replan_gen=self.ex.adaptive_replans)
+        except Exception as e:  # noqa: BLE001 - a barrier never fails
+            # the query: the drop is counted and logged
+            self.ex.checkpoint_drops += 1
+            logging.getLogger("presto_tpu_torch.dist").warning(
+                "stage %d checkpoint dropped: %r", fid, e)
+
+    def _checkpoint_root(self, ckpt) -> None:
+        """The final-stage registration barrier: the coordinator's root
+        fragment and the stages that feed it."""
+        try:
+            blob = plan_serde.dumps(clip_for_shipping(self.dag.root))
+        except Exception as e:  # noqa: BLE001 - as _checkpoint_stage
+            blob = None
+            self.ex.checkpoint_drops += 1
+            logging.getLogger("presto_tpu_torch.dist").warning(
+                "root checkpoint blob dropped: %r", e)
+        ckpt.record_root(blob, list(self.dag.root_inputs))
 
     # ------------------------------------------------------- stages
     def _run_stage(self, fid: int) -> None:
@@ -697,6 +747,7 @@ class StageScheduler:
         )
 
         stage = self.tasks[fid]
+        ckpt = self.coord.checkpoint_handle
 
         def supplier():
             tr = self.trace
@@ -735,6 +786,11 @@ class StageScheduler:
                         if self._retry_attempts() <= 0:
                             raise DcnQueryFailed(str(e)) from e
                         self._recover_root_fetch(t, st, e)
+                if ckpt is not None:
+                    # the final-drain barrier: this task's consumed
+                    # token and the rolling digest of its prefix
+                    ckpt.record_drain(fid, t.index, st.next_token,
+                                      st.hasher.hexdigest())
                 if tr is not None:
                     # root-parented: the drain runs after the task span
                     # closed, so a fetch child would escape its parent

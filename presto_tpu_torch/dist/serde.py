@@ -99,6 +99,13 @@ class PageWireError(ValueError):
     truncated frame, length/dtype mismatch, corrupt compressed data)."""
 
 
+def wire_fingerprint() -> str:
+    """Identity of the wire FORMAT (magic + version): the checkpoint
+    journal records it, so a journal written by another serde version
+    is dropped loudly instead of misdecoded (dist/checkpoint.py)."""
+    return (_MAGIC + _VERSION).decode("ascii")
+
+
 def _host(t) -> np.ndarray:
     """Host numpy of one block array: a metered d2h pull when the page
     is on the device, a view of a host page's numpy leaf otherwise

@@ -11,7 +11,7 @@ counter of the executor family is missing here.
 
 Only the counters the port maintains are declared, each under the
 reference's name and kind. The reference's counters of planes the port
-lacks (result cache, IVM, checkpoints, the mesh exchange, ...) are
+lacks (result cache, IVM, the mesh exchange, ...) are
 listed in ROADMAP.md beside the plane that brings each one.
 
 Adding a counter = initialize it to 0 in Executor.__init__, increment
@@ -105,6 +105,27 @@ QUERY_COUNTERS: Dict[str, tuple] = {
         "counter", "lost NON-LEAF stage-DAG tasks re-dispatched to "
         "replay from spooled upstream pages instead of failing the "
         "query (coordinator lifetime)"),
+    "checkpoints_written": (
+        "counter", "durable coordinator checkpoint records published "
+        "to the query journal (dist/checkpoint.py): admission, stage "
+        "barriers, root registration, drain progress, client-token "
+        "advances (coordinator lifetime)"),
+    "coordinator_reattaches": (
+        "counter", "journaled queries a RESTARTED coordinator "
+        "recovered — final-stage suppliers re-registered from "
+        "persisted placements (spool resume) or the statement re-run "
+        "from the journal (coordinator lifetime)"),
+    "reattach_redispatches": (
+        "counter", "dead final-stage placements re-dispatched from "
+        "persisted payloads during coordinator re-attach (the lost "
+        "suffix, through the normal replay ladder; coordinator "
+        "lifetime)"),
+    "checkpoint_drops": (
+        "counter", "checkpoint records dropped LOUDLY: journal "
+        "generations unreadable at boot (version/fingerprint skew, "
+        "torn appends, partial compaction) or barrier writes that "
+        "failed to serialize — recovery degrades to the re-run rung, "
+        "never a crash, never stale state served"),
     "speculative_tasks_won": (
         "counter", "straggler speculation races where the "
         "re-dispatched copy finished first and became the task's "

@@ -352,6 +352,14 @@ class Executor:
         self.nonleaf_replays = 0
         self.speculative_tasks_won = 0
         self.speculative_tasks_lost = 0
+        # coordinator HA (dist/checkpoint.py; the coordinator's,
+        # lifetime counters): journal records published, queries
+        # recovered across a restart, dead placements re-dispatched
+        # during re-attach, checkpoint records dropped loudly
+        self.checkpoints_written = 0
+        self.coordinator_reattaches = 0
+        self.reattach_redispatches = 0
+        self.checkpoint_drops = 0
         # adaptive re-planning at stage boundaries (adaptive/; the
         # coordinator's)
         self.adaptive_replans = 0
@@ -1242,6 +1250,17 @@ class Executor:
     def count_mesh_local(self) -> None:
         """One exchange edge task served from a same-process spool."""
         self.mesh_local_exchanges += 1
+
+    def count_reattach(self) -> None:
+        """One query carried across a coordinator restart
+        (dist/checkpoint.reattach_query): the spooled fast path or the
+        re-run-from-SQL rung."""
+        self.coordinator_reattaches += 1
+
+    def count_reattach_redispatch(self) -> None:
+        """One dead persisted placement re-dispatched from its persisted
+        payload during re-attach (dist/checkpoint._redispatch_dead)."""
+        self.reattach_redispatches += 1
 
     # ------------------------------------------------------ fused pipelines
     def _scan_chain(self, node: P.PhysicalNode, *, through_joins: bool):

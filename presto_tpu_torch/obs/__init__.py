@@ -60,6 +60,10 @@ SPAN_KINDS: Dict[str, str] = {
               "(adaptive/): attrs carry the flip/seed/skew-hint "
               "counts, or rejected=true with the verify_dag reason "
               "when the mutation rolled back",
+    "checkpoint": "one durable coordinator-journal publish "
+                  "(dist/checkpoint.py): attrs carry the record state "
+                  "and serialized bytes, the barrier-write cost beside "
+                  "the stage wall it rides on",
     "xfer": "one metered host<->device crossing (exec/xfer.py choke "
             "points): d2h:<label> pulls pages/arrays to host (spill, "
             "exchange serialization, result decode), h2d:<label> "

@@ -48,10 +48,16 @@ from typing import Dict, List, Optional, Tuple
 # THE concurrency registry (site name -> what the lock guards).
 
 LOCK_REGISTRY: Dict[str, str] = {
+    "cache.persist.ManifestStore._lock":
+        "one manifest's entry map, pending-append queue and claim "
+        "flags (every append and compaction runs OUTSIDE it)",
     "cuda._lock":
         "kernel library builds and loads (one nvcc per source, once)",
     "cuda._count_lock":
         "the kernel launch and plain-twin call counters",
+    "dist.checkpoint.CheckpointJournal._lock":
+        "the journal's in-memory query records (barrier mutations; the "
+        "durable publish runs OUTSIDE it)",
     "dist.connpool.ConnectionPool._lock":
         "the per-destination keep-alive connection free-lists (take/put "
         "are pure list ops — every connect, send and read happens "
@@ -118,6 +124,9 @@ THREAD_REGISTRY: Dict[str, str] = {
         "the heartbeat detector's ping loop",
     "server.http_server:self._run":
         "one thread per submitted statement: admission, then execution",
+    "server.http_server:self._reattach_run":
+        "one journaled query's recovery on a restarted coordinator "
+        "(dist/checkpoint.reattach_query, under the serial exec lock)",
     "server.http_server:self._httpd.serve_forever":
         "the coordinator's HTTP accept loop",
     "server.worker:self._run_task":

@@ -13,7 +13,7 @@ stateless per query.
 The engine is the port's LocalRunner on the server's device (the card
 unless ``device="cpu"``). Without ``memory_budget_bytes`` queries run
 one at a time on one bootstrap runner (the serial path; with
-``worker_uris`` plain queries dispatch through the stage-DAG DcnRunner).
+``worker_uris`` plain queries dispatch through the DcnRunner).
 With it, each query runs on its own runner and executor, admitted by
 resource group and by estimated device footprint (MemoryArbiter), and
 their single-split fused launches gang through one shared
@@ -22,9 +22,18 @@ every per-query executor replays the same captures; every query thread
 issues on its own current stream, the legacy default stream, so a
 replay's output clone and the next replay stay ordered.
 
+Coordinator HA: with ``checkpoint_dir`` (or the checkpoint_dir session
+property) each query's admission, its stage-DAG barriers, its result
+and every client-protocol page handed out are journaled
+(dist/checkpoint.py). A server booted on the same directory re-attaches
+every journaled query under its original id: the spooled fast path
+resumes from the surviving producer spools (dead ones re-dispatched),
+else the statement re-runs, else the query fails with
+CoordinatorRestarted; the client's stream resumes at its token once
+the delivered pages' digests verify.
+
 Not ported, each raising NotImplementedError naming its ROADMAP queue:
-the tailing cursor and IVM (``start_tail``; queue 5), the checkpoint
-journal and re-attach (``checkpoint_dir``; queue 4), plugins (queue 5)
+the tailing cursor and IVM (``start_tail``; queue 5), plugins (queue 5)
 and the mesh (queue 4, item 14). The result cache and cache-aware
 admission are not ported (queue 5: no statement is ever a cache hit);
 access control is allow-all; runtime tables need the system catalog,
@@ -81,6 +90,10 @@ class _Query:
         self.runner = None
         self.resource_group = None
         self.in_admission = False
+        # the durable journal handle (dist/checkpoint.QueryCheckpoint):
+        # non-None means this query's lifecycle and protocol-token
+        # advances are journaled for crash re-attach
+        self.checkpoint = None
 
     def _finish_clock(self) -> None:
         if self.finished_at is None:
@@ -182,10 +195,19 @@ class QueryManager:
 
     def __init__(self, runner_factory, listeners=(),
                  resource_groups=None, memory_arbiter=None,
-                 listener_error_counter=None):
+                 listener_error_counter=None, journal=None,
+                 counter_executor=None, dcn=None):
         from presto_tpu_torch.obs.histo import Histogram
 
         self._runner_factory = runner_factory
+        # the durable coordinator journal: the server's (checkpoint.dir
+        # etc key / constructor), or one bound lazily from the
+        # checkpoint_dir session property at the first enabled submit
+        self.journal = journal
+        self._counter_ex = counter_executor
+        # the DCN dispatch plane whose scheduler barriers the query's
+        # checkpoint handle is attached to
+        self._dcn = dcn
         self._queries: Dict[str, _Query] = {}
         self._seq = 0
         self._lock = make_lock("server.http_server.QueryManager._lock")
@@ -217,6 +239,24 @@ class QueryManager:
         self.stage_histo = Histogram()
         register_owner(self)
 
+    def _journal_for(self, session: Session):
+        """The journal this query's barriers record to, or None
+        (checkpoint_enabled false, or no directory anywhere)."""
+        if not bool(session.get("checkpoint_enabled")):
+            return None
+        if self.journal is not None:
+            return self.journal
+        d = session.get("checkpoint_dir")
+        if not d:
+            return None
+        from presto_tpu_torch.dist.checkpoint import CheckpointJournal
+
+        j = CheckpointJournal(d, counter_ex=self._counter_ex)
+        with self._lock:
+            if self.journal is None:
+                self.journal = j
+            return self.journal
+
     def _next_id(self) -> str:
         with self._lock:
             self._seq += 1
@@ -236,6 +276,13 @@ class QueryManager:
         q.resource_group = group
         with self._lock:
             self._queries[q.id] = q
+        j = self._journal_for(session)
+        if j is not None:
+            # the admission barrier: statement, session and group land
+            # durably before the execution thread exists
+            q.checkpoint = j.admit(
+                q.id, sql, _session_snapshot(session),
+                str(group.paths[-1]) if group is not None else None)
         E.dispatch(self.listeners, "query_created", E.QueryCreatedEvent(
             query_id=q.id, sql=sql, user=session.user,
             create_time=q.created,
@@ -361,12 +408,21 @@ class QueryManager:
 
     def _execute(self, q: _Query, runner=None) -> None:
         self._queue_exit(q)
+        ckpt = q.checkpoint
         if q.cancelled:
             # canceled while queued: still record completion so event
             # listeners and /metrics see every created query finish
             self._record_completion(q)
+            if ckpt is not None:
+                ckpt.delivered()  # nothing left to recover
             return
         q.state = "RUNNING"
+        if ckpt is not None:
+            ckpt.running()
+            # the stage barriers ride the DCN scheduler, which reads
+            # this handle; serial path only, so one query owns it
+            if self._dcn is not None:
+                self._dcn.checkpoint_handle = ckpt
         prev_trace = None
         try:
             if runner is None:
@@ -391,6 +447,11 @@ class QueryManager:
                     q.set_session[stmt.name] = str(stmt.value)
             if not q.cancelled:
                 q.state = "FINISHED"
+                if ckpt is not None:
+                    # the rows exist but the client has not drained
+                    # them: the record stays (with columns and row
+                    # count) until the stream completes
+                    ckpt.finished(q.columns or [], len(q.rows))
         except Exception as e:  # noqa: BLE001 - the protocol surfaces
             # EVERY query failure as a FAILED state with an error body
             # (reference: QueryResults.error), never as a dropped
@@ -399,7 +460,11 @@ class QueryManager:
                 q.error = {"message": str(e)[:2000],
                            "errorName": type(e).__name__}
                 q.state = "FAILED"
+                if ckpt is not None:
+                    ckpt.failed(str(e), type(e).__name__)
         finally:
+            if ckpt is not None and self._dcn is not None:
+                self._dcn.checkpoint_handle = None
             q._finish_clock()
             if runner is not None:
                 # snapshot the finished trace before the serial runner
@@ -598,8 +663,9 @@ def _session_snapshot(session: Session) -> Dict:
 
 class _DcnServerRunner:
     """The serial path's runner when a worker fleet is configured:
-    plain queries dispatch through the DcnRunner (the stage DAG, or a
-    local run of a plan the DAG refuses), everything else — SET, DDL,
+    plain queries dispatch through the DcnRunner (the legacy cuts, the
+    stage DAG, or a local run of a plan neither distributes), everything
+    else — SET, DDL,
     SHOW, EXPLAIN, prepared statements — runs on the local engine. The
     DCN coordinator's root fragment executes on the SAME bootstrap
     runner, so sessions, traces and counters are one surface either
@@ -847,8 +913,18 @@ class _Handler(BaseHTTPRequestHandler):
         chunk = q.rows[lo:hi]
         if chunk:
             out["data"] = chunk
+        ckpt = q.checkpoint
         if hi < len(q.rows):
             out["nextUri"] = f"{base}/v1/statement/{q.id}/{token + 1}"
+            if ckpt is not None:
+                # the protocol-token barrier: this page is now in the
+                # client's hands, so a restarted coordinator resumes AT
+                # token + 1 after checking this page's digest
+                from presto_tpu_torch.dist.checkpoint import page_digest
+
+                ckpt.note_client_token(token + 1, page_digest(chunk))
+        elif ckpt is not None:
+            ckpt.delivered()  # the whole stream went out
         return out
 
 
@@ -889,9 +965,6 @@ class PrestoTpuServer:
                               "queue 1 item 4, item 14")
         if plugins:
             raise _not_ported("plugins", "queue 5")
-        if checkpoint_dir:
-            raise _not_ported("the coordinator checkpoint journal",
-                              "queue 1 item 4")
         self.device = resolve_device(device)
         self.catalogs = dict(catalogs)
         self.port = port
@@ -928,6 +1001,15 @@ class PrestoTpuServer:
                                   session_props={"page_rows": page_rows},
                                   device=self.device)
             self._dcn.runner = self._runner
+        # the durable coordinator journal: the checkpoint.dir etc key or
+        # this argument (a bare checkpoint_dir session property binds
+        # lazily in the manager at the first enabled submit)
+        self._journal = None
+        if checkpoint_dir:
+            from presto_tpu_torch.dist.checkpoint import CheckpointJournal
+
+            self._journal = CheckpointJournal(
+                checkpoint_dir, counter_ex=self._runner.executor)
         memory_arbiter = None
         # cross-query launch batching: ONE shared batch point for the
         # concurrent path's per-query executors — attachment is what
@@ -978,6 +1060,9 @@ class PrestoTpuServer:
             resource_groups=resource_groups,
             memory_arbiter=memory_arbiter,
             listener_error_counter=self._runner.executor.count_listener_error,
+            journal=self._journal,
+            counter_executor=self._runner.executor,
+            dcn=self._dcn,
         )
         if self._launch_batcher is not None:
             # gather only when there is someone to gang with: a lone
@@ -1002,6 +1087,94 @@ class PrestoTpuServer:
                 device=self.device)
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # crash re-attach: pick up every query a previous coordinator
+        # journaled but never delivered, once per journal and process
+        if self._journal is not None and self._journal.claim_reattach():
+            self._reattach_pending()
+
+    def _reattach_pending(self) -> None:
+        """Register a _Query under its ORIGINAL id (the client's
+        persisted nextUri names it) for every journaled in-flight query
+        and recover each on a daemon thread (_reattach_run)."""
+        from presto_tpu_torch.dist.checkpoint import QueryCheckpoint
+
+        pending = self._journal.pending()
+        mgr = self.manager
+        for qid in sorted(pending):
+            rec = pending[qid]
+            sess = rec.get("session") or {}
+            try:
+                session = Session(
+                    user=sess.get("user", "presto"),
+                    catalog=sess.get("catalog") or self._default_catalog,
+                    schema=sess.get("schema", "default"),
+                    properties=sess.get("values") or None)
+            except Exception:  # noqa: BLE001 - a persisted property the
+                # port no longer accepts must not kill the pass: the
+                # query recovers under a default session
+                session = Session(catalog=self._default_catalog)
+            q = _Query(qid, rec.get("sql") or "", session)
+            q.state = "RUNNING"
+            q.checkpoint = QueryCheckpoint(self._journal, qid)
+            with mgr._lock:
+                mgr._queries[qid] = q
+            threading.Thread(target=self._reattach_run, args=(q, rec),
+                             daemon=True).start()
+
+    def _reattach_run(self, q: _Query, rec: Dict) -> None:
+        """Recover one journaled query (dist/checkpoint.reattach_query)
+        and verify every page the old process already handed the client
+        against the regenerated rows. Any failure becomes a FAILED query
+        at the client's nextUri (CoordinatorRestarted when the state
+        was not recoverable), never a hang."""
+        from presto_tpu_torch.dist import checkpoint as CKPT
+
+        ckpt = q.checkpoint
+        try:
+            if rec.get("state") == "failed":
+                # the query had already failed: the SAME error body at
+                # the client's persisted nextUri
+                q.error = rec.get("error") or {
+                    "message": "query failed before the restart",
+                    "errorName": "QueryFailed"}
+                q.state = "FAILED"
+                return
+            # the recovery re-executes on the shared serial engine
+            with self.manager._exec_lock:
+                self._runner.session = q.session
+                res = CKPT.reattach_query(rec, self._dcn,
+                                          self._runner.executor)
+            cols = rec.get("columns") or [
+                {"name": n, "type": "unknown"} for n in res.column_names]
+            types = [c["type"] for c in cols]
+            rows = [_json_row(r, types) for r in res.rows]
+            page_sha = rec.get("page_sha") or {}
+            for i in range(int(rec.get("token") or 0)):
+                want = page_sha.get(str(i))
+                got = CKPT.page_digest(
+                    rows[i * _PAGE_ROWS:(i + 1) * _PAGE_ROWS])
+                if want is not None and got != want:
+                    raise CKPT.CoordinatorRestarted(
+                        f"resumed result stream diverges at page {i} "
+                        "(digest mismatch with the delivered prefix)")
+            q.columns = cols
+            q.rows = rows
+            q.state = "FINISHED"
+            if ckpt is not None:
+                ckpt.finished(cols, len(rows))
+        except Exception as e:  # noqa: BLE001 - the loud-fail leg
+            q.error = {
+                "message": str(e)[:2000],
+                "errorName": ("CoordinatorRestarted"
+                              if isinstance(e, CKPT.CoordinatorRestarted)
+                              else type(e).__name__)}
+            q.state = "FAILED"
+            if ckpt is not None:
+                ckpt.failed(str(e), q.error["errorName"])
+        finally:
+            q._finish_clock()
+            q.done.set()
+            self.manager._record_completion(q)
 
     def start_tail(self, sql: str, session: Session):
         """The tailing cursor over an append-only stream."""
@@ -1056,8 +1229,10 @@ class PrestoTpuServer:
 
 def main(argv=None) -> int:  # pragma: no cover - subprocess entry
     """Coordinator process entry: boots a PrestoTpuServer (over a worker
-    fleet when --workers is given), prints its port as one JSON line,
-    then serves until interrupted."""
+    fleet when --workers is given, with a durable journal when
+    --checkpoint-dir is given: a successor booted on the same directory
+    re-attaches the queries this process left), prints its port as one
+    JSON line, then serves until interrupted."""
     import argparse
 
     parser = argparse.ArgumentParser()
@@ -1067,6 +1242,7 @@ def main(argv=None) -> int:  # pragma: no cover - subprocess entry
     parser.add_argument("--page-rows", type=int, default=1 << 16)
     parser.add_argument("--workers", default="",
                         help="comma-separated worker base uris")
+    parser.add_argument("--checkpoint-dir", default="")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     args = parser.parse_args(argv)
@@ -1079,7 +1255,7 @@ def main(argv=None) -> int:  # pragma: no cover - subprocess entry
         {args.suite: cls(args.scale, device=args.device)}, port=args.port,
         default_catalog=args.suite, page_rows=args.page_rows,
         worker_uris=[u for u in args.workers.split(",") if u],
-        device=args.device,
+        checkpoint_dir=args.checkpoint_dir, device=args.device,
     )
     port = srv.start()
     print(json.dumps({"port": port}), flush=True)

@@ -1,15 +1,21 @@
 """Worker: the /v1/task control plane + the spooled-exchange data plane.
 
-Port of presto_tpu/server/worker.py for the stage-DAG path (reference:
-presto-main server/TaskResource.java — task create/status/cancel —,
+Port of presto_tpu/server/worker.py (reference: presto-main
+server/TaskResource.java — task create/status/cancel —,
 execution/SqlTaskManager.java — task registry + execution — and
 execution/buffer/OutputBuffer consumed by HttpPageBufferClient with
-at-least-once + token-dedupe semantics).
+at-least-once + token-dedupe semantics), with the cut analysis of the
+legacy distributed shapes (find_partial_cut, find_union_cut,
+hash_fanout_plan, hash_fanout_source) that dist/dcn.py runs.
 
 A task carries a SERIALIZED physical-plan fragment (dist/plan_serde.py)
 plus either a split assignment (a leaf fragment scans its round-robin
-share of ``splitTable``) or ``sources`` (RemoteSource suppliers reading
-upstream tasks' spools), or both. Its output is partitioned by
+share of ``splitTable``, or with ``splitMode: "hash"`` the rows of each
+table in ``partitionColumns`` whose key hashes to it —
+HashSplitConnector) or ``sources`` (RemoteSource suppliers reading
+upstream tasks' spools), or both. A legacy cut's task (no
+``outputPartitions``) buffers its output as serialized host pages in a
+token-acked list. A stage-DAG task's output is partitioned by
 hash(``outputKeys``) % ``outputPartitions`` and SPOOLED (_TaskSpool):
 
   - the device tier (``device_exchange_enabled``, on by default on the
@@ -20,9 +26,10 @@ hash(``outputKeys``) % ``outputPartitions`` and SPOOLED (_TaskSpool):
 
 Both tiers share one resident-byte budget per task
 (``spool_exchange_bytes``): past it, pages serialize into disk-tier
-PageStore files. A spool is published only after the fragment's
-attempt completes overflow-free, and is freed on DELETE and on task
-expiry.
+PageStore files. Either output is published only after the fragment's
+attempt completes overflow-free (Executor.stream_fragment: an
+overflow re-runs the fragment boosted, a persistent one fails the task
+loudly), and is freed on DELETE and on task expiry.
 
 Routes: ``POST /v1/task`` (create), ``GET /v1/task/{id}`` (status:
 state, the spool's per-partition rows, bytes and wire bytes, the
@@ -67,11 +74,15 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from presto_tpu_torch import obs as OBS
 from presto_tpu_torch import resolve_device
-from presto_tpu_torch.connectors.split_filter import SplitFilterConnector
+from presto_tpu_torch.connectors.split_filter import (
+    HashSplitConnector,
+    SplitFilterConnector,
+)
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec import shapes as SH
 from presto_tpu_torch.exec import xfer as XF
@@ -244,6 +255,9 @@ class _Task:
 
     def __init__(self, task_id: str):
         self.task_id = task_id
+        # a legacy-cut task's output: serialized host pages, published
+        # at once after an overflow-free attempt (partition 0 only)
+        self.pages: List[bytes] = []
         self.spool: Optional[_TaskSpool] = None
         self.done = False
         self.error: Optional[str] = None
@@ -261,9 +275,18 @@ class _Task:
         self.spans: Optional[List[Dict]] = None
 
     def part_count(self, part: int) -> int:
-        if self.spool is None or part >= len(self.spool.parts):
+        if self.spool is None:
+            return len(self.pages) if part == 0 else 0
+        if part >= len(self.spool.parts):
             return 0
         return self.spool.parts[part].count
+
+    def part_entry(self, part: int, token: int):
+        """Spool entry ``token`` of partition ``part`` (a legacy task's
+        buffered blob is its own entry)."""
+        if self.spool is None:
+            return ("blob", self.pages[token])
+        return self.spool.parts[part].entries[token]
 
     def part_released(self, part: int) -> bool:
         return (self.spool is not None
@@ -271,8 +294,192 @@ class _Task:
                 and self.spool.parts[part].released)
 
     def free(self) -> None:
+        self.pages.clear()
         if self.spool is not None:
             self.spool.close()
+
+
+# ---------------------------------------------------------------------
+# Cut analysis of the legacy distributed shapes (dist/dcn.py execute):
+# pure plan walks, the reference's rules.
+
+def find_partial_cut(plan: P.PhysicalNode) -> Optional[P.Aggregation]:
+    """The topmost single-step aggregation — the PARTIAL/FINAL split
+    point for the DCN boundary (reference: AddExchanges splitting
+    AggregationNode into PARTIAL below / FINAL above the exchange)."""
+    if isinstance(plan, P.Aggregation) and plan.step == "single":
+        return plan
+    for c in plan.children():
+        hit = find_partial_cut(c)
+        if hit is not None:
+            return hit
+    return None
+
+
+def row_local_scan_count(node: P.PhysicalNode,
+                         split_table: str) -> Optional[int]:
+    """How many times ``split_table`` is scanned under ``node``, or None
+    when the subtree is not ROW-LOCAL — when the multiset of its output
+    rows is NOT the disjoint union of the outputs over a row-partition
+    of split_table (all other tables replicated).
+
+    Row-local shapes: Filter / Project / Exchange / TableScan / INNER
+    hash joins. Inner joins distribute over a partition of any single
+    table (each result row maps to exactly one row of it); outer, semi,
+    anti and cross joins, aggregations, sorts, limits, windows and
+    MarkDistinct do not (a MarkDistinct would mark first occurrences
+    per worker and double-count values spanning workers)."""
+    if isinstance(node, P.TableScan):
+        return 1 if node.table == split_table else 0
+    if isinstance(node, (P.Filter, P.Project, P.Exchange)):
+        return row_local_scan_count(node.source, split_table)
+    if isinstance(node, P.HashJoin):
+        if node.join_type != "inner":
+            return None
+        left = row_local_scan_count(node.left, split_table)
+        right = row_local_scan_count(node.right, split_table)
+        if left is None or right is None:
+            return None
+        return left + right
+    return None
+
+
+def fanout_safe(cut: P.Aggregation, split_table: str) -> bool:
+    """Whether the PARTIAL subtree distributes over a round-robin
+    partition of split_table's rows: decomposable aggregates with no
+    DISTINCT masks, and a row-local source with exactly ONE scan of the
+    split table. Other shapes take the union cut or run locally."""
+    if any(s.mask is not None for s in cut.aggregates):
+        return False
+    return row_local_scan_count(cut.source, split_table) == 1
+
+
+def find_union_cut(plan: P.PhysicalNode,
+                   split_table: str) -> Optional[P.PhysicalNode]:
+    """The TOPMOST row-local subtree scanning split_table exactly once —
+    the distribution shape for plans with no decomposable aggregation
+    cut (reference: a SOURCE_DISTRIBUTION leaf fragment under a GATHER
+    exchange). Workers execute the subtree over their split share; the
+    coordinator replaces it with a RemoteSource and runs everything
+    above (sort / topN / window / non-decomposable aggregation) over the
+    unioned pages. None when no useful cut exists: a bare scan or a pure
+    projection of one is not worth shipping (generation is cheaper than
+    the wire), so the cut must contain a join or a filter."""
+
+    def has_work(n) -> bool:
+        if isinstance(n, (P.HashJoin, P.Filter)):
+            return True
+        return any(has_work(c) for c in n.children())
+
+    if row_local_scan_count(plan, split_table) == 1 and has_work(plan):
+        return plan
+    for c in plan.children():
+        hit = find_union_cut(c, split_table)
+        if hit is not None:
+            return hit
+    return None
+
+
+def hash_fanout_plan(cut: P.Aggregation, catalogs,
+                     partition_threshold: int = 1 << 17):
+    """Co-partitioning spec for a PARTITIONED JOIN fan-out below an
+    aggregation cut; the aggregates decompose by fanout_safe's rule (no
+    DISTINCT masks). See hash_fanout_source."""
+    if any(s.mask is not None for s in cut.aggregates):
+        return None
+    return hash_fanout_source(cut.source, catalogs, partition_threshold)
+
+
+def big_tables_under(node: P.PhysicalNode, catalogs,
+                     partition_threshold: int) -> set:
+    """Names of the scanned tables under ``node`` with at least
+    ``partition_threshold`` rows: the tables a fan-out must
+    co-partition (smaller ones replicate)."""
+    out = set()
+
+    def walk(x):
+        if isinstance(x, P.TableScan):
+            if catalogs[x.catalog].row_count(x.table) >= \
+                    partition_threshold:
+                out.add(x.table)
+            return
+        for c in x.children():
+            walk(c)
+
+    walk(node)
+    return out
+
+
+def hash_fanout_source(root: P.PhysicalNode, catalogs,
+                       partition_threshold: int = 1 << 17):
+    """Co-partitioning spec for a PARTITIONED JOIN fan-out (the legacy
+    hash-repartition exchange; reference: AddExchanges choosing
+    REPARTITION with hash exchanges on both join sides).
+
+    Returns {"catalog.table": partition_column} covering every BIG
+    scanned table (row_count >= partition_threshold), or None when the
+    shape does not co-partition. The shape under ``root``: Filter /
+    Project / Exchange / TableScan / INNER hash joins; every join with
+    big tables on BOTH sides must equi-join on a first key that is
+    provably a column of each side's one big table
+    (exec/plan.scan_column_of), not string- or dictionary-typed
+    (dictionary codes are table-local, so equal values would hash to
+    different workers), and each big table takes exactly ONE partition
+    column; small tables replicate."""
+    from presto_tpu_torch import types as T
+
+    parts: dict = {}
+    state = {"ok": True}
+
+    def assign(table: str, column: str):
+        if parts.get(table, column) != column:
+            state["ok"] = False  # conflicting partition keys
+        parts[table] = column
+
+    def walk(n):
+        if not state["ok"]:
+            return
+        if isinstance(n, (P.Filter, P.Project, P.Exchange, P.TableScan)):
+            for c in n.children():
+                walk(c)
+            return
+        if not isinstance(n, P.HashJoin) or n.join_type != "inner":
+            state["ok"] = False
+            return
+        left_big = big_tables_under(n.left, catalogs, partition_threshold)
+        right_big = big_tables_under(n.right, catalogs,
+                                     partition_threshold)
+        if left_big and right_big:
+            # partitioned join: both sides keyed by their own table
+            # columns, co-partitioned on this equi-key
+            if len(n.left_keys) < 1:
+                state["ok"] = False
+                return
+            lsrc = P.scan_column_of(n.left, n.left_keys[0])
+            rsrc = P.scan_column_of(n.right, n.right_keys[0])
+            if lsrc is None or rsrc is None:
+                state["ok"] = False
+                return
+            for cat, table, col in (lsrc, rsrc):
+                t = catalogs[cat].table_schema(table).column_type(col)
+                if T.is_string(t) or t.is_dictionary_encoded:
+                    state["ok"] = False
+                    return
+            # the key must constrain EVERY big table on its side: a
+            # second big table not keyed by this join cannot
+            # co-partition
+            if left_big != {lsrc[1]} or right_big != {rsrc[1]}:
+                state["ok"] = False
+                return
+            assign(f"{lsrc[0]}.{lsrc[1]}", lsrc[2])
+            assign(f"{rsrc[0]}.{rsrc[1]}", rsrc[2])
+        walk(n.left)
+        walk(n.right)
+
+    walk(root)
+    if not state["ok"] or len(parts) < 2:
+        return None
+    return parts
 
 
 def largest_table(node: P.PhysicalNode, catalogs) -> Optional[str]:
@@ -342,6 +549,8 @@ def _entry_blob(entry) -> bytes:
         from presto_tpu_torch.dist import spool as SPOOL
 
         return SPOOL.spool_blob(entry[1])
+    if entry[0] == "blob":
+        return entry[1]
     store, i = entry
     return store.blob_at(i)
 
@@ -366,7 +575,7 @@ def _results(app, task: _Task, part: int, token: int, max_bytes: int):
             if task.part_released(part):
                 return _jresp({"error": _RELEASED.format(part)}, 410)
             if token < task.part_count(part):
-                entry = task.spool.parts[part].entries[token]
+                entry = task.part_entry(part, token)
             elif task.done:
                 return (204, [("X-Done", "1")], _JSON_CT, b"")
         if entry is None:
@@ -392,7 +601,7 @@ def _results(app, task: _Task, part: int, token: int, max_bytes: int):
             with task.lock:
                 if not (task.error or task.part_released(part)) and \
                         nxt < task.part_count(part):
-                    entry = task.spool.parts[part].entries[nxt]
+                    entry = task.part_entry(part, nxt)
         return (200, [("X-Next-Token", str(token + len(frames))),
                       ("X-Done", "0"), ("X-Frames", str(len(frames)))],
                 _PAGES_CT, SPOOL.pack_frames(frames))
@@ -681,7 +890,20 @@ class TaskRuntime:
                 time.sleep(exec_delay / 1000.0)
             index, count = int(req["splitIndex"]), int(req["splitCount"])
             sources = req.get("sources") or {}
-            if req.get("splitTable"):
+            if req.get("splitMode") == "hash":
+                # the legacy hash fan-out: co-partitioned scans; the
+                # spec is keyed "catalog.table", so a same-named table
+                # of another catalog replicates untouched
+                part_cols = req["partitionColumns"]
+                catalogs = {
+                    name: HashSplitConnector(
+                        conn, {t.split(".", 1)[1]: c
+                               for t, c in part_cols.items()
+                               if t.split(".", 1)[0] == name},
+                        index, count)
+                    for name, conn in self.catalogs.items()
+                }
+            elif req.get("splitTable"):
                 catalogs = {
                     name: SplitFilterConnector(conn, req["splitTable"],
                                                index, count)
@@ -695,8 +917,8 @@ class TaskRuntime:
                 # full table: refuse loudly
                 raise ValueError(
                     "task payload carries neither a split assignment "
-                    "(splitTable) nor spooled-exchange sources — "
-                    "refusing to run the fragment unsplit")
+                    "(splitTable/splitMode) nor spooled-exchange sources "
+                    "— refusing to run the fragment unsplit")
             session = {"page_rows": self.page_rows,
                        **(req.get("session") or {})}
             runner = LocalRunner(catalogs, self.default_catalog,
@@ -712,6 +934,37 @@ class TaskRuntime:
                         spec, retries=3, backoff_s=backoff,
                         deadline=ex.query_deadline,
                         on_local=ex.count_mesh_local))
+            # overflow discipline (Executor.stream_fragment, the
+            # query-scope ladder): output publishes only after the
+            # fragment's attempt completes with its overflow flags
+            # clear, so a truncated page set never reaches the
+            # coordinator; an overflow re-runs the fragment at boosted
+            # capacities, and a persistent one fails the task loudly
+            if not (sources or req.get("outputPartitions")):
+                # a legacy cut's task: host pages serialized into a
+                # token-acked list, published whole after the attempt.
+                # Every page crosses the wire, so only its valid rows
+                # ship, compacted on the host: a filtered or joined
+                # page's live prefix is most of its capacity
+                def emit_blob(page) -> bytes:
+                    host = XF.to_host(page, label="task-emit")
+                    idx = np.nonzero(XF.np_host(host.valid))[0]
+                    return serde.serialize_page(
+                        SPOOL.take_rows_host(host, idx))
+
+                blobs = ex.stream_fragment(
+                    fragment, emit_blob, cancelled=lambda: task.cancelled)
+                if wtr is not None:
+                    wtr.complete("run", task.task_id, run_t0, wtr.now(),
+                                 pages=len(blobs))
+                with task.lock:
+                    if wtr is not None:
+                        task.spans = wtr.export()
+                    if not task.cancelled:
+                        task.pages.extend(blobs)
+                    task.boost_retries = ex.capacity_boost_retries
+                    task.done = True
+                return
             nparts = max(int(req.get("outputPartitions") or 1), 1)
             out_keys = tuple(req.get("outputKeys") or ())
             budget = int(runner.session.get("spool_exchange_bytes"))
@@ -844,6 +1097,13 @@ class WorkerServer(TaskRuntime):
         self.uri = f"http://127.0.0.1:{self.port}"
         self._thread: Optional[threading.Thread] = None
         self._stopped = False
+        # set once a stop() has finished: a second stop() (a restart on
+        # the same port racing a kill fault's stop thread) waits for it,
+        # so the port is free when it returns
+        self._stop_done = threading.Event()
+        # True when this worker is its process's only tenant (main()):
+        # FAULT_KILL_AFTER_FETCHES then hard-exits the process
+        self.owns_process = False
 
     def start(self) -> int:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
@@ -853,6 +1113,8 @@ class WorkerServer(TaskRuntime):
         return self.port
 
     def _kill(self) -> None:
+        if self.owns_process:
+            super()._kill()
         # a worker sharing its process with others dies by its stop(),
         # not os._exit; off the handler thread, which stop() would
         # otherwise wait on
@@ -862,8 +1124,10 @@ class WorkerServer(TaskRuntime):
         """The worker's death: unregister FIRST (a stopped worker must
         look remote-and-dead to local consumers, never serve stale
         spools), stop serving, drop open connections and free every
-        task's spool. Idempotent."""
+        task's spool. Idempotent: a stop() racing another returns once
+        that one has finished."""
         if self._stopped:
+            self._stop_done.wait(60)
             return
         self._stopped = True
         if local_runtime(self.uri) is self:
@@ -873,3 +1137,44 @@ class WorkerServer(TaskRuntime):
         self._httpd.server_close()
         self._httpd.drop_connections()
         self.free_all()
+        self._stop_done.set()
+
+
+def main(argv=None) -> int:  # pragma: no cover - subprocess entry
+    """Worker process entry: serves one generated catalog on the card
+    (or ``--device cpu``), prints its port as one JSON line, then serves
+    until interrupted. FAULT_* environment knobs apply; a kill fault
+    hard-exits the process."""
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--port", type=int, default=0)
+    parser.add_argument("--suite", default="tpch")
+    parser.add_argument("--scale", type=float, default=0.01)
+    parser.add_argument("--node-id", default="w0")
+    parser.add_argument("--page-rows", type=int, default=1 << 16)
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the card)")
+    args = parser.parse_args(argv)
+
+    if args.suite == "tpch":
+        from presto_tpu_torch.connectors.tpch import TpchConnector as cls
+    else:
+        from presto_tpu_torch.connectors.tpcds import TpcdsConnector as cls
+    srv = WorkerServer({args.suite: cls(args.scale, device=args.device)},
+                       port=args.port, node_id=args.node_id,
+                       default_catalog=args.suite,
+                       page_rows=args.page_rows, device=args.device)
+    srv.owns_process = True
+    port = srv.start()
+    print(json.dumps({"port": port, "nodeId": args.node_id}), flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(main())

@@ -17,9 +17,12 @@ different mode by design:
     bound;
   - ``device_memory_budget``'s auto is the card's memory minus 1/8 on a
     CUDA executor (the reference: the TPU's HBM);
-  - ``stage_scheduler`` defaults to "true": the stage DAG is the only
-    distributed plane ported;
   - ``mesh_exchange_mode`` defaults to "false".
+
+``stage_scheduler`` takes the reference's default, "auto": a
+distributed query takes the legacy cuts (the partial-aggregation,
+hash fan-out and union cuts) first and the stage DAG only where none
+applies; "true" forces the DAG first, "false" never uses it.
 
 ``task_retry_attempts`` governs both of its reference planes: the
 executor's device-OOM ladder and the stage scheduler's fault tolerance
@@ -285,9 +288,13 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         PropertyMetadata(
             "stage_scheduler",
             "general fragment-DAG scheduling for DCN queries "
-            "(dist/scheduler.py); true is the only ported mode (the "
-            "legacy agg/union/hash-fanout cuts are not ported)",
-            str, "true",
+            "(dist/scheduler.py): cut ANY plan into a stage DAG with "
+            "gather/broadcast/hash-repartition exchanges, every "
+            "inter-stage exchange spooled on the producing worker. "
+            "auto = engage when the legacy shapes (agg-cut / "
+            "union-cut / hash-fanout) do not apply; true forces DAG "
+            "scheduling first; false disables it",
+            str, "auto",
             validate=_tristate,
         ),
         PropertyMetadata(
@@ -421,9 +428,23 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             bool, False,
         ),
         PropertyMetadata(
+            "checkpoint_enabled",
+            "journal coordinator query state durably at natural "
+            "barriers (dist/checkpoint.py): admission, every "
+            "spooled-stage boundary, final-stage registration, drain "
+            "progress and client-protocol token advances, so a "
+            "restarted coordinator re-attaches RUNNING queries whose "
+            "producer spools still answer. Effective only when a "
+            "journal directory is configured (checkpoint_dir, or the "
+            "server's checkpoint.dir etc key)",
+            bool, True,
+        ),
+        PropertyMetadata(
             "checkpoint_dir",
-            "coordinator query-state journal directory; not ported "
-            "(empty = off)",
+            "directory of the durable coordinator journal "
+            "(dist/checkpoint.py over cache/persist.ManifestStore: "
+            "generation files, atomic tmp+rename publishes, O(1) "
+            "appends, compaction). Empty = checkpointing off",
             str, "",
         ),
     ]
@@ -444,15 +465,6 @@ _NOT_PORTED = {
         lambda v: v is True,
         "stream_tail_enabled: the tailing cursor and IVM are not ported "
         "(ROADMAP queue 5)"),
-    "checkpoint_dir": (
-        lambda v: v != "",
-        "checkpoint_dir: coordinator checkpointing is not ported "
-        "(ROADMAP queue 1)"),
-    "stage_scheduler": (
-        lambda v: v != "true",
-        "stage_scheduler: only the stage-DAG plane (true) is ported; "
-        "the legacy agg/union/hash-fanout cuts are not (ROADMAP queue "
-        "1)"),
     "hash_partition_count": (
         lambda v: v != 0,
         "hash_partition_count: the mesh plane it sizes is not ported "

@@ -52,7 +52,7 @@ Q_SKEW = "select sfact.k, v, w from sfact join sdim on sfact.k = sdim.k"
 # the reference's CPU session: its kernels off (the port's K2-K4 twins
 # neither position-chunk nor defer, so the counters differ with them on)
 SESSION = {"retry_backoff_ms": 20, "agg_gather_capacity": 64,
-           "pallas_join_enabled": "false"}
+           "pallas_join_enabled": "false", "stage_scheduler": "true"}
 ADAPTIVE = ("adaptive_replans", "adaptive_dist_flips",
             "adaptive_capacity_seeds", "adaptive_replan_rejected")
 

@@ -178,7 +178,9 @@ def test_unnest_distributed(workers):
                          session={"page_rows": 1 << 13}, device="cpu")
     coord = DcnRunner({"tpch": TpchConnector(0.005, device="cpu")},
                       workers, default_catalog="tpch",
-                      session_props={"page_rows": 1 << 13}, device="cpu")
+                      session_props={"page_rows": 1 << 13,
+                                     "stage_scheduler": "true"},
+                      device="cpu")
     got = coord.execute(q)
     assert coord.last_distribution == "stage-dag"
     assert collections.Counter(got) == collections.Counter(

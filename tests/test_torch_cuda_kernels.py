@@ -142,7 +142,8 @@ def test_distributed_q3_family_on_the_card_equals_the_cpu(dev):
         coord = DcnRunner({"tpch": TpchConnector(0.01, device=dev)},
                           [w.uri for w in workers], device=dev,
                           session_props={"join_distribution_type":
-                                         "partitioned"})
+                                         "partitioned",
+                                         "stage_scheduler": "true"})
         cuda.reset_counts()
         rows = coord.execute(sql)
         assert cuda.launches["part_ids"] > 0

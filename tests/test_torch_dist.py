@@ -93,6 +93,7 @@ def _coord(workers, **props):
     session = {"join_distribution_type": "partitioned",
                "device_exchange_enabled": "true",
                "generated_join_enabled": "false",
+               "stage_scheduler": "true",
                "page_rows": PAGE_ROWS, "retry_backoff_ms": 20}
     session.update(props)
     coord = DcnRunner({"tpch": TpchConnector(SF, device="cpu")}, workers,
@@ -270,9 +271,6 @@ def test_unsplittable_plan_runs_locally(workers):
     ("mesh_exchange_mode", "true"),
     ("mesh_exchange_mode", "auto"),
     ("result_cache_remote_probe", "true"),
-    ("checkpoint_dir", "/nonexistent"),
-    ("stage_scheduler", "auto"),
-    ("stage_scheduler", "false"),
     ("hash_partition_count", 4),
 ])
 def test_left_out_planes_raise(prop, value, workers):

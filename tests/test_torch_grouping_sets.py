@@ -197,7 +197,8 @@ def test_rollup_distributed_matches_single(distribution, workers, port):
                       default_catalog="tpch", session_props={
                           "page_rows": PAGE_ROWS,
                           "join_distribution_type": distribution,
-                          "device_exchange_enabled": "true"},
+                          "device_exchange_enabled": "true",
+                          "stage_scheduler": "true"},
                       device="cpu")
     assert rows_eq(coord.execute(q), port.execute(q).rows)
     assert coord.last_distribution == "stage-dag"

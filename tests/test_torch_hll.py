@@ -244,7 +244,8 @@ def test_sql_distributed(sql, workers, port):
                       default_catalog="tpch", session_props={
                           "page_rows": PAGE_ROWS,
                           "join_distribution_type": "partitioned",
-                          "device_exchange_enabled": "true"},
+                          "device_exchange_enabled": "true",
+                          "stage_scheduler": "true"},
                       device="cpu")
     got = coord.execute(sql)
     assert coord.last_distribution == "stage-dag"

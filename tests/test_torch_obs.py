@@ -227,6 +227,7 @@ def test_dcn_dag_traces_stages_tasks_and_worker_spans(workers, tmp_path):
                        "device_exchange_enabled": "true",
                        "generated_join_enabled": "false",
                        "page_rows": PAGE_ROWS, "retry_backoff_ms": 20,
+                       "stage_scheduler": "true",
                        "query_trace_dir": str(tmp_path)},
         device="cpu")
     rows = coord.execute(sql)

@@ -57,7 +57,7 @@ Q_AGG = ("select l_returnflag, count(*), sum(l_quantity) "
          "from lineitem group by l_returnflag")
 SESSION = {"join_distribution_type": "partitioned",
            "device_exchange_enabled": "true",
-           "generated_join_enabled": "false",
+           "generated_join_enabled": "false", "stage_scheduler": "true",
            "page_rows": PAGE_ROWS, "retry_backoff_ms": 20}
 RECOVERY = ("task_retries", "nonleaf_replays", "workers_excluded",
             "speculative_tasks_won", "speculative_tasks_lost")

@@ -339,6 +339,7 @@ def test_distributed_query_ends_without_violations():
                            "device_exchange_enabled": "false",
                            "generated_join_enabled": "false",
                            "query_trace_enabled": "true",
+                           "stage_scheduler": "true",
                            "page_rows": 1 << 13},
             device="cpu")
         rows = coord.execute(

@@ -290,7 +290,7 @@ def test_unported_plane_fails_the_query_with_an_error_body(server):
     a FAILED document (HTTP 400), not a dropped connection; as SET
     SESSION, a FAILED query."""
     c = StatementClient(server=f"http://127.0.0.1:{server.port}")
-    c.session_properties["checkpoint_dir"] = "/tmp/journal"
+    c.session_properties["result_cache_remote_probe"] = "true"
     res = c.execute("select 1")
     assert res.state == "FAILED"
     assert res.error["errorName"] == "NotImplementedError"
@@ -557,7 +557,6 @@ def test_the_server_runs_on_the_card_by_default():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"checkpoint_dir": "/tmp/j"}, "checkpoint"),
     ({"plugins": [object()]}, "plugins"),
     ({"mesh": object()}, "mesh"),
 ])
@@ -589,6 +588,7 @@ def test_embedded_task_plane_serves_a_stage_dag():
     try:
         c = StatementClient(server=f"http://127.0.0.1:{coord.port}")
         c.session_properties["join_distribution_type"] = "partitioned"
+        c.session_properties["stage_scheduler"] = "true"
         text = ("select n_name, count(*) from customer, nation where "
                 "c_nationkey = n_nationkey group by n_name order by n_name")
         res = c.execute(text)

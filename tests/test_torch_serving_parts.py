@@ -567,7 +567,6 @@ def test_server_from_etc_equals_reference(tmp_path):
 
 
 @pytest.mark.parametrize("conf,catalogs,match", [
-    ("checkpoint.dir=/tmp/j\n", CATALOGS, "checkpoint"),
     ("compile-cache.dir=/tmp/c\n", CATALOGS, "compile"),
     ("", {"s": "connector.name=stream\n"}, "queue 5"),
 ])
