@@ -129,6 +129,22 @@ Phases:
            relaunched), again with a dead root-input spool (only .ra
            tasks), and a paged orders stream cut after its first page
            (resumed at its token, no row missing or repeated)
+  mesh     the in-process mesh (dist/executor.py), 4 shards on the one
+           card: (a) LocalRunner(mesh=make_mesh(4)) on Q1 and Q6 at SF 10
+           (== val_q1_sf10.json / val_q6_sf10.json) and Q3 and Q5 at SF 1
+           (== sqlite, in a child process), each at the default
+           thresholds and with every join and group-by forced through
+           the all_to_all, each == the single-process runner, walls
+           beside it, peaks, K1 launches, boost retries; one profiled
+           forced Q1 SF 10; (b) a 6M-row memory table (CTAS on the
+           card) whose hot key owns half the rows: the grouped
+           aggregation, the repartitioned join the boost ladder absorbs
+           and the broadcast escape, == single process, with the
+           per-shard row counts; (c) the ICI plane: Q3 and Q5 at SF 1
+           through the stage DAG over the 4 workers under
+           mesh_exchange_mode auto and false (equal rows; auto lowers
+           its exchanges with K4 and no fallback), and Q3 on the mesh
+           runner with hash_partition_count=2
   profile  (only when asked for) the base scale rungs under each session
            and the dist queries once more under torch.profiler: device
            busy share, device kernels, graph replays, device time by
@@ -163,7 +179,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
               "surface", "statements", "governed", "oom", "analyze",
-              "serve")
+              "serve", "mesh")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -1380,9 +1396,9 @@ def _statements_functions(tpch_card, dev, card) -> None:
 # spill_threshold_bytes with host_spill_bytes (grace passes by
 # threshold, their restreamed sides in host RAM); "disk" adds
 # disk_spill_bytes to the budget or to the threshold (the stores go to
-# files). Each threshold partitions only the builds named: Q3 SF 10's
-# orders build (8 passes over a regenerated lineitem scan, so no store
-# exists to spill, and Q3 has no disk variant); Q5 SF 10's orders build
+# files). Each threshold partitions only the builds named: Q3's
+# orders build (its passes re-read a regenerated lineitem scan, so no
+# store exists to spill, and Q3 has no disk variant); Q5 SF 10's orders build
 # over a stored probe; in each of TPC-DS Q64's two CTE halves, the
 # catalog-side build (95 MB by estimate) over a stored chain that holds
 # the store_sales x store_returns join (111 MB), so that those two nest
@@ -1391,11 +1407,14 @@ def _statements_functions(tpch_card, dev, card) -> None:
 # their stores outgrew the 96 GiB of host memory of a one-card
 # machine). Q5 SF 1 at a 2 MiB threshold nests two grace joins: 16
 # passes over orders inside 8 over customer, the inner join's output
-# stored for the outer's passes
+# stored for the outer's passes. Q3's host-tier variant runs at SF 1
+# (at SF 10 it took 55.8 s on an H100, PERF.md: the script's time limit
+# once the mesh phase came): grace passes by threshold whose probe side
+# re-reads its scan, where the other host-tier rungs store theirs
 GOVERNED = (
-    ("tpch", 3, 10.0, {"budget": {"device_memory_budget": 2 << 30},
-                       "host": {"spill_threshold_bytes": 256 << 20,
-                                "host_spill_bytes": 1}}),
+    ("tpch", 3, 10.0, {"budget": {"device_memory_budget": 2 << 30}}),
+    ("tpch", 3, 1.0, {"host": {"spill_threshold_bytes": 24 << 20,
+                               "host_spill_bytes": 1}}),
     ("tpch", 5, 10.0, {"budget": {"device_memory_budget": 2 << 30},
                        "host": {"spill_threshold_bytes": 256 << 20,
                                 "host_spill_bytes": 1},
@@ -2091,11 +2110,11 @@ def _dist_run(coord, sql):
                         ex.spooled_exchange_rows - rows0)
 
 
-def phase_dist(dev, cluster: "DistCluster") -> dict:
+def phase_dist(dev, cluster: "DistCluster", oracles=None) -> dict:
     """The distributed path (see the module docstring), then its replay
     part (_dist_replay) and its legacy part (_dist_legacy). The sqlite
     oracles of both parts load in a child process from the start of the
-    phase."""
+    phase; ``oracles`` (a dict) keeps them by SF for the mesh phase."""
     import concurrent.futures
     import multiprocessing
 
@@ -2105,7 +2124,10 @@ def phase_dist(dev, cluster: "DistCluster") -> dict:
         oracle_future = pool.submit(_replay_oracles, REPLAY_SF)
         launches = _dist_rungs(dev, cluster)
         replay = _dist_replay(dev, cluster, oracle_future)
-        legacy = _dist_legacy(dev, cluster, oracle_future.result())
+        oracle = oracle_future.result()
+        if oracles is not None:
+            oracles[REPLAY_SF] = oracle
+        legacy = _dist_legacy(dev, cluster, oracle)
         return {k: launches[k] + replay[k] + legacy[k]
                 for k in KERNEL_NAMES}
     finally:
@@ -2216,8 +2238,11 @@ REPLAY_SF = 1.0
 REPLAY_PAGE_ROWS = 1 << 20
 # traced: each faulted run logs its slowest spans (stages, tasks,
 # retries, the root's fetches)
+# (mesh_exchange_mode pinned to false: this part is about the spool
+# plane's recovery, and the mesh plane's landing task is not replayed)
 REPLAY_SESSION = {**DIST_SESSION, "retry_backoff_ms": 20,
-                  "query_trace_enabled": "true"}
+                  "query_trace_enabled": "true",
+                  "mesh_exchange_mode": "false"}
 REPLAY_QUERIES = (3, 5)
 # the root drain's query: a double column summed on the card in both of
 # its stages, so the replay's prefix check holds float work to bit
@@ -3404,8 +3429,11 @@ JOURNAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 REATTACH_STREAM = ("select o_orderkey, o_custkey, o_totalprice from orders "
                    "where o_orderdate < date '1992-04-01' "
                    "order by o_orderkey")
+# (mesh_exchange_mode pinned to false: re-attach resumes from spooled
+# stages, and the mesh plane's landing task is not journaled)
 REATTACH_PROPS = {"join_distribution_type": "partitioned",
-                  "stage_scheduler": "true"}
+                  "stage_scheduler": "true",
+                  "mesh_exchange_mode": "false"}
 
 
 def _journal_bytes(path: str) -> int:
@@ -3865,6 +3893,339 @@ def phase_serve(dev, cluster: "DistCluster") -> dict:
 
 
 
+# ---------------------------------------------------------------- mesh
+MESH_SHARDS = 4
+MESH_PAGE_ROWS = 1 << 20
+MESH_RUNS = ((1, 10.0), (6, 10.0), (3, 1.0), (5, 1.0))
+# K1 on every shard's partial aggregation (Q3's and Q5's revenue sums
+# are long decimals, which K1 does not take, as on one device)
+MESH_REQUIRED = {1: ("segsum",), 6: ("segsum",), 3: (), 5: ()}
+# every join partitions both sides and every group-by repartitions its
+# partial states: the all_to_all on every exchange
+MESH_FORCED = dict(broadcast_rows=64, gather_capacity=16)
+# the skew tables, CTAS on the card from TPC-H SF 1: half of lineitem's
+# 6,001,215 rows (the even order keys) carry the hot key 7, the rest
+# keys 100..1099, each in the dim table once
+SKEW_FACT = ("create table memory.skew_fact as select case when "
+             "l_orderkey % 2 = 0 then 7 else l_orderkey % 1000 + 100 end "
+             "as k, l_partkey as seq, cast(l_extendedprice as double) as v "
+             "from tpch.lineitem")
+SKEW_DIM = ("create table memory.skew_dim as select case when s_suppkey "
+            "= 1 then 7 else s_suppkey + 98 end as k, s_suppkey * 10 as "
+            "label from tpch.supplier where s_suppkey <= 1001")
+SKEW_AGG = ("select k, count(*), sum(v), max(seq) from skew_fact "
+            "group by k order by k")
+SKEW_JOIN = ("select count(*), sum(label), sum(v) from skew_fact, "
+             "skew_dim where skew_fact.k = skew_dim.k")
+# dim forced to partition (its ~1,001 rows > 16): the hot key's probe
+# rows land on one shard
+SKEW_FORCED = dict(broadcast_rows=16, gather_capacity=16)
+SKEW_SF = 1.0
+SKEW_MIN_ROWS = 1 << 22
+ICI_SF = 1.0
+ICI_QUERIES = (3, 5)
+ICI_MODES = ("auto", "false")
+
+
+def _mesh_timed(runner, text) -> tuple:
+    """(rows, walls of TIMED_RUNS runs after one warm-up, peak
+    allocated bytes over them)."""
+    runner.execute(text)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        rows = runner.execute(text).rows
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return rows, walls, torch.cuda.max_memory_allocated()
+
+
+def _mesh_profile(runner, text) -> None:
+    """One profiled run: the device's busy share of the wall and the
+    top 5 device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.execute(text)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"mesh: profiled forced Q1: wall {wall_us / 1e3:.2f} ms, "
+        f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%); "
+        f"top: " + "; ".join(f"{nm[:60]} {us / 1e3:.2f} ms"
+                             for nm, us in top))
+
+
+def _exchange_shard_rows(runner, text, table: str) -> list:
+    """Rows per shard after the repartition of ``table``'s side of the
+    plan, re-run at the settled boost of the last execute."""
+    from presto_tpu_torch.exec import plan as P
+
+    def scans(n):
+        return ((isinstance(n, P.TableScan) and n.table == table)
+                or any(scans(c) for c in n.children()))
+
+    def find(n):
+        if (isinstance(n, P.Exchange) and n.kind == "repartition"
+                and scans(n.source)):
+            return n
+        for c in n.children():
+            hit = find(c)
+            if hit is not None:
+                return hit
+        return None
+
+    node = find(runner.plan(text))
+    ex = runner.executor
+    counts = [0] * MESH_SHARDS
+    for page in ex.pages(node):
+        for j, shard in enumerate(page.shards):
+            counts[j] += int(shard.num_rows())
+    ex._pending_overflow = []
+    return counts
+
+
+def phase_mesh(dev, cluster: "DistCluster", oracles=None) -> dict:
+    """The in-process mesh on the card (see the module docstring):
+    (a) LocalRunner over make_mesh(4), (b) skew, (c) the ICI plane.
+    sqlite's Q3 and Q5 come from ``oracles`` (the dist phase's) or a
+    child process of its own. Returns the main paths' kernel launches:
+    the mesh runs of (a) and (b) and the auto runs of (c), each counted
+    from 0."""
+    import concurrent.futures
+    import multiprocessing
+
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch import queries as PQ
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.dist.executor import DistExecutor, make_mesh
+    from presto_tpu_torch.runner import LocalRunner
+
+    mesh = make_mesh(MESH_SHARDS)
+    log(f"mesh: {mesh.size} shards on {len(mesh.distinct_devices())} "
+        f"card(s) ({', '.join(str(d) for d in mesh.distinct_devices())}); "
+        f"{card_line()}")
+    launches = {k: 0 for k in KERNEL_NAMES}
+
+    def counted(fn):
+        before = dict(cuda.launches)
+        out = fn()
+        delta = {k: cuda.launches.get(k, 0) - before.get(k, 0)
+                 for k in KERNEL_NAMES}
+        for k in KERNEL_NAMES:
+            launches[k] += delta[k]
+        return out, delta
+
+    def runner(sf, mesh_=None, dist_options=None, **props):
+        name = _catalog(sf)
+        return LocalRunner({name: cluster.catalogs[name]}, name,
+                           session={"page_rows": MESH_PAGE_ROWS, **props},
+                           device=dev, mesh=mesh_,
+                           dist_options=dist_options)
+
+    sf_of = dict(MESH_RUNS)
+    oracle = (oracles or {}).get(sf_of[3])
+    pool = None
+    if oracle is None:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        oracle_future = pool.submit(_replay_oracles, sf_of[3])
+    try:
+        # (a) LocalRunner over the mesh
+        readings = {}
+        for q, sf in MESH_RUNS:
+            text = sql("tpch", q)
+            want, s_walls, s_peak = _mesh_timed(runner(sf), text)
+            check_validated(q, sf, want)
+            for label, opts in (("default", None), ("forced", MESH_FORCED)):
+                r = runner(sf, mesh, opts)
+                if not isinstance(r.executor, DistExecutor):
+                    raise AssertionError("the mesh runner has no "
+                                         "DistExecutor")
+                cuda.reset_counts()
+                (got, walls, peak), delta = counted(
+                    lambda r=r: _mesh_timed(r, text))
+                if not same_rows(got, want):
+                    raise AssertionError(
+                        f"mesh Q{q} SF {sf:g} {label}: rows != single "
+                        f"process\n mesh {got[:3]}\n single {want[:3]}")
+                for k in MESH_REQUIRED[q]:
+                    if delta[k] <= 0:
+                        raise AssertionError(f"mesh Q{q} {label}: {k} "
+                                             f"never launched")
+                extra = check_validated(q, sf, got)
+                retries = r.executor.capacity_boost_retries
+                log(f"mesh: Q{q} SF {sf:g} {label} x{MESH_SHARDS} shards: "
+                    f"{len(got)} rows == single process{extra}, wall s "
+                    f"{[round(w, 4) for w in walls]} (median "
+                    f"{statistics.median(walls):.4f}; single process "
+                    f"{statistics.median(s_walls):.4f}), peak alloc "
+                    f"{peak / 2**30:.3f} GiB (single {s_peak / 2**30:.3f}), "
+                    f"K1 launches per run {delta['segsum'] // (1 + TIMED_RUNS)}"
+                    f", K4 {delta['part_ids'] // (1 + TIMED_RUNS)}, boost "
+                    f"retries {retries}, mesh exchanges "
+                    f"{r.executor.mesh_local_exchanges}")
+                readings[(q, label)] = dict(
+                    wall_s=walls, single_wall_s=s_walls, peak_bytes=peak,
+                    launches=delta, boost_retries=retries)
+                if q in (3, 5):
+                    readings[(q, label)]["rows"] = got
+        _mesh_profile(runner(sf_of[1], mesh, MESH_FORCED), sql("tpch", 1))
+        # (b) skew
+        mem = MemoryConnector(device=dev)
+        cats = {"tpch": cluster.catalogs[_catalog(SKEW_SF)], "memory": mem}
+        loader = LocalRunner(cats, "memory", device=dev,
+                             session={"page_rows": MESH_PAGE_ROWS})
+        n_fact = loader.execute(SKEW_FACT).rows[0][0]
+        n_dim = loader.execute(SKEW_DIM).rows[0][0]
+        if n_fact < SKEW_MIN_ROWS:
+            raise AssertionError(f"skew fact holds {n_fact} rows < "
+                                 f"{SKEW_MIN_ROWS}")
+
+        def mem_runner(mesh_=None, opts=None, **props):
+            return LocalRunner({"memory": mem}, "memory", device=dev,
+                               mesh=mesh_, dist_options=opts,
+                               session={"page_rows": MESH_PAGE_ROWS,
+                                        **props})
+
+        single_mem = mem_runner()
+        forced = mem_runner(mesh, SKEW_FORCED)
+        escape = mem_runner(mesh, join_distribution_type="broadcast")
+        for label, text, r in (("aggregation", SKEW_AGG, forced),
+                               ("repartitioned join", SKEW_JOIN, forced),
+                               ("broadcast escape", SKEW_JOIN, escape)):
+            t = time.perf_counter()
+            want = single_mem.execute(text).rows
+            torch.cuda.synchronize()
+            s_wall = time.perf_counter() - t
+            cuda.reset_counts()
+            t = time.perf_counter()
+            (res, delta) = counted(lambda r=r: r.execute(text).rows)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if not same_rows(res, want):
+                raise AssertionError(f"mesh skew {label}: rows != single "
+                                     f"process\n mesh {res[:3]}\n single "
+                                     f"{want[:3]}")
+            shards = (_exchange_shard_rows(r, text, "skew_fact")
+                      if label != "broadcast escape" else None)
+            hot = ""
+            if label == "aggregation":
+                hot_rows = next(row[1] for row in res if row[0] == 7)
+                hot = (f", hot key {hot_rows} rows "
+                       f"({100 * hot_rows / n_fact:.1f}%)")
+            log(f"mesh: skew {label} over {n_fact} fact / {n_dim} dim "
+                f"rows == single process{hot}, first-run wall {wall:.4f} s "
+                f"(single process {s_wall:.4f}), boost retries "
+                f"{r.executor.capacity_boost_retries}, fact rows per "
+                f"shard after the repartition {shards}, K1 launches "
+                f"{delta['segsum']}")
+        # (c) the ICI plane over the DistCluster's workers
+        from presto_tpu_torch.exec import xfer as XF
+
+        local = cluster.local(ICI_SF, MESH_PAGE_ROWS)
+        for q in ICI_QUERIES:
+            text = sql("tpch", q)
+            want = local.execute(text).rows
+            per_mode = {}
+            for mode in ICI_MODES:
+                coord = cluster.coordinator(ICI_SF, MESH_PAGE_ROWS, {
+                    **DIST_SESSION, "mesh_exchange_mode": mode})
+                ex = coord.runner.executor
+                cuda.reset_counts()
+                k4_0 = cuda.launches.get("part_ids", 0)
+
+                snaps, t0 = [], {}
+
+                def runs(coord=coord):
+                    out = []
+                    for i in range(1 + TIMED_RUNS):
+                        if i == TIMED_RUNS:
+                            # the last run snapshots each stage barrier:
+                            # the exchange phase's crossings from the
+                            # transfer ledger
+                            coord._stage_hook = lambda fid: snaps.append(
+                                XF.process_totals())
+                            t0.update(XF.process_totals())
+                        out.append(_dist_run(coord, text)[:2])
+                    coord._stage_hook = None
+                    return out
+
+                ici0 = (ex.ici_exchanges, ex.ici_bytes)
+                if mode == "auto":
+                    out, delta = counted(runs)
+                else:
+                    out = runs()
+                k4 = cuda.launches.get("part_ids", 0) - k4_0
+                rows = out[-1][0]
+                walls = [w for _r, w in out[1:]]
+                h2d = snaps[-2]["h2d_bytes"] - t0["h2d_bytes"]
+                d2h = snaps[-2]["d2h_bytes"] - t0["d2h_bytes"]
+                n_runs = 1 + TIMED_RUNS
+                if not same_rows(rows, want):
+                    raise AssertionError(f"ici Q{q} {mode}: rows != single"
+                                         f" process")
+                if mode == "auto":
+                    if ex.ici_exchanges - ici0[0] < 1 or \
+                            ex.mesh_exchange_fallbacks:
+                        raise AssertionError(
+                            f"ici Q{q} auto: {ex.ici_exchanges} exchanges, "
+                            f"{ex.mesh_exchange_fallbacks} fallbacks")
+                    if k4 <= 0:
+                        raise AssertionError(f"ici Q{q}: K4 never "
+                                             f"launched")
+                per_mode[mode] = rows
+                log(f"mesh: ici Q{q} SF {ICI_SF:g} x{N_WORKERS} workers "
+                    f"mesh_exchange_mode={mode}: {len(rows)} rows == single "
+                    f"process, wall s {[round(w, 4) for w in walls]} "
+                    f"(median {statistics.median(walls):.4f}), ici "
+                    f"exchanges {(ex.ici_exchanges - ici0[0]) // n_runs} "
+                    f"per run, ici_bytes {(ex.ici_bytes - ici0[1]) // n_runs}"
+                    f" per run, "
+                    f"fallbacks {ex.mesh_exchange_fallbacks}, exchange "
+                    f"phase h2d {h2d} B d2h {d2h} B, K4 launches per run "
+                    f"{k4 // (1 + TIMED_RUNS)}")
+                cluster.close_coordinators()
+            if not same_rows(per_mode["auto"], per_mode["false"]):
+                raise AssertionError(f"ici Q{q}: auto != false")
+        hp = runner(sf_of[3], mesh, MESH_FORCED, hash_partition_count=2)
+        cuda.reset_counts()
+        (got, delta) = counted(lambda: hp.execute(sql("tpch", 3)).rows)
+        if not same_rows(got, readings[(3, "forced")]["rows"]):
+            raise AssertionError("mesh Q3 hash_partition_count=2 differs")
+        log(f"mesh: Q3 SF {sf_of[3]:g} forced, hash_partition_count=2 "
+            f"(rows to 2 of "
+            f"{MESH_SHARDS} shards): {len(got)} rows == the other runs, "
+            f"K1 launches {delta['segsum']}")
+        if oracle is None:
+            oracle = oracle_future.result()
+        for q in (3, 5):
+            for label in ("default", "forced"):
+                PQ.compare_tpch(q, readings[(q, label)]["rows"], oracle[q],
+                                PQ.TPCH_ORACLE[q][1])
+        log(f"mesh: Q3 and Q5 SF {sf_of[3]:g} on the mesh == sqlite "
+            f"(oracle load "
+            f"{oracle['load_s']:.1f} s, total {oracle['total_s']:.1f} s)")
+        log("mesh: " + json.dumps({
+            f"Q{q} {label}": {k: v for k, v in r.items() if k != "rows"}
+            for (q, label), r in readings.items()}))
+        return launches
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -3922,7 +4283,7 @@ def main() -> int:
     launches = {k: None for k in KERNEL_NAMES}
     try:
         if phases & {"fused", "dist", "surface", "profile", "analyze",
-                     "serve"}:
+                     "serve", "mesh"}:
             cluster = DistCluster(dev, (0.01, 1.0, 10.0))
         # fused before scale: the scale runs' required kernels come from
         # the check and fused phases' CPU runs
@@ -3930,8 +4291,9 @@ def main() -> int:
             cpu_dispatch.update(timed("fused", phase_fused, dev, cluster))
         if "scale" in phases:
             launches = timed("scale", phase_scale, dev, cpu_dispatch)
+        oracles = {}  # sqlite's answers by SF, the dist phase's for mesh
         if "dist" in phases:
-            dist = timed("dist", phase_dist, dev, cluster)
+            dist = timed("dist", phase_dist, dev, cluster, oracles)
             launches = {k: (launches[k] or 0) + dist[k]
                         for k in KERNEL_NAMES}
         if "surface" in phases:
@@ -3957,6 +4319,10 @@ def main() -> int:
         if "serve" in phases:
             srv = timed("serve", phase_serve, dev, cluster)
             launches = {k: (launches[k] or 0) + srv[k]
+                        for k in KERNEL_NAMES}
+        if "mesh" in phases:
+            msh = timed("mesh", phase_mesh, dev, cluster, oracles)
+            launches = {k: (launches[k] or 0) + msh[k]
                         for k in KERNEL_NAMES}
         if "profile" in phases:
             timed("profile", phase_profile, dev, cluster)

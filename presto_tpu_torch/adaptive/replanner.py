@@ -38,6 +38,13 @@ TIGHTEN_FACTOR = 4
 # clear wins re-order)
 SWAP_RATIO = 2
 
+# mesh-vs-wire handicap for broadcast flips: a stage whose exchange
+# lowered to the mesh all_to_all (StageStats.ici_bytes > 0) would move
+# the same bytes back onto the spool serde and the wire if its edge
+# flipped to broadcast. The reference's value; the port has not
+# measured the ratio on its own planes
+ICI_WIRE_RATIO = 16
+
 
 @dataclasses.dataclass
 class ReplanOutcome:
@@ -96,7 +103,14 @@ class Replanner:
         if st.rows > SH.SAFE_BUFFER_ROWS:
             return False
         if self.broadcast_bytes is not None:
-            return st.freight_bytes <= int(self.broadcast_bytes)
+            budget = int(self.broadcast_bytes)
+            if st.ici_bytes > 0:
+                # the observed exchange rode the mesh all_to_all: a
+                # broadcast flip would ADD spool serde and wire traffic
+                # the current plan does not pay, so it must fit a budget
+                # shrunk by the reference's handicap
+                budget //= ICI_WIRE_RATIO
+            return st.freight_bytes <= budget
         if self.broadcast_rows is not None:
             return st.rows <= int(self.broadcast_rows)
         return False

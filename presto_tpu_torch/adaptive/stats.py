@@ -36,6 +36,9 @@ class StageStats:
     # entries that never serialized report their footprint, so this is
     # an upper bound on the freight. 0 = not reported (use `bytes`)
     wire_bytes: int = 0
+    # bytes the stage's exchange routed through the mesh all_to_all
+    # (dist/scheduler.py's ICI plane); 0 = the exchange rode the spools
+    ici_bytes: int = 0
 
     @property
     def row_bytes(self) -> int:

@@ -54,8 +54,21 @@ Checkpoints: with a ``checkpoint_handle`` on the coordinator
 placements and re-dispatchable payloads, the root's registration its
 fragment and input stages, and each HTTP-drained root input its
 consumed token and prefix digest; a failed barrier write is counted in
-``checkpoint_drops`` and the query runs on. The mesh exchange plane and
-the fleet cache probe are not ported (ROADMAP queue 1).
+``checkpoint_drops`` and the query runs on. The fleet cache probe is
+not ported (ROADMAP queue 1).
+
+The ICI exchange plane (``mesh_exchange_mode``, auto by default): a
+repartition edge whose whole dispatch pool runs in this process, with a
+power-of-two consumer task count a process mesh can hold, is decided
+mesh-eligible before its stage dispatches. Its producers spool their
+RAW pages to one partition (the ``meshExchange`` payload flag); after
+the stage barrier the coordinator runs dist/executor.ici_exchange_pages
+over them and parks the partition pages in one synthetic finished task
+that every consumer reads over the unchanged spool data plane
+(``ici_exchanges``, ``ici_bytes``). Any failure falls back LOUDLY —
+counted in ``mesh_exchange_fallbacks`` and logged — to the spool
+partitioner with the same routing function, so the fallback's
+partitions equal the collective's.
 """
 
 from __future__ import annotations
@@ -153,6 +166,14 @@ class StageScheduler:
         self._spooled_parts: Dict[int, int] = {}
         self._worker_tally = {"boostRetries": 0, "skewPreempted": 0}
         self.replanner = None  # set by run() when adaptive is on
+        # the ICI exchange plane: producer fids whose repartition edge
+        # lowers to the mesh all_to_all, the synthetic finished-task
+        # placement holding each one's partition pages, and the
+        # coordinator-built stage stats the re-planner reads in place
+        # of the (raw, unpartitioned) worker spool stats
+        self._mesh_fids: set = set()
+        self._mesh_placement: Dict[int, _Placement] = {}
+        self._mesh_stats: Dict[int, object] = {}
 
     # ------------------------------------------------------ plumbing
     def _retry_attempts(self) -> int:
@@ -186,6 +207,145 @@ class StageScheduler:
                 return self._ntasks[f.fid]
         return 1  # the root consumer (always a gather)
 
+    # ------------------------------------------- ICI exchange plane
+    def _mesh_eligible(self, fid: int, pool: List[str]) -> bool:
+        """Whether this stage's repartition edge lowers to the ICI
+        all_to_all plane: auto/true = only when the whole dispatch pool
+        runs in THIS process (the coordinator's collective reads the
+        spools in place and the consumers read its output in place) and
+        the consumer task count maps onto a process mesh. Any miss is a
+        shape, not an error: the stage keeps the spooled plane."""
+        from presto_tpu_torch.dist import executor as DX
+        from presto_tpu_torch.server import worker as W
+
+        if self.coord.runner.session.get("mesh_exchange_mode") == "false":
+            return False
+        frag = self.dag.fragment(fid)
+        if frag.output_kind != "repartition" or not frag.output_keys:
+            return False
+        if not frag.sharded:
+            return False
+        # the partition count's half of the exchange's shape gate (the
+        # pages' half waits for the pages, after the barrier)
+        if not DX.ici_exchange_supported(self._consumer_tasks(fid), ()):
+            return False
+        return all(W.local_runtime(uri) is not None for uri in pool)
+
+    def _run_mesh_exchange(self, fid: int) -> None:
+        """After the stage barrier: collect the producers' RAW pages
+        straight out of their same-process spools, run the all_to_all
+        partitioning, and park the partition pages in ONE synthetic
+        finished task on the first producer's runtime — consumers read
+        partition t.index from it over the unchanged spool data plane.
+        A failure falls back LOUDLY (counted, logged) to the spool
+        partitioner with the same routing function."""
+        from presto_tpu_torch.adaptive import StageStats
+        from presto_tpu_torch.dist import executor as DX
+        from presto_tpu_torch.exec.pagestore import page_bytes
+        from presto_tpu_torch.server import worker as W
+
+        ex = self.ex
+        keys = tuple(self.dag.fragment(fid).output_keys)
+        nparts = self._consumer_tasks(fid)
+        pages, owner = [], []
+        for ti, t in enumerate(self.tasks[fid]):
+            it = SPOOL.local_source_pages(t.placement.uri,
+                                          t.placement.task_id, 0)
+            if it is None:
+                # eligibility pinned every pool member local and a
+                # replay lands back on the same pool: a missing local
+                # spool is a hard error, not a fallback
+                raise RuntimeError(
+                    f"mesh exchange: producer spool for stage {fid} not "
+                    f"local at {t.placement.uri}")
+            for page in it:
+                pages.append(page)
+                owner.append(ti)
+        total_bytes = sum(page_bytes(p) for p in pages)
+        ici = False
+        try:
+            landed, nbytes, counts = DX.ici_exchange_pages(ex, pages, keys,
+                                                           nparts)
+            ex.ici_exchanges += 1
+            ex.ici_bytes += nbytes
+            ici = True
+            # partition p's pages are the non-empty landings, page order
+            parts = [list(zip(landed[p], [int(c[p]) for c in counts
+                                          if c[p]]))
+                     for p in range(nparts)]
+        except Exception as e:  # noqa: BLE001 - the loud fallback below
+            ex.mesh_exchange_fallbacks += 1
+            logging.getLogger("presto_tpu_torch.dist").warning(
+                "mesh exchange for stage %d fell back to the spool "
+                "partitioner: %r", fid, e)
+            parts, counts = self._spool_partition(pages, keys, nparts)
+        # host budget 0 = never demote: the landing capacities already
+        # bound residency, and a demotion would serialize behind the
+        # plane's zero-crossing contract
+        spool = W._TaskSpool(nparts, 0)
+        for p in range(nparts):
+            for page, rows in parts[p]:
+                spool.put_page(p, page, rows=rows)
+        uri = self.tasks[fid][0].placement.uri
+        task_id = f"{self.qid}.f{fid}.mesh"
+        W.local_runtime(uri).register_finished_task(task_id, spool)
+        self._mesh_placement[fid] = _Placement(uri, task_id)
+        # stage stats for the re-planner, the spool plane's for the same
+        # stage: exact rows from the settled counts, the trimmed
+        # partition pages' bytes; ici_bytes > 0 marks the freight as
+        # mesh-resident for the broadcast-flip cost model
+        # (adaptive/replanner.py)
+        rows, part_bytes, wire = spool.part_stats()
+        task_rows = [0] * len(self.tasks[fid])
+        for ti, c in zip(owner, counts):
+            task_rows[ti] += int(c.sum())
+        self._mesh_stats[fid] = StageStats(
+            fid=fid, rows=sum(rows), bytes=sum(part_bytes),
+            part_rows=tuple(rows), part_bytes=tuple(part_bytes),
+            task_rows=tuple(task_rows), wire_bytes=sum(wire),
+            ici_bytes=total_bytes if ici else 0)
+
+    def _spool_partition(self, pages, keys, nparts):
+        """The mesh exchange's fallback: the spool partitioner over the
+        raw pages, with the routing function the ICI plane would use.
+        The coordinator owns this exchange, so the partitioner's
+        deferred overflow flags settle HERE: each overflowing round
+        re-partitions everything one ladder rung up. Returns the
+        partition pages as ``parts[p] = [(page, rows), ...]`` and the
+        [pages, nparts] row counts."""
+        from presto_tpu_torch.dist import executor as DX
+        from presto_tpu_torch.exec import shapes as SH
+
+        ex = self.ex
+        k4 = DX.ici_routes_with_k4(ex)
+        boost0 = ex._capacity_boost
+        try:
+            while True:
+                n0 = len(ex._pending_overflow)
+                parts = [[] for _ in range(nparts)]
+                counts = []
+                for page in pages:
+                    pp, c = SPOOL.device_partition_pages(
+                        ex, page, keys, nparts, with_counts=True, k4=k4)
+                    counts.append(c)
+                    for p, part_page in pp:
+                        rows = int(c[p])
+                        if rows:
+                            parts[p].append((SPOOL.trim_partition_page(
+                                part_page, rows), rows))
+                flags = ex._pending_overflow[n0:]
+                del ex._pending_overflow[n0:]
+                if not any(bool(f) for f in flags):
+                    return parts, counts
+                ex._capacity_boost = SH.next_boost(ex._capacity_boost)
+                ex.capacity_boost_retries += 1
+                if ex._capacity_boost > SH.DEVICE_FAULT_ROWS:
+                    raise RuntimeError(
+                        "mesh-exchange fallback overflow did not settle "
+                        "on the boost ladder")
+        finally:
+            ex._capacity_boost = boost0
+
     def _payload_for(self, t: _SchedTask, task_id: str) -> Dict:
         frag = self.dag.fragment(t.fid)
         payload: Dict = {
@@ -201,7 +361,14 @@ class StageScheduler:
             # workers record queue/run/attempt spans and ship them on
             # the status plane for the cross-node timeline
             payload["trace"] = True
-        if frag.output_kind == "repartition":
+        if t.fid in self._mesh_fids:
+            # the ICI plane: the producer spools its RAW pages to ONE
+            # partition and the coordinator partitions them after the
+            # stage barrier — no hashing, no P-way compaction and no
+            # spool-stats pull on the worker
+            payload["outputPartitions"] = 1
+            payload["meshExchange"] = True
+        elif frag.output_kind == "repartition":
             payload["outputPartitions"] = self._consumer_tasks(t.fid)
             payload["outputKeys"] = list(frag.output_keys)
         else:
@@ -226,7 +393,16 @@ class StageScheduler:
                          for ut in self.tasks[u]]
                 spec: Dict = {"tasks": tasks}
                 up_kind = self.dag.fragment(u).output_kind
-                if up_kind == "repartition" and read == "broadcast":
+                if (u in self._mesh_placement and up_kind == "repartition"
+                        and read == "repartition"):
+                    # a mesh-lowered producer: every consumer task reads
+                    # its partition from the ONE synthetic task the
+                    # all_to_all landed
+                    mp = self._mesh_placement[u]
+                    spec["tasks"] = [{"uri": mp.uri,
+                                      "taskId": mp.task_id}]
+                    spec["partition"] = t.index
+                elif up_kind == "repartition" and read == "broadcast":
                     # adaptive flip: draining every spooled partition of
                     # every producer task reads the whole build
                     spec["partitions"] = list(range(
@@ -287,6 +463,11 @@ class StageScheduler:
     def _stage_stats(self, fid: int):
         from presto_tpu_torch.adaptive import stats_from_statuses
 
+        if fid in self._mesh_stats:
+            # a mesh-lowered stage: the workers spooled RAW pages with
+            # no per-partition stats; the exchange's settled counts,
+            # read on the coordinator, stand in
+            return self._mesh_stats[fid]
         bodies = [t.status for t in self.tasks[fid]
                   if t.status is not None]
         if len(bodies) != len(self.tasks[fid]):
@@ -386,6 +567,9 @@ class StageScheduler:
                         self._delete(t.placement)
                     if t.spec is not None:
                         self._delete(t.spec)
+            # synthetic mesh-exchange tasks release like any placement
+            for pl in self._mesh_placement.values():
+                self._delete(pl)
 
     # ------------------------------------------- checkpoint barriers
     def _checkpoint_stage(self, ckpt, fid: int) -> None:
@@ -426,6 +610,10 @@ class StageScheduler:
         # recovered rejoins HERE, mid-query
         pool = self._pool()
         self.stage_pools.append(list(pool))
+        if self._mesh_eligible(fid, pool):
+            # decided BEFORE dispatch: every task payload of this stage
+            # carries the meshExchange contract
+            self._mesh_fids.add(fid)
         stage = self.tasks[fid]
         tr = self.trace
         sspan = None
@@ -464,6 +652,10 @@ class StageScheduler:
                 self._redispatch(t, cause=e, replay=False)
         self.ex.stages_scheduled += 1
         self._wait(stage)
+        if fid in self._mesh_fids:
+            # stage barrier passed: the all_to_all over the producers'
+            # raw spools runs before any consumer dispatches
+            self._run_mesh_exchange(fid)
         if tr is not None:
             tr.end(sspan)
         E.dispatch(

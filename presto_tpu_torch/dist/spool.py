@@ -256,7 +256,8 @@ def part_id_encodings(page: Page, keys: Sequence[int],
 
 
 def device_partition_pages(ex, page: Page, keys: Sequence[int],
-                           nparts: int, with_counts: bool = False):
+                           nparts: int, with_counts: bool = False,
+                           k4: Optional[bool] = None):
     """Device-tier `partition_host_page`: the partition assignment and
     the compaction of all `nparts` output pages to their ladder-bucket
     capacity run on the page's device. Every partition is emitted
@@ -267,7 +268,9 @@ def device_partition_pages(ex, page: Page, keys: Sequence[int],
 
     ``with_counts=True`` also returns the exact per-partition row
     counts, pulled as one nparts-long vector per page; the return shape
-    is then ``(pairs, counts_np)``."""
+    is then ``(pairs, counts_np)``. ``k4`` overrides the session's
+    choice of partition function (the ICI plane's fallback passes the
+    one its collective routes with)."""
     page = XF.to_device(page, ex.device, label="spool-stage")
     if nparts <= 1:
         if with_counts:
@@ -278,7 +281,7 @@ def device_partition_pages(ex, page: Page, keys: Sequence[int],
     luts = _dict_luts(page, keys)
     cap = SH.exchange_partition_cap(page.capacity, nparts,
                                     ex._capacity_boost)
-    if ex._pallas_exchange_on():
+    if ex._pallas_exchange_on() if k4 is None else k4:
         ex.pallas_kernels_used += 1
         part = CP.part_ids(part_id_encodings(page, keys, luts), nparts)
     else:
@@ -308,6 +311,22 @@ def device_partition_pages(ex, page: Page, keys: Sequence[int],
         counts = XF.np_host(nums_t, label="spool-stats").astype(np.int64)
         return pairs, np.minimum(counts, cap)
     return pairs
+
+
+def trim_partition_page(page: Page, rows: int) -> Page:
+    """A device partition page (nparts > 1: its rows are a dense
+    prefix) cut to the ladder bucket of its row count, as a copy. With
+    empty pages skipped as well, the spool then holds
+    no empty pages and no landing-capacity padding: every exchange
+    multiplies the page count by its partition count, so untrimmed
+    landing pages compound through a chain of repartitioned joins. The
+    host tier's pages have the same shape (take_rows_host)."""
+    cap = min(SH.bucket(rows), page.capacity)
+    if cap == page.capacity:
+        return page
+    idx = torch.arange(cap, device=page.device)
+    return Page(blocks=tuple(b.take(idx) for b in page.blocks),
+                valid=page.valid[:cap].clone())
 
 
 def spool_blob(page: Page) -> bytes:

@@ -60,6 +60,21 @@ QUERY_COUNTERS: Dict[str, tuple] = {
         "probes (K2/K3), segmented-reduction aggregations (K1), "
         "partition-id exchange hashing (K4) (lifetime; the kernel "
         "tier's overall engagement gauge)"),
+    "ici_exchanges": (
+        "counter", "repartition exchanges lowered to the mesh "
+        "all_to_all over co-resident stages instead of the spool plane "
+        "(dist/scheduler.py mesh-exchange plane; coordinator "
+        "lifetime)"),
+    "ici_bytes": (
+        "counter", "bytes routed through mesh all_to_all exchanges "
+        "(the settled attempt's staged page footprint — interconnect "
+        "or on-card traffic, never a host crossing; coordinator "
+        "lifetime)"),
+    "mesh_exchange_fallbacks": (
+        "counter", "mesh-lowered exchanges that fell back LOUDLY to "
+        "the authoritative spool plane (an exchange failure or an "
+        "unsettled overflow ladder) — counted, never a silent wrong "
+        "answer"),
     "programs_compiled": (
         "gauge", "CUDA graphs captured for this query (exec/graphs.py; "
         "the port's counterpart of a real XLA compile)"),

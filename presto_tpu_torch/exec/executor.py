@@ -345,6 +345,12 @@ class Executor:
         self.mesh_local_exchanges = 0
         self.stages_scheduled = 0
         self.release_skips = 0
+        # the ICI exchange plane (dist/scheduler.py; the coordinator's,
+        # lifetime counters): repartition edges lowered to the mesh
+        # all_to_all, their bytes, and loud fallbacks to the spools
+        self.ici_exchanges = 0
+        self.ici_bytes = 0
+        self.mesh_exchange_fallbacks = 0
         # fault-tolerant stage scheduling (dist/dcn.py,
         # dist/scheduler.py; the coordinator's, lifetime counters)
         self.task_retries = 0

@@ -164,6 +164,19 @@ TRANSFER_REGISTRY: Dict[str, Tuple[str, str, str]] = {
         "lazy spool materialization: device-resident exchange pages "
         "serialize to wire bytes only when an HTTP fetch or the "
         "spool budget needs host bytes"),
+    # ---- the mesh (dist/executor.py)
+    "dist.executor._to_dev": (
+        "h2d", "data",
+        "a peer copy of a shard's tensor between two cards of the mesh "
+        "(all_to_all landing, replicas, gathers); no host crossing, and "
+        "on one card every shard shares the device and nothing moves"),
+    "dist.executor.ici_exchange_pages": (
+        "h2d+d2h", "data",
+        "ICI exchange staging: spooled producer pages onto the exchange "
+        "mesh (device-resident pages cross ZERO bytes; a host-resident "
+        "input, a spool that serialized past its budget, pays its h2d "
+        "once); each round pulls its landing pages' row counts back "
+        "(ici-counts, 8 bytes per page and partition)"),
     # ---- worker task runtime
     "server.worker.TaskRuntime._run_task": (
         "d2h", "data",
@@ -211,6 +224,7 @@ DATA_PLANE_MODULES = frozenset({
     "exec.graphs",
     "exec.pagestore",
     "exec.xfer",
+    "dist.executor",
     "dist.serde",
     "dist.spool",
     "server.worker",

@@ -1,5 +1,5 @@
 """LocalRunner: the full parse -> plan -> prune -> execute pipeline in one
-process, on one device.
+process, on one device or over a mesh of shards.
 
 Port of presto_tpu/runner.py. ``execute`` runs queries and the
 reference runner's other statements: EXPLAIN and EXPLAIN ANALYZE (the
@@ -52,7 +52,15 @@ honours:
     ``cross_query_batch_wait_ms`` (the executor's launch batcher), and
     ``estimate_memory``, which sizes the memory arbiter's admission.
 
-Reference: presto-main testing/LocalQueryRunner.java.
+With ``mesh=make_mesh(D)`` (dist/executor.py) the runner fragments
+every plan with exchanges (dist/fragmenter.add_exchanges, plan-time
+scalar subqueries included) and runs it on a DistExecutor over the D
+shards; ``dist_options`` pins the fragmenter's knobs
+(``broadcast_rows``, ``gather_capacity``), and ``hash_partition_count``
+sets how many shards receive repartitioned rows.
+
+Reference: presto-main testing/LocalQueryRunner.java (and, with a
+mesh, DistributedQueryRunner: the same engine, with real exchanges).
 """
 
 from __future__ import annotations
@@ -85,18 +93,28 @@ class QueryResult:
 
 class LocalRunner:
     """``device=None`` runs on the card and raises without one; the
-    tests pass ``device="cpu"``."""
+    tests pass ``device="cpu"``. A ``mesh`` (dist/executor.make_mesh)
+    makes this the distributed runner; its shards' devices win over
+    ``device``."""
 
     def __init__(self, catalogs: Dict, default_catalog: str = "tpch",
                  session: Optional[Dict[str, object]] = None,
-                 device=None, page_rows: Optional[int] = None):
+                 device=None, page_rows: Optional[int] = None,
+                 mesh=None, dist_options: Optional[Dict] = None):
         self.catalogs = dict(catalogs)
         self.default_catalog = default_catalog
         self.session = Session(default_catalog, session)
         # the constructor's page_rows (the server's) applies unless the
         # session sets the property; None = the property's default
         self._ctor_page_rows = page_rows
-        self.executor = Executor(self.catalogs, device=device)
+        self.mesh = mesh
+        self.dist_options = dict(dist_options or {})
+        if mesh is None:
+            self.executor = Executor(self.catalogs, device=device)
+        else:
+            from presto_tpu_torch.dist.executor import DistExecutor
+
+            self.executor = DistExecutor(self.catalogs, mesh)
         # (catalog, name) -> view SQL text, expanded at analysis
         self.views: Dict[tuple, str] = {}
         # prepared statements keyed by user: one user can neither
@@ -137,6 +155,9 @@ class LocalRunner:
         ex.join_skew_rebalance = bool(s.get("join_skew_rebalance"))
         ex.max_build_rows = int(s.get("max_join_build_rows")) or None
         ex.device_memory_budget = int(s.get("device_memory_budget"))
+        # shards receiving repartitioned rows (0 = the whole mesh), read
+        # by DistExecutor._route_devices; no effect on one device
+        ex.hash_partitions = int(s.get("hash_partition_count"))
         ex.late_mat = s.get("late_materialization_enabled")
         # the executor's device-OOM re-entries share the task retry
         # budget (the same retry discipline extended inward)
@@ -165,30 +186,46 @@ class LocalRunner:
             ex.profile_store = None
 
     def session_dist_options(self) -> Dict:
-        """fragment_dag's distribution knobs from the session: the
-        join_distribution_type override, else — unless the session pins
-        ``broadcast_join_rows`` — the stats-driven byte share: a build
-        replicates only when its estimated bytes fit one device's
-        broadcast share of the memory governor's budget (budget //
-        PAGE_SHARE_DIV), with the row threshold kept as the fallback.
-        The adaptive re-planner reads the same share."""
+        """The fragmenter's distribution knobs: the constructor's
+        ``dist_options`` first, then the session — the
+        join_distribution_type override, else (unless the session pins
+        ``broadcast_join_rows``) the stats-driven byte share: a build
+        replicates only when its estimated bytes fit ONE device's
+        broadcast share of the memory governor's budget (on a mesh,
+        one device's budget; // PAGE_SHARE_DIV), with the row
+        threshold kept as the fallback. The adaptive re-planner reads
+        the same share."""
+        opts: Dict = dict(self.dist_options)
         jd = self.session.get("join_distribution_type")
-        opts: Dict = {"gather_capacity": int(self.session.get(
-            "agg_gather_capacity"))}
-        if jd == "broadcast":
-            opts["broadcast_rows"] = 1 << 62
-        elif jd == "partitioned":
-            opts["broadcast_rows"] = 0
-        else:
-            opts["broadcast_rows"] = int(self.session.get(
-                "broadcast_join_rows"))
-            if not self.session.is_set("broadcast_join_rows"):
-                ex = self.executor
-                opts["broadcast_bytes"] = (ex._budget()
-                                           // MB.PAGE_SHARE_DIV)
-                opts["row_bytes_of"] = lambda n: _row_bytes(
-                    ex.output_types(n))
+        if "broadcast_rows" not in opts:
+            if jd == "broadcast":
+                opts["broadcast_rows"] = 1 << 62
+            elif jd == "partitioned":
+                opts["broadcast_rows"] = 0
+            else:
+                opts["broadcast_rows"] = int(self.session.get(
+                    "broadcast_join_rows"))
+                if not self.session.is_set("broadcast_join_rows"):
+                    ex = self.executor
+                    per_device = (ex._budget() if self.mesh is None
+                                  else ex.device_budget())
+                    opts["broadcast_bytes"] = (per_device
+                                               // MB.PAGE_SHARE_DIV)
+                    opts["row_bytes_of"] = lambda n: _row_bytes(
+                        ex.output_types(n))
+        if "gather_capacity" not in opts:
+            opts["gather_capacity"] = int(self.session.get(
+                "agg_gather_capacity"))
         return opts
+
+    def _fragment(self, plan: P.PhysicalNode) -> P.PhysicalNode:
+        """Exchange insertion for a mesh runner (identity without one)."""
+        if self.mesh is None:
+            return plan
+        from presto_tpu_torch.dist.fragmenter import add_exchanges
+
+        return add_exchanges(plan, self.catalogs,
+                             **self.session_dist_options())[0]
 
     def estimate_memory(self, sql: str) -> int:
         """Peak device-memory estimate for the server's admission
@@ -226,8 +263,9 @@ class LocalRunner:
 
     def _planner(self) -> Planner:
         def scalar_exec(node):
-            # plan-time scalar subqueries execute during planning
-            return self.executor.execute(node)[1]
+            # plan-time scalar subqueries execute during planning, and
+            # are fragmented before they reach a mesh
+            return self.executor.execute(self._fragment(node))[1]
 
         return Planner(self.catalogs, self._current_catalog(),
                        scalar_executor=scalar_exec, views=self.views)
@@ -245,8 +283,8 @@ class LocalRunner:
     def _plan_query(self, stmt) -> P.Output:
         if not isinstance(stmt, N.Query):
             raise ValueError(f"{type(stmt).__name__} is not a query")
-        return push_scan_constraints(prune_plan(
-            self._planner().plan_statement(stmt), self.catalogs))
+        return self._fragment(push_scan_constraints(prune_plan(
+            self._planner().plan_statement(stmt), self.catalogs)))
 
     def _resolve_catalog(self, parts) -> Tuple[str, str]:
         """(catalog, object name) of a possibly qualified name: the one

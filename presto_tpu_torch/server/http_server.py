@@ -32,9 +32,12 @@ else the statement re-runs, else the query fails with
 CoordinatorRestarted; the client's stream resumes at its token once
 the delivered pages' digests verify.
 
+``mesh=make_mesh(D)`` (dist/executor.py) runs every statement on a
+DistExecutor over the mesh's shards, serial and concurrent paths alike.
+
 Not ported, each raising NotImplementedError naming its ROADMAP queue:
-the tailing cursor and IVM (``start_tail``; queue 5), plugins (queue 5)
-and the mesh (queue 4, item 14). The result cache and cache-aware
+the tailing cursor and IVM (``start_tail``; queue 5) and plugins
+(queue 5). The result cache and cache-aware
 admission are not ported (queue 5: no statement is ever a cache hit);
 access control is allow-all; runtime tables need the system catalog,
 which the port lacks (queue 5).
@@ -960,9 +963,6 @@ class PrestoTpuServer:
         from presto_tpu_torch import resolve_device
         from presto_tpu_torch.runner import LocalRunner
 
-        if mesh is not None:
-            raise _not_ported("the mesh (DistExecutor)",
-                              "queue 1 item 4, item 14")
         if plugins:
             raise _not_ported("plugins", "queue 5")
         self.device = resolve_device(device)
@@ -986,8 +986,11 @@ class PrestoTpuServer:
         # the bootstrap runner serves the serial (no-arbiter) path and
         # carries the server-wide views and prepared statements
         self._runner = LocalRunner(self.catalogs, default_catalog,
-                                   device=self.device, page_rows=page_rows)
+                                   device=self.device, page_rows=page_rows,
+                                   mesh=mesh)
         self._page_rows = page_rows
+        # a mesh makes every runner of this server a distributed one
+        self._mesh = mesh
         self._default_catalog = default_catalog
         # a configured worker fleet makes this server a DCN coordinator:
         # plain queries on the serial path run through the stage DAG,
@@ -1046,7 +1049,8 @@ class PrestoTpuServer:
             # never crosses queries; views and prepared statements are
             # server-wide (the prepared registry is keyed per user)
             r = LocalRunner(self.catalogs, self._default_catalog,
-                            device=self.device, page_rows=self._page_rows)
+                            device=self.device, page_rows=self._page_rows,
+                            mesh=self._mesh)
             r.session = session
             r.executor.launch_batcher = self._launch_batcher
             r.views = self._runner.views

@@ -22,7 +22,11 @@ hash(``outputKeys``) % ``outputPartitions`` and SPOOLED (_TaskSpool):
     card) partitions on the device (dist/spool.device_partition_pages)
     and spools the partition Pages themselves; wire bytes serialize
     lazily, only when an HTTP fetch asks for them;
-  - the host tier partitions a host copy and spools serialized blobs.
+  - the host tier partitions a host copy and spools serialized blobs;
+  - under ``meshExchange`` (the ICI plane, dist/scheduler.py) the task
+    spools its RAW pages to one partition, and the coordinator's
+    all_to_all partitions them after the stage barrier into a
+    synthetic finished task (``TaskRuntime.register_finished_task``).
 
 Both tiers share one resident-byte budget per task
 (``spool_exchange_bytes``): past it, pages serialize into disk-tier
@@ -89,22 +93,6 @@ from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.exec.pagestore import PageStore, page_bytes
 from presto_tpu_torch.obs.sanitizer import make_lock
 from presto_tpu_torch.page import Page
-
-
-def _trimmed(page, rows: int):
-    """A device partition page (nparts > 1: its rows are a dense
-    prefix) cut to the ladder bucket of its row count, as a copy. With
-    empty pages skipped as well, the spool then holds
-    no empty pages and no landing-capacity padding: every exchange
-    multiplies the page count by its partition count, so untrimmed
-    landing pages compound through a chain of repartitioned joins. The
-    host tier's pages have the same shape (take_rows_host)."""
-    cap = min(SH.bucket(rows), page.capacity)
-    if cap == page.capacity:
-        return page
-    idx = torch.arange(cap, device=page.device)
-    return Page(blocks=tuple(b.take(idx) for b in page.blocks),
-                valid=page.valid[:cap].clone())
 
 
 class _PartitionSpool:
@@ -762,6 +750,21 @@ class TaskRuntime:
         with self._tasks_lock:
             return self.tasks.pop(task_id, None)
 
+    def register_finished_task(self, task_id: str,
+                               spool: "_TaskSpool") -> None:
+        """Register an already-FINISHED task whose output is a prebuilt
+        spool: the ICI exchange plane's landing surface. The coordinator
+        runs the all_to_all partitioning after the stage barrier and
+        parks the partition pages here, so consumers read them through
+        the one spool data plane (local fast path or HTTP, re-fetch,
+        ack, release)."""
+        t = _Task(task_id)
+        with t.lock:
+            t.spool = spool
+            t.done = True
+        with self._tasks_lock:
+            self.tasks[task_id] = t
+
     def task_count(self) -> int:
         with self._tasks_lock:
             return len(self.tasks)
@@ -976,14 +979,23 @@ class TaskRuntime:
                     state["spool"].close()
                 state["spool"] = _TaskSpool(nparts, budget)
 
-            if ex._device_exchange_on():
+            if req.get("meshExchange"):
+                def emit(page) -> int:
+                    # the ICI plane: spool the RAW page to partition 0
+                    # untouched; the coordinator's post-barrier
+                    # all_to_all partitions it, so no hashing, no P-way
+                    # compaction and no spool-stats pull happen here
+                    state["spool"].put_page(0, page, rows=0)
+                    return 1
+            elif ex._device_exchange_on():
                 def emit(page) -> int:
                     pp, counts = SPOOL.device_partition_pages(
                         ex, page, out_keys, nparts, with_counts=True)
                     for p, part_page in pp:
                         rows = int(counts[p])
                         if rows and nparts > 1:
-                            part_page = _trimmed(part_page, rows)
+                            part_page = SPOOL.trim_partition_page(
+                                part_page, rows)
                         if rows:
                             state["spool"].put_page(p, part_page,
                                                     rows=rows)

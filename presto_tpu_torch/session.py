@@ -16,8 +16,14 @@ different mode by design:
     fused program is a replayed CUDA graph and join chains are gather
     bound;
   - ``device_memory_budget``'s auto is the card's memory minus 1/8 on a
-    CUDA executor (the reference: the TPU's HBM);
-  - ``mesh_exchange_mode`` defaults to "false".
+    CUDA executor (the reference: the TPU's HBM).
+
+``mesh_exchange_mode`` takes the reference's default, "auto": a stage
+DAG's repartition edge whose producers and consumers all run in this
+process lowers to the mesh's all_to_all (dist/executor.
+ici_exchange_pages); "true" is the same, "false" keeps every edge on
+the spools. ``hash_partition_count`` sets how many mesh shards receive
+repartitioned rows (0 = all of them).
 
 ``stage_scheduler`` takes the reference's default, "auto": a
 distributed query takes the legacy cuts (the partial-aggregation,
@@ -130,9 +136,10 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         ),
         PropertyMetadata(
             "hash_partition_count",
-            "devices used for repartitioned stages (0 = whole mesh); "
-            "only 0 is ported (the mesh plane is not)",
+            "mesh shards that receive repartitioned rows (0 = the "
+            "whole mesh); every shard still runs the stage",
             int, 0,
+            validate=lambda v: v >= 0,
         ),
         PropertyMetadata(
             "pallas_join_enabled",
@@ -147,9 +154,12 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
         ),
         PropertyMetadata(
             "mesh_exchange_mode",
-            "lower a repartition exchange to an in-program collective; "
-            "not ported (false = always the spooled plane)",
-            str, "false",
+            "lower a stage DAG's repartition exchange to the mesh "
+            "all_to_all when its producer spools and consumer readers "
+            "all run in this process; auto = co-resident stages only "
+            "(true: the same), false = always the spooled plane (the "
+            "authoritative path for remote consumers and replay)",
+            str, "auto",
             validate=_tristate,
         ),
         PropertyMetadata(
@@ -453,10 +463,6 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
 # property -> (predicate over its value that asks for a plane the port
 # lacks, what to say). ROADMAP queue 1 lists each plane.
 _NOT_PORTED = {
-    "mesh_exchange_mode": (
-        lambda v: v != "false",
-        "mesh_exchange_mode: the ICI mesh exchange plane is not ported "
-        "(ROADMAP queue 1: torch.distributed over 4 cards)"),
     "result_cache_remote_probe": (
         lambda v: v is True,
         "result_cache_remote_probe: the fleet cache probe is not "
@@ -465,10 +471,6 @@ _NOT_PORTED = {
         lambda v: v is True,
         "stream_tail_enabled: the tailing cursor and IVM are not ported "
         "(ROADMAP queue 5)"),
-    "hash_partition_count": (
-        lambda v: v != 0,
-        "hash_partition_count: the mesh plane it sizes is not ported "
-        "(ROADMAP queue 1)"),
 }
 
 

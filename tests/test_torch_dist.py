@@ -135,10 +135,12 @@ def test_dcn_equals_local_runner_and_sqlite(q, kernels, workers,
     {"join_distribution_type": "auto"},
 ])
 def test_exchange_tiers_give_the_same_rows(props, workers, local_rows):
-    coord = _coord(workers, **props)
+    # the spool tiers are what this case is about: the mesh plane off
+    coord = _coord(workers, mesh_exchange_mode="false", **props)
     cuda.reset_counts()
     rows = coord.execute(Q3_FAMILY)
     assert _multiset(rows) == _multiset(local_rows["q3_family"])
+    assert coord.runner.executor.ici_exchanges == 0
     if props.get("device_exchange_enabled") in ("false", "auto"):
         # auto is off on a CPU executor: the host splitmix64 tier
         assert not cuda.plain_calls["part_ids"]
@@ -273,9 +275,22 @@ def test_unsplittable_plan_runs_locally(workers):
     ("result_cache_remote_probe", "true"),
     ("hash_partition_count", 4),
 ])
-def test_left_out_planes_raise(prop, value, workers):
-    with pytest.raises(NotImplementedError):
-        _coord(workers, **{prop: value})
+def test_left_out_planes_raise(prop, value, workers, local_rows):
+    """The fleet cache probe is still left out and raises. The mesh
+    planes are ported: under mesh_exchange_mode true/auto (and at the
+    default session with hash_partition_count set) the DAG over these
+    in-process workers lowers its repartition edges to the mesh
+    all_to_all, with no fallback, and gives the local runner's rows."""
+    if prop == "result_cache_remote_probe":
+        with pytest.raises(NotImplementedError):
+            _coord(workers, **{prop: value})
+        return
+    coord = _coord(workers, **{prop: value})
+    rows = coord.execute(Q3_FAMILY)
+    assert _multiset(rows) == _multiset(local_rows["q3_family"])
+    ex = coord.runner.executor
+    assert ex.ici_exchanges >= 1 and ex.ici_bytes > 0
+    assert ex.mesh_exchange_fallbacks == 0
 
 
 @pytest.mark.parametrize("q", [1, 3, 5])

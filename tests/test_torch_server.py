@@ -28,6 +28,7 @@ from presto_tpu_torch.client import StatementClient
 from presto_tpu_torch.connectors.blackhole import BlackholeConnector
 from presto_tpu_torch.connectors.memory import MemoryConnector
 from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.dist.executor import DistExecutor, make_mesh
 from presto_tpu_torch.server import PrestoTpuServer
 
 SF = 0.001
@@ -558,12 +559,32 @@ def test_the_server_runs_on_the_card_by_default():
 
 @pytest.mark.parametrize("kw,match", [
     ({"plugins": [object()]}, "plugins"),
-    ({"mesh": object()}, "mesh"),
+    ({"mesh": make_mesh(4, device="cpu")}, "mesh"),
 ])
-def test_unported_server_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        PrestoTpuServer({"tpch": TpchConnector(SF, device="cpu")}, port=0,
-                        device="cpu", **kw)
+def test_unported_server_options_raise(kw, match, client):
+    """Plugins are not ported and raise. The mesh is: a server built
+    with one runs its statements on a DistExecutor and answers them as
+    the server without a mesh does."""
+    if "plugins" in kw:
+        with pytest.raises(NotImplementedError, match=match):
+            PrestoTpuServer({"tpch": TpchConnector(SF, device="cpu")},
+                            port=0, device="cpu", **kw)
+        return
+    srv = PrestoTpuServer({"tpch": TpchConnector(SF, device="cpu")},
+                          port=0, device="cpu", page_rows=PAGE_ROWS, **kw)
+    srv.start()
+    try:
+        assert isinstance(srv._runner.executor, DistExecutor)
+        sql = ("select o_orderpriority, count(*), sum(o_totalprice) "
+               "from orders join customer on o_custkey = c_custkey "
+               "group by o_orderpriority order by o_orderpriority")
+        got = StatementClient(server=f"http://127.0.0.1:{srv.port}") \
+            .execute(sql)
+        want = client.execute(sql)
+        assert got.error is None and want.error is None
+        assert got.rows == want.rows and len(got.rows) == 5
+    finally:
+        srv.stop()
 
 
 def test_start_tail_is_not_ported(server):

@@ -80,9 +80,16 @@ def test_show_session_lists_the_ported_properties(pair):
 
 def test_set_session_refuses_unported_planes(pair):
     port, _ = pair
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.execute("set session mesh_exchange_mode = 'true'")
-    assert port.session.get("mesh_exchange_mode") == "false"
+    # the mesh plane is ported: SET SESSION takes it
+    assert port.session.get("mesh_exchange_mode") == "auto"
+    assert port.execute("set session mesh_exchange_mode = 'true'") \
+        .update_type == "SET SESSION"
+    assert port.session.get("mesh_exchange_mode") == "true"
+    port.session.unset("mesh_exchange_mode")
+    # the tailing cursor is not: asking for it raises, session unchanged
+    with pytest.raises(NotImplementedError, match="stream_tail_enabled"):
+        port.execute("set session stream_tail_enabled = true")
+    assert port.session.get("stream_tail_enabled") is False
     with pytest.raises(KeyError):
         port.execute("set session no_such_property = 1")
 
