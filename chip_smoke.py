@@ -145,6 +145,19 @@ Phases:
            mesh_exchange_mode auto and false (equal rows; auto lowers
            its exchanges with K4 and no fallback), and Q3 on the mesh
            runner with hash_partition_count=2
+  reuse    the result cache, the system catalog and plugins: Q1 and Q6
+           at SF 10 and Q5 at SF 1 with result_cache_enabled (a miss, a
+           statement hit, a fragment hit: no program, no kernel, no
+           byte on a hit; == the uncached run, val_q*_sf10.json,
+           sqlite), invalidation through INSERT into a memory copy of
+           orders SF 1 (K2/K3 on the join's misses), the warm-start
+           tier, Q3 SF 1 over the 4 workers with the cache on (the
+           forced DAG with K4, then the legacy cut served by the
+           workers' caches through the fleet probe), Q6 SF 10 from 8
+           clients of a concurrent server (one execution, the rest
+           admitted as hits; system.runtime_queries, SHOW TABLES FROM
+           system, a plugin's access control denying a statement), and
+           Q1 SF 10 on make_mesh(4) (a root hit with no crossing)
   profile  (only when asked for) the base scale rungs under each session
            and the dist queries once more under torch.profiler: device
            busy share, device kernels, graph replays, device time by
@@ -179,7 +192,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
               "surface", "statements", "governed", "oom", "analyze",
-              "serve", "mesh")
+              "serve", "mesh", "reuse")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -3368,7 +3381,10 @@ def _race(url: str, batching: str) -> tuple:
     out, errors = [[] for _ in range(SERVE_CLIENTS)], []
 
     def client(i):
-        c = _serve_client(url, "tpch", {"cross_query_batching": batching},
+        # the concurrent path caches by default: pinned off, so the
+        # rounds time executions and the launch batcher, not hits
+        c = _serve_client(url, "tpch", {"cross_query_batching": batching,
+                                        "result_cache_enabled": "false"},
                           user=f"dash{i}")
         for _ in range(SERVE_ROUNDS):
             for text in SERVE_STATEMENTS:
@@ -3404,7 +3420,11 @@ def _heavy_at_once(url: str, texts: dict) -> dict:
     out, errors = {}, []
 
     def client(i, q):
-        c = _serve_client(url, "tpch", {}, user=f"scan{i}")
+        # pinned off: repeated rounds execute (and the OOM round's
+        # injected fault is reached), where a cache hit would execute
+        # nothing
+        c = _serve_client(url, "tpch", {"result_cache_enabled": "false"},
+                          user=f"scan{i}")
         try:
             res, wall, _n = _client_run(c, texts[q])
             out[i] = (q, res.rows, wall)
@@ -3618,7 +3638,8 @@ def phase_serve(dev, cluster: "DistCluster") -> dict:
     generated join off in the header, rows == a direct LocalRunner in
     this process (Q1/Q6 == the reference's checksums), client walls
     beside direct walls; (b) paged delivery of ~190,000 rows; (c) a
-    concurrent server (memory arbiter, two resource groups): 8 clients
+    concurrent server (memory arbiter, two resource groups; the result
+    cache pinned off, the rounds time executions): 8 clients
     x 3 rounds of one-split statements with cross-query batching off,
     then on (rows equal, shared launches, walls, histogram p50/p95,
     graph captures), then Q1 and Q5 SF 10 from 4 clients at once (rows
@@ -3787,6 +3808,7 @@ def phase_serve(dev, cluster: "DistCluster") -> dict:
         counted(lambda: _heavy_at_once(url, texts))
         torch.cuda.reset_peak_memory_stats(dev)
         out = counted(lambda: _heavy_at_once(url, texts))
+        unfaulted = out
         peak = memory_peaks(dev)
         for i, (q, rows, _w) in out.items():
             if rows != expect[("tpch", q)]:
@@ -3805,15 +3827,17 @@ def phase_serve(dev, cluster: "DistCluster") -> dict:
             f"({est_sum / max(peak[0], 1):.3f} of the allocated peak); "
             f"device_oom_retries {retries}; {card}")
         # the same round with one query's device-OOM ladder (an injected
-        # fault): its retry drops EVERY captured program, the other
-        # queries' included; they hold their Program objects, so the
-        # cost is captures, counted here
+        # fault at its first attempt's start): the release frees only
+        # the faulting query's programs (none touched yet at that point)
+        # and the other queries' captures stay cached
         factory = srv.manager._runner_factory
+        faulted = []
 
         def faulting(session):
             r = factory(session)
             if session.user == "scan0":
                 r.executor.inject_device_oom = 1
+                faulted.append(r.executor)
             return r
 
         seen = {q.id for q in srv.manager.queries()}
@@ -3833,11 +3857,15 @@ def phase_serve(dev, cluster: "DistCluster") -> dict:
                       if q.id not in seen and q.runner is not None)
         if retries != 1:
             raise AssertionError(f"serve: {retries} OOM retries, not 1")
+        released = sum(len(ex.programs_released) for ex in faulted)
         log(f"serve: (c) the same round with one injected device OOM: "
             f"rows == (a); 1 retry; programs cached {cached0} -> "
-            f"{len(graphs.cached())}, captures in the round "
+            f"{len(graphs.cached())}, released by the fault {released}, "
+            f"captures in the round "
             f"{graphs.snapshot()['captures'] - caps0}; walls s "
-            f"{[round(out[i][2], 4) for i in sorted(out)]}")
+            f"{[round(out[i][2], 4) for i in sorted(out)]} against the "
+            f"unfaulted round's "
+            f"{[round(unfaulted[i][2], 4) for i in sorted(unfaulted)]}")
         srv.stop()
 
         # ---- (d) a server over the worker fleet
@@ -4226,6 +4254,406 @@ def phase_mesh(dev, cluster: "DistCluster", oracles=None) -> dict:
             pool.shutdown(cancel_futures=True)
 
 
+# --------------------------------------------------------------- reuse
+REUSE_SF = 10.0
+REUSE_SMALL_SF = 1.0
+REUSE_PAGE_ROWS = 1 << 20
+# (a)'s queries: (q, sf); the fragment-hit run re-plans the same query
+# written differently and runs it through the executor, which has no
+# statement cache
+REUSE_RUNS = ((1, REUSE_SF), (6, REUSE_SF), (5, REUSE_SMALL_SF))
+# (b): a memory-connector copy of orders, its aggregation, and a join
+# whose builds reach K3 (customer) and K2 (nation) with the generated
+# join off
+REUSE_ORDERS = ("select o_orderpriority, count(*), sum(o_totalprice) "
+                "from memory.orders group by o_orderpriority "
+                "order by o_orderpriority")
+REUSE_JOIN = ("select n_name, count(*), sum(o_totalprice) "
+              "from memory.orders join tpch.customer on o_custkey = "
+              "c_custkey join tpch.nation on c_nationkey = n_nationkey "
+              "group by n_name order by n_name")
+REUSE_INSERT = ("insert into memory.orders select * from tpch.orders "
+                "where o_orderkey < 1000")
+# (c): the warm-start tier's directory (git-ignored, emptied first)
+REUSE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_cache")
+# (e): 8 clients of Q6 at REUSE_SF on the concurrent server
+REUSE_CLIENTS = 8
+REUSE_DENIED = "select count(*) from lineitem"
+
+
+def _reuse_run(runner, text, via_executor: bool = False) -> dict:
+    """One run from kernel counts 0: rows, wall, program launches,
+    K1-K4 launches, the ledger's bytes and the cache counters."""
+    from presto_tpu_torch import cuda
+
+    ex = runner.executor
+    c0 = {n: getattr(ex, n) for n in ("result_cache_hits",
+                                      "result_cache_misses")}
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    if via_executor:
+        runner.apply_session()
+        rows = ex.execute(runner.plan(text))[1]
+    else:
+        rows = runner.execute(text).rows
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(
+        rows=rows, wall_s=round(wall, 4),
+        program_launches=ex.program_launches,
+        launches={k: cuda.launches.get(k, 0) for k in KERNEL_NAMES},
+        h2d_bytes=ex.h2d_bytes, d2h_bytes=ex.d2h_bytes,
+        hits=ex.result_cache_hits - c0["result_cache_hits"],
+        misses=ex.result_cache_misses - c0["result_cache_misses"])
+
+
+def _reuse_log(label: str, run: dict) -> None:
+    log(f"reuse: {label}: " + json.dumps(
+        {k: v for k, v in run.items() if k != "rows"}))
+
+
+def _check_hit(label: str, run: dict, want, zero_bytes: bool) -> None:
+    """A hit launches no program and no kernel, crosses no byte where
+    ``zero_bytes``, and gives the uncached run's rows."""
+    if run["hits"] < 1 or run["misses"]:
+        raise AssertionError(f"reuse: {label}: not a hit: {run}")
+    if run["program_launches"] or any(run["launches"].values()):
+        raise AssertionError(f"reuse: {label}: a hit launched: {run}")
+    if zero_bytes and (run["h2d_bytes"] or run["d2h_bytes"]):
+        raise AssertionError(f"reuse: {label}: a hit crossed bytes: {run}")
+    if not same_rows(run["rows"], want):
+        raise AssertionError(f"reuse: {label}: rows != the uncached run")
+
+
+def _reworded(text: str) -> str:
+    """The same query written differently: a leading comment and
+    collapsed whitespace (it plans to the same tree)."""
+    return "-- reworded\n" + " ".join(text.split())
+
+
+def phase_reuse(dev, cluster: "DistCluster", oracles=None) -> dict:
+    """The result cache, the system catalog and plugins on the card:
+    (a) Q1 and Q6 at SF 10 and Q5 at SF 1 on a single-process runner
+    with result_cache_enabled: a miss, a statement hit (no program, no
+    kernel, no byte), a fragment hit (the query reworded and run through
+    the executor: the root fragment entry serves it); rows == the
+    uncached run, val_q*_sf10.json and sqlite. (b) invalidation over a
+    memory-connector copy of orders SF 1: miss, hit, INSERT, miss with
+    the uncached run's rows; the same over a join with the generated
+    join off (K2, K3 on the misses). (c) the warm-start tier: a fresh
+    store over the same result_cache_persist_dir warm-loads and hits.
+    (d) Q3 at SF 1 through the forced stage DAG over the 4 workers with
+    the cache on (K4, == sqlite), then on the legacy dispatch with the
+    fleet probe: the second run's leaf tasks are served by the workers'
+    caches (cache_remote_hits). (e) a concurrent server (cache at its
+    default, on) with a plugin's access control: Q6 SF 10 executed once,
+    then from 8 clients at once (all hits, admitted without a slot),
+    /metrics, system.runtime_queries, SHOW TABLES FROM system, and a
+    statement the plugin denies. (f) Q1 at SF 10 on make_mesh(4): a miss
+    then a root hit with zero crossings. Returns the misses' kernel
+    launches."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch import queries as PQ
+    from presto_tpu_torch.cache import shared_cache_if_exists
+    from presto_tpu_torch.cache import store as STORE
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.dist.executor import make_mesh
+    from presto_tpu_torch.obs import sanitizer as SAN
+    from presto_tpu_torch.plugin import Plugin
+    from presto_tpu_torch.runner import LocalRunner
+    from presto_tpu_torch.security import AccessControl
+    from presto_tpu_torch.server import PrestoTpuServer
+
+    card = card_line()
+    launches = {k: 0 for k in KERNEL_NAMES}
+
+    def missed(run):
+        for k in KERNEL_NAMES:
+            launches[k] += run["launches"][k]
+
+    def fresh_store():
+        rc = shared_cache_if_exists()
+        if rc is not None:
+            rc.configure(persist_dir="")
+            rc.clear()
+        STORE._shared = None
+
+    def runner(cats, catalog, **props):
+        return LocalRunner(cats, catalog, device=dev, session={
+            "page_rows": REUSE_PAGE_ROWS, **props})
+
+    big = {"tpch": cluster.catalogs[_catalog(REUSE_SF)]}
+    small = {"tpch": cluster.catalogs[_catalog(REUSE_SMALL_SF)]}
+    oracle = (oracles or {}).get(REUSE_SMALL_SF)
+    fresh_store()
+    try:
+        # ---- (a) single process: miss, statement hit, fragment hit
+        for q, sf in REUSE_RUNS:
+            cats = big if sf == REUSE_SF else small
+            text = sql("tpch", q)
+            want = runner(cats, "tpch").execute(text).rows
+            note = check_validated(q, sf, want)
+            if not note and oracle is not None and q in oracle:
+                PQ.compare_tpch(q, want, oracle[q], PQ.TPCH_ORACLE[q][1])
+                note = ", == sqlite"
+            r = runner(cats, "tpch", result_cache_enabled="true")
+            miss = _reuse_run(r, text)
+            if miss["misses"] < 1 or not same_rows(miss["rows"], want):
+                raise AssertionError(f"reuse: Q{q}: miss {miss}")
+            missed(miss)
+            stmt = _reuse_run(r, text)
+            _check_hit(f"Q{q} statement hit", stmt, want, True)
+            frag = _reuse_run(r, _reworded(text), via_executor=True)
+            _check_hit(f"Q{q} fragment hit", frag, want, True)
+            for label, run in (("miss", miss), ("statement hit", stmt),
+                               ("fragment hit", frag)):
+                _reuse_log(f"(a) Q{q} SF {sf:g} {label}", run)
+            log(f"reuse: (a) Q{q} SF {sf:g}: {len(want)} rows == the "
+                f"uncached run{note}; {card}")
+        if launches["segsum"] <= 0:
+            raise AssertionError("reuse: (a) K1 never launched")
+
+        # ---- (b) invalidation through the memory connector
+        mem = MemoryConnector(device=dev)
+        cats = {**small, "memory": mem}
+        loader = runner(cats, "memory")
+        loader.execute("create table memory.orders as "
+                       "select * from tpch.orders")
+        for label, text, props in (
+                ("aggregation", REUSE_ORDERS, {}),
+                ("join, generated join off", REUSE_JOIN,
+                 {"generated_join_enabled": "false"})):
+            r = runner(cats, "memory", result_cache_enabled="true", **props)
+            uncached = runner(cats, "memory", **props)
+            want = uncached.execute(text).rows
+            miss = _reuse_run(r, text)
+            missed(miss)
+            hit = _reuse_run(r, text)
+            _check_hit(f"(b) {label} hit", hit, want, True)
+            inv0 = r.executor.result_cache_invalidations
+            r.execute(REUSE_INSERT)
+            after = _reuse_run(r, text)
+            missed(after)
+            want2 = uncached.execute(text).rows
+            if after["misses"] < 1 or after["hits"] or \
+                    r.executor.result_cache_invalidations <= inv0 or \
+                    not same_rows(after["rows"], want2) or \
+                    same_rows(want2, want):
+                raise AssertionError(f"reuse: (b) {label}: the write did "
+                                     f"not invalidate: {after}")
+            for name, run in (("miss", miss), ("hit", hit),
+                              ("miss after INSERT", after)):
+                _reuse_log(f"(b) {label} {name}", run)
+            # the copy back at its loaded size for the next query
+            loader.execute("delete from memory.orders "
+                           "where o_orderkey < 1000")
+            loader.execute("insert into memory.orders select * from "
+                           "tpch.orders where o_orderkey < 1000")
+        if launches["probe_dim"] <= 0 or launches["probe_radix"] <= 0:
+            raise AssertionError(f"reuse: (b) K2/K3 never launched: "
+                                 f"{launches}")
+
+        # ---- (c) the warm-start tier
+        shutil.rmtree(REUSE_DIR, ignore_errors=True)
+        text = sql("tpch", 1)
+        want = runner(big, "tpch").execute(text).rows
+        fresh_store()
+        first = runner(big, "tpch", result_cache_enabled="true",
+                       result_cache_persist_dir=REUSE_DIR)
+        miss = _reuse_run(first, text)
+        missed(miss)
+        fresh_store()  # the process's store gone, its directory kept
+        second = runner(big, "tpch", result_cache_enabled="true",
+                        result_cache_persist_dir=REUSE_DIR)
+        warm = _reuse_run(second, text)
+        _check_hit("(c) warm-loaded hit", warm, want, True)
+        loads = second.executor.cache_warm_loads
+        if loads < 1 or second.executor.cache_manifest_drops:
+            raise AssertionError(f"reuse: (c) warm loads {loads}, drops "
+                                 f"{second.executor.cache_manifest_drops}")
+        _reuse_log("(c) Q1 persisted miss", miss)
+        _reuse_log(f"(c) Q1 after a fresh store, {loads} warm loads", warm)
+        fresh_store()
+
+        # ---- (d) distributed: the stage DAG, then the fleet probe
+        text = sql("tpch", 3)
+        coord = cluster.coordinator(REUSE_SMALL_SF, REUSE_PAGE_ROWS, {
+            **DIST_SESSION, "result_cache_enabled": "true"})
+        cuda.reset_counts()
+        t0 = time.perf_counter()
+        rows = coord.execute(text)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k = {n: cuda.launches.get(n, 0) for n in KERNEL_NAMES}
+        for n in KERNEL_NAMES:
+            launches[n] += k[n]
+        if coord.last_distribution != "stage-dag" or k["part_ids"] <= 0:
+            raise AssertionError(f"reuse: (d) DAG {coord.last_distribution}"
+                                 f", K4 {k['part_ids']}")
+        if oracle is not None:
+            PQ.compare_tpch(3, rows, oracle[3], PQ.TPCH_ORACLE[3][1])
+        log(f"reuse: (d) Q3 SF {REUSE_SMALL_SF:g} stage DAG, cache on: "
+            f"{len(rows)} rows{' == sqlite' if oracle else ''}, wall "
+            f"{wall:.4f} s, launches {k}")
+        probe = cluster.coordinator(REUSE_SMALL_SF, REUSE_PAGE_ROWS, {
+            "result_cache_enabled": "true",
+            "result_cache_remote_probe": "true",
+            "generated_join_enabled": "false"})
+        runs = []
+        for i in range(2):
+            if i:
+                probe.heartbeat.check_once()  # the workers' blooms
+            ex = probe.runner.executor
+            h0 = ex.cache_remote_hits
+            cuda.reset_counts()
+            t0 = time.perf_counter()
+            got = probe.execute(text)
+            torch.cuda.synchronize()
+            runs.append(dict(
+                rows=got, wall_s=round(time.perf_counter() - t0, 4),
+                distribution=probe.last_distribution,
+                remote_hits=ex.cache_remote_hits - h0,
+                launches={n: cuda.launches.get(n, 0)
+                          for n in KERNEL_NAMES}))
+            _reuse_log(f"(d) Q3 SF {REUSE_SMALL_SF:g} legacy dispatch, "
+                       f"fleet probe, run {i + 1}", runs[-1])
+        for n in KERNEL_NAMES:
+            launches[n] += runs[0]["launches"][n]
+        if runs[1]["remote_hits"] < 1 or runs[0]["remote_hits"] or \
+                sorted(runs[1]["rows"]) != sorted(runs[0]["rows"]) or \
+                sorted(runs[0]["rows"]) != sorted(rows):
+            shown = [{k: v for k, v in r.items() if k != "rows"}
+                     for r in runs]
+            raise AssertionError(f"reuse: (d) fleet probe: {shown}")
+        fresh_store()
+
+        # ---- (e) the concurrent server: cache by default, a plugin
+        class Deny(AccessControl):
+            def check_can_select(self, user, catalog, table, columns):
+                if user == "denied" and table == "lineitem":
+                    self.deny(f"select from {table}")
+
+        class DenyPlugin(Plugin):
+            name = "deny"
+
+            def access_control(self):
+                return Deny()
+
+        SAN.arm()
+        SAN.reset()
+        srv = PrestoTpuServer(big, "tpch", port=0, device=dev,
+                              page_rows=REUSE_PAGE_ROWS,
+                              memory_budget_bytes=SERVE_BUDGET,
+                              plugins=[DenyPlugin()])
+        url = f"http://127.0.0.1:{srv.start()}"
+        try:
+            text = sql("tpch", 6)
+            want = _json_rows(runner(big, "tpch").execute(text))
+            m0 = _scrape(url)
+            cuda.reset_counts()
+            first, wall, _n = _client_run(
+                StatementClient(url, user="dash0", catalog="tpch"), text)
+            k = {n: cuda.launches.get(n, 0) for n in KERNEL_NAMES}
+            for n in KERNEL_NAMES:
+                launches[n] += k[n]
+            out, errors = [None] * REUSE_CLIENTS, []
+
+            def client(i):
+                try:
+                    res, w, _n = _client_run(StatementClient(
+                        url, user=f"dash{i}", catalog="tpch"), text)
+                    out[i] = (res.rows, w)
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errors.append(repr(e))
+
+            cuda.reset_counts()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(REUSE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            race_wall = time.perf_counter() - t0
+            hit_launches = sum(cuda.launches.get(n, 0)
+                               for n in KERNEL_NAMES)
+            m1 = _scrape(url)
+            if errors or any(o is None or o[0] != want for o in out) or \
+                    first.rows != want:
+                raise AssertionError(f"reuse: (e) rows: {errors[:3]}")
+            delta = {n: m1[n] - m0.get(n, 0) for n in (
+                "result_cache_hits_total", "result_cache_misses_total",
+                "admission_cache_bypasses_total")}
+            # the one execution misses at both levels (the statement
+            # and its root fragment); every later client hits
+            if delta["result_cache_misses_total"] != 2 or \
+                    delta["result_cache_hits_total"] != REUSE_CLIENTS or \
+                    delta["admission_cache_bypasses_total"] < \
+                    REUSE_CLIENTS or hit_launches:
+                raise AssertionError(f"reuse: (e) not one execution: "
+                                     f"{delta}, hit launches {hit_launches}")
+            c = StatementClient(url, catalog="tpch")
+            queries = c.execute("select * from system.runtime_queries")
+            tables = c.execute("show tables from system")
+            if queries.error or len(queries.rows) < REUSE_CLIENTS + 1 or \
+                    tables.error or ["runtime_queries"] not in tables.rows:
+                raise AssertionError(f"reuse: (e) system: {queries.error} "
+                                     f"{tables.error} {tables.rows}")
+            denied = StatementClient(url, user="denied",
+                                     catalog="tpch").execute(REUSE_DENIED)
+            if denied.error is None or \
+                    denied.error["errorName"] != "AccessDeniedError":
+                raise AssertionError(f"reuse: (e) not denied: "
+                                     f"{denied.error}")
+            with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
+                metrics = f.read().decode()
+            if "presto_tpu_result_cache_hits_total" not in metrics:
+                raise AssertionError("reuse: (e) /metrics lacks the cache")
+            log(f"reuse: (e) Q6 SF {REUSE_SF:g}: one execution ({wall:.4f} "
+                f"s, launches {k}), then {REUSE_CLIENTS} clients at once in "
+                f"{race_wall:.4f} s (walls "
+                f"{[round(o[1], 4) for o in out]}), all hits with 0 "
+                f"launches, rows == direct; /metrics deltas {delta}; "
+                f"system.runtime_queries {len(queries.rows)} rows; SHOW "
+                f"TABLES FROM system {len(tables.rows)} rows; the plugin "
+                f"denied user 'denied': {denied.error['message']!r}")
+        finally:
+            srv.stop()
+            violations = SAN.violation_count()
+            report = SAN.report()
+            SAN.disarm()
+        if violations:
+            raise AssertionError(f"reuse: (e) sanitizer: {report}")
+        fresh_store()
+
+        # ---- (f) the mesh: a miss, then a root hit
+        text = sql("tpch", 1)
+        want = runner(big, "tpch").execute(text).rows
+        r = LocalRunner(big, "tpch", device=dev, mesh=make_mesh(4),
+                        session={"page_rows": REUSE_PAGE_ROWS,
+                                 "result_cache_enabled": "true"})
+        miss = _reuse_run(r, text)
+        missed(miss)
+        hit = _reuse_run(r, text)
+        _check_hit("(f) mesh root hit", hit, want, True)
+        if not same_rows(miss["rows"], want):
+            raise AssertionError("reuse: (f) mesh miss rows != uncached")
+        check_validated(1, REUSE_SF, hit["rows"])
+        _reuse_log(f"(f) Q1 SF {REUSE_SF:g} mesh x4 miss", miss)
+        _reuse_log(f"(f) Q1 SF {REUSE_SF:g} mesh x4 root hit", hit)
+    finally:
+        fresh_store()
+        shutil.rmtree(REUSE_DIR, ignore_errors=True)
+    log(f"reuse: launches of the misses {launches}; {card}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -4283,7 +4711,7 @@ def main() -> int:
     launches = {k: None for k in KERNEL_NAMES}
     try:
         if phases & {"fused", "dist", "surface", "profile", "analyze",
-                     "serve", "mesh"}:
+                     "serve", "mesh", "reuse"}:
             cluster = DistCluster(dev, (0.01, 1.0, 10.0))
         # fused before scale: the scale runs' required kernels come from
         # the check and fused phases' CPU runs
@@ -4323,6 +4751,10 @@ def main() -> int:
         if "mesh" in phases:
             msh = timed("mesh", phase_mesh, dev, cluster, oracles)
             launches = {k: (launches[k] or 0) + msh[k]
+                        for k in KERNEL_NAMES}
+        if "reuse" in phases:
+            reu = timed("reuse", phase_reuse, dev, cluster, oracles)
+            launches = {k: (launches[k] or 0) + reu[k]
                         for k in KERNEL_NAMES}
         if "profile" in phases:
             timed("profile", phase_profile, dev, cluster)

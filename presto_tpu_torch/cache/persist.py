@@ -1,8 +1,17 @@
-"""The generation-numbered manifest layer (ManifestStore).
+"""Persistent warm-start tier of the result cache (CachePersister) and
+the generation-numbered manifest layer it shares with the coordinator
+journal (ManifestStore).
 
-Port of presto_tpu/cache/persist.py up to its CachePersister, which
-waits for the result cache (ROADMAP queue 1 item 6). A manifest is a set
-of generation-numbered JSON-lines files:
+Port of presto_tpu/cache/persist.py. A persisted fragment entry is one
+payload file (the spool wire format: dist/serde frames under
+dist/spool length-prefix framing — the bytes the exchange plane ships)
+plus one manifest record (entry key, snapshot tokens, stream watermark,
+byte size); the manifest header carries the wire-serde fingerprint, so
+a payload written by another serde version is dropped, never decoded.
+The first enabled session of a process warm-loads every entry whose
+snapshot tokens still match the live connectors (``warm_load``).
+
+A manifest is a set of generation-numbered JSON-lines files:
 
     <stem>.g000001.jsonl
         {"version": V, "gen": 1, ...extra header fields}
@@ -142,8 +151,8 @@ def rewrite_manifest_doc(directory: str, doc: Dict,
 class ManifestStore:
     """One generation-numbered manifest: in-memory entry map + durable
     JSON-lines journal with threshold compaction. The coordinator
-    checkpoint journal (dist/checkpoint.CheckpointJournal) rides it; the
-    result cache's warm tier will too (ROADMAP queue 1 item 6)."""
+    checkpoint journal (dist/checkpoint.CheckpointJournal) and the
+    result cache's warm tier (CachePersister) ride it."""
 
     # lock discipline: the entry map and the pending-append queue are
     # mutated by concurrent publishers, the drain loop, and
@@ -394,3 +403,172 @@ class ManifestStore:
                     os.unlink(old_path)
                 except OSError:
                     pass
+
+
+def _serde_header_check(header: Dict) -> Optional[str]:
+    from presto_tpu_torch.dist.serde import wire_fingerprint
+
+    if header.get("serde") != wire_fingerprint():
+        return (f"serde fingerprint {header.get('serde')!r} != "
+                f"{wire_fingerprint()!r}")
+    return None
+
+
+class CachePersister:
+    """Manifest + payload-file lifecycle for one persist directory.
+    One instance per configured directory, owned by the ResultCache
+    (store.configure re-binds on a directory change, the same
+    last-writer-wins governance every other store knob follows).
+    All shared state lives in the ManifestStore; this class only
+    composes payload-file I/O around it."""
+
+    def __init__(self, directory: str,
+                 compact_threshold: int = COMPACT_THRESHOLD):
+        from presto_tpu_torch.dist.serde import wire_fingerprint
+
+        self.directory = directory
+        self._store = ManifestStore(
+            directory, stem="manifest", version=MANIFEST_VERSION,
+            header_extra={"serde": wire_fingerprint()},
+            header_check=_serde_header_check,
+            compact_threshold=compact_threshold,
+        )
+
+    # -------------------------------------------------------- publish
+    def persist(self, key: str, host_pages, tables, snap,
+                watermark: Optional[int],
+                family: Optional[tuple]) -> None:
+        """Write one entry's payload file + manifest record. Called by
+        the store AFTER it released its own lock (file I/O and the
+        per-page serialization never run under the store lock)."""
+        from presto_tpu_torch.dist.serde import serialize_page
+        from presto_tpu_torch.dist.spool import pack_frames
+
+        try:
+            blob = pack_frames([serialize_page(p) for p in host_pages])
+        except Exception as e:  # noqa: BLE001 - best-effort tier:
+            # an unserializable page type stays memory-only
+            log.warning("result-cache persist skipped for %s: %r",
+                        key, e)
+            return
+        fname = _entry_file(key)
+        fd, tmp = tempfile.mkstemp(prefix=fname + ".tmp",
+                                   dir=self.directory)
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(blob)
+            os.replace(tmp, os.path.join(self.directory, fname))
+        except OSError as e:
+            log.warning("result-cache persist failed for %s: %r",
+                        key, e)
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            return
+        self._store.publish(key, {
+            "file": fname,
+            "nbytes": len(blob),
+            "tables": sorted(list(t) for t in tables),
+            "snap": [list(s) for s in snap],
+            "watermark": watermark,
+            "family": ([family[0], family[1]]
+                       if family is not None else None),
+        })
+
+    def forget(self, keys) -> None:
+        """Drop entries from the manifest (DML invalidation / stream
+        advance made them stale-by-construction) and delete their
+        payload files; called outside the store lock."""
+        removed = self._store.remove(keys)
+        for meta in removed.values():
+            try:
+                os.unlink(os.path.join(self.directory, meta["file"]))
+            except OSError:
+                pass
+
+    # ------------------------------------------------------ warm load
+    def warm_load(self, cache, catalogs) -> Tuple[int, int]:
+        """Re-admit every still-valid manifest entry into ``cache``;
+        returns (entries loaded, entries dropped). Runs at most once
+        per persister instance — store.configure() re-binds a fresh
+        persister on a directory change, which is what a restarted
+        process's first enabled session does."""
+        from presto_tpu_torch.cache.rules import snapshot_of
+        from presto_tpu_torch.dist.serde import PageWireError, \
+            deserialize_page
+
+        if not self._store.claim_once("warm_load"):
+            return (0, 0)
+        snapshot = self._store.entries_snapshot()
+        loaded = 0
+        drops = 0
+        if self._store.broken_count:
+            drops += self._store.broken_count
+            for why in self._store.broken_reasons:
+                log.warning("result-cache warm load: %s", why)
+        dead: List[Tuple[str, bool]] = []  # (key, delete_file)
+        for key, meta in snapshot.items():
+            try:
+                tables = frozenset(
+                    (c, t) for c, t in meta["tables"])
+                snap = tuple(
+                    (c, t, v) for c, t, v in meta["snap"])
+                watermark = meta["watermark"]
+                family = (tuple(meta["family"])
+                          if meta.get("family") else None)
+                fname = meta["file"]
+            except (KeyError, TypeError, ValueError):
+                drops += 1
+                dead.append((key, False))
+                log.warning("result-cache warm load: malformed "
+                            "manifest row for %s dropped", key)
+                continue
+            stale = None
+            proven = False
+            for c, t, ver in snap:
+                cur = snapshot_of(catalogs.get(c), t)
+                if cur is None:
+                    stale = (f"{c}.{t} has no live snapshot "
+                             f"(connector absent or versionless)")
+                    break
+                if cur != ver:
+                    stale = (f"{c}.{t} snapshot moved "
+                             f"{ver!r} -> {cur!r}")
+                    proven = True
+                    break
+            if stale is not None:
+                drops += 1
+                dead.append((key, proven))
+                log.warning("result-cache warm load: %s dropped "
+                            "(%s)", key, stale)
+                continue
+            path = os.path.join(self.directory, fname)
+            try:
+                with open(path, "rb") as f:
+                    blob = f.read()
+                pages = [deserialize_page(b)
+                         for b in _unpack_frames(blob)]
+            except (OSError, ValueError, PageWireError) as e:
+                drops += 1
+                dead.append((key, True))
+                log.warning("result-cache warm load: payload for %s "
+                            "unreadable (%r) — dropped", key, e)
+                continue
+            cache.put_pages(key, pages, tables, watermark=watermark,
+                            snap=snap, family=family, persist=False)
+            loaded += 1
+        if dead:
+            self._store.remove(k for k, _ in dead)
+            for key, delete in dead:
+                if delete:
+                    try:
+                        os.unlink(os.path.join(
+                            self.directory, _entry_file(key)))
+                    except OSError:
+                        pass
+        if loaded or drops:
+            log.info("result-cache warm load from %s: %d entries "
+                     "loaded, %d dropped", self.directory, loaded,
+                     drops)
+        return (loaded, drops)

@@ -162,7 +162,12 @@ ETC_SESSION_KEYS: Dict[str, str] = {
     "query-trace.enabled": "query_trace_enabled",
     "query-trace.dir": "query_trace_dir",
     "stats-profile.dir": "stats_profile_dir",
+    "result-cache.enabled": "result_cache_enabled",
+    "result-cache.bytes": "result_cache_bytes",
+    "result-cache.ttl-ms": "result_cache_ttl_ms",
+    "result-cache.persist-dir": "result_cache_persist_dir",
     "result-cache.remote-probe": "result_cache_remote_probe",
+    "result-cache.subsumption": "result_cache_subsumption",
     "stream-tail.enabled": "stream_tail_enabled",
     "cross-query-batching": "cross_query_batching",
     "cross-query-batch.wait-ms": "cross_query_batch_wait_ms",

@@ -173,6 +173,25 @@ class Connector:
         keys) — the unique-key join fast path consults them."""
         return frozenset()
 
+    def snapshot_version(self, table: str) -> Optional[str]:
+        """Opaque token that changes whenever the table's CONTENT may
+        have changed: the result cache (presto_tpu_torch/cache/) folds
+        it into every key, so a write makes stale entries structurally
+        unreachable (reference analog: connector-provided table
+        versions consulted for materialized-view staleness).
+
+        Default: the row count, exact for the immutable deterministic
+        generators (content is a pure function of schema and scale, and
+        scale moves the count). A writable connector overrides it with
+        a token that also moves on writes that keep the cardinality
+        (UPDATE): the memory connector bumps a write counter. None =
+        staleness cannot be proven, and the table's scans never
+        cache."""
+        try:
+            return f"rows:{self.row_count(table)}"
+        except Exception:  # noqa: BLE001 - a connector without counts
+            return None    # is simply uncacheable, never a query error
+
     def splits(self, table: str, target_rows: int) -> List[Split]:
         """Chop the table into row-range splits of ~target_rows each."""
         total = self.row_count(table)

@@ -37,6 +37,18 @@ class SplitFilterConnector:
     def __getattr__(self, name):
         return getattr(self._inner, name)
 
+    def snapshot_version(self, table: str):
+        """The split share is part of this wrapper's content: two tasks
+        of one fragment on different shares never address one
+        result-cache entry, so the filtered table's token carries
+        (index, count) on top of the inner connector's version."""
+        from presto_tpu_torch.cache.rules import snapshot_of
+
+        inner = snapshot_of(self._inner, table)
+        if inner is None or table != self._table:
+            return inner
+        return f"{inner}/split{self._index}.{self._count}"
+
     def splits(self, table: str, target_rows: int):
         splits = self._inner.splits(table, target_rows)
         if table != self._table:
@@ -81,6 +93,18 @@ class HashSplitConnector:
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
+
+    def snapshot_version(self, table: str):
+        """SplitFilterConnector's rule: a hash-partitioned scan's content
+        is (inner content, partition column, index/count), and its
+        result-cache token says so."""
+        from presto_tpu_torch.cache.rules import snapshot_of
+
+        inner = snapshot_of(self._inner, table)
+        col = self._partition_cols.get(table)
+        if inner is None or col is None:
+            return inner
+        return f"{inner}/hash.{col}.{self._index}.{self._count}"
 
     def _mask_page(self, page, table: str, columns):
         from presto_tpu_torch.ops import hashing as H

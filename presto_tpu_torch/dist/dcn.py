@@ -60,8 +60,17 @@ on the coordinator executor (``task_retries``, ``workers_excluded``,
 ``nonleaf_replays``) and announced as TaskRetryEvent to the
 ``listeners``. ``checkpoint_handle`` (dist/checkpoint.QueryCheckpoint,
 set by the server per query) journals the DAG's stage, root and drain
-barriers. ``close()`` stops the detector's thread. The fleet cache
-probe of the legacy dispatch is not ported (ROADMAP queue 1 item 6).
+barriers. ``close()`` stops the detector's thread.
+
+The fleet cache probe (dist/cacheprobe.py): every heartbeat poll feeds
+the workers' bloom summaries of their cached fragment keys into
+``cache_index``. Under ``result_cache_enabled`` and
+``result_cache_remote_probe`` (default true) a legacy round-robin task
+whose fragment some worker's bloom may hold is first offered to that
+worker (``POST /v1/cache/task``); on a hit the worker parks the cached
+pages as a finished task and no task is dispatched
+(``cache_remote_hits``). The stage DAG's leaf tasks probe the same way
+(dist/scheduler.py). The common miss costs no round trip.
 """
 
 from __future__ import annotations
@@ -199,6 +208,13 @@ class DcnRunner:
         # its daemon thread, never on the query path: the submit gate
         # reads its CACHED state
         self.heartbeat = HeartbeatFailureDetector(list(self.worker_uris))
+        # the fleet-cache index: per-worker bloom summaries of cached
+        # fragment keys, refreshed by every heartbeat ping, so the
+        # pre-dispatch probe's common miss never touches the wire
+        from presto_tpu_torch.dist.cacheprobe import RemoteCacheIndex
+
+        self.cache_index = RemoteCacheIndex()
+        self.heartbeat.on_info = self.cache_index.update_from_info
         self.heartbeat.start()
         # per-node time of the last re-admission probe of an excluded
         # node (a still-dead node costs its connect timeout at most
@@ -239,6 +255,71 @@ class DcnRunner:
             headers={"Content-Type": "application/json"}, timeout=30,
         ) as resp:
             return json.loads(resp.read().decode())
+
+    def _probe_budget(self, ex) -> Optional[float]:
+        """The remote-cache probe's timeout: at most 5 s and a quarter of
+        the query's remaining query_max_run_time, or None (counted on
+        probe_deadline_skips) when the deadline cannot afford a probe —
+        the caller then dispatches as usual."""
+        deadline = ex.query_deadline
+        if deadline is None:
+            return 5.0
+        remaining = deadline - time.monotonic()
+        if remaining < 2.0:
+            ex.probe_deadline_skips += 1
+            return None
+        return min(5.0, 0.25 * remaining)
+
+    def _probe_cached_task(self, partial, split_table: str, index: int,
+                           count: int, task_id: str,
+                           pool) -> Optional[str]:
+        """The fleet cache probe of the legacy dispatch: the key this
+        split share's task would store on a worker, offered to the pool
+        (_probe_pool). Round-robin splits only: the hash split mode
+        wraps the connectors otherwise on the worker, so its keys are
+        not what this mirror computes."""
+        from presto_tpu_torch.dist.cacheprobe import fragment_cache_key
+
+        ex = self.runner.executor
+        try:
+            key = fragment_cache_key(
+                partial, self.runner.catalogs, split_table=split_table,
+                split_index=index, split_count=count,
+                collect_k=ex.collect_k, page_rows=ex.page_rows)
+        except Exception:  # noqa: BLE001 - an advisory probe
+            return None
+        if key is None:
+            return None
+        return self._probe_pool(key, task_id, pool)
+
+    def _probe_pool(self, key: str, task_id: str, pool) -> Optional[str]:
+        """Ask the live pool members whose bloom summary may hold
+        ``key`` to serve it from their result cache (``POST
+        /v1/cache/task``). Returns the uri that parked the pages as the
+        finished task ``task_id`` (the ordinary spool-fetch plane reads
+        them), or None: every failure here is advisory and reads as a
+        miss. The legacy dispatch and the stage scheduler share it."""
+        timeout = self._probe_budget(self.runner.executor)
+        if timeout is None:
+            return None
+        for uri in pool:
+            if uri in self._excluded or \
+                    not self.cache_index.might_contain(uri, key):
+                continue
+            try:
+                with CONNPOOL.request(
+                        f"{uri}/v1/cache/task", method="POST",
+                        data=json.dumps(
+                            {"taskId": task_id, "key": key}).encode(),
+                        headers={"Content-Type": "application/json"},
+                        timeout=timeout) as r:
+                    out = json.loads(r.read().decode())
+            except (urllib.error.URLError, ConnectionError, OSError,
+                    ValueError):
+                continue  # a bloom false positive or a slow peer
+            if out.get("hit"):
+                return uri
+        return None
 
     @staticmethod
     def _raise_if_task_error(e: BaseException, uri: str,
@@ -630,6 +711,14 @@ class DcnRunner:
         tasks: List[_TaskState] = []
         key = f"dcn-{qid}"
         check_payloads = ex._plan_check_on()
+        # the fleet cache probe, gated so the common miss is free (the
+        # bloom summaries answer "definitely not cached" locally);
+        # round-robin splits only
+        sess = self.runner.session
+        probe_on = (partition_cols is None and split_table is not None
+                    and self.cache_index.known()
+                    and bool(sess.get("result_cache_enabled"))
+                    and bool(sess.get("result_cache_remote_probe")))
         try:
             for w, uri in enumerate(pool):
                 payload = {
@@ -654,17 +743,34 @@ class DcnRunner:
                 st = _TaskState(uri=uri, task_id=payload["taskId"],
                                 payload=payload)
                 d0 = trace.now() if trace is not None else 0.0
-                try:
-                    self._post_task(uri, payload)
-                except (urllib.error.URLError, OSError) as e:
-                    if retry_attempts <= 0:
-                        raise DcnQueryFailed(
-                            f"worker {uri}: task submit failed: {e}"
-                        ) from e
-                    # submit retry: this split share goes to another
-                    # ALIVE worker (which then runs two tasks)
-                    self._recover_task(st, pool, retry_attempts,
-                                       deadline, e)
+                hit_uri = (self._probe_cached_task(
+                    partial, split_table, w, len(pool), st.task_id, pool)
+                    if probe_on else None)
+                if hit_uri is not None:
+                    # a fleet member holds this split share's pages: no
+                    # dispatch; the supplier fetches the parked finished
+                    # task over the ordinary plane (a loss mid-fetch
+                    # still recovers: the payload carries the fragment)
+                    st.uri = hit_uri
+                    ex.cache_remote_hits += 1
+                    if trace is not None:
+                        now = trace.now()
+                        trace.complete("cache",
+                                       f"remote-hit:{st.task_id}", now,
+                                       now, uri=hit_uri)
+                        ex.trace_spans += 1
+                else:
+                    try:
+                        self._post_task(uri, payload)
+                    except (urllib.error.URLError, OSError) as e:
+                        if retry_attempts <= 0:
+                            raise DcnQueryFailed(
+                                f"worker {uri}: task submit failed: {e}"
+                            ) from e
+                        # submit retry: this split share goes to another
+                        # ALIVE worker (which then runs two tasks)
+                        self._recover_task(st, pool, retry_attempts,
+                                           deadline, e)
                 if trace is not None:
                     st.trace_t0 = d0
                     trace.complete("dispatch", st.task_id, d0,

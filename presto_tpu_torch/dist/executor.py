@@ -37,9 +37,15 @@ Replicated subtrees run the inherited single-stream code. The mesh runs
 op by op: it captures no CUDA graph (_fused_stream is off), as the
 reference's sharded operators bypass its fused path.
 
-The cache plane is not ported (ROADMAP queue 1 item 6), so the
-reference's cache-residency hooks (``_cache_subtree_ok``,
-``_sink_chain_ids``, ``_stage_replay``) have nothing to narrow here.
+Result-cache residency: only REPLICATED subtrees become cache points
+(``_cache_subtree_ok``): their pages are plain Pages a host replay
+reproduces, where a sharded subtree's ShardedPage layout is not. A hit
+stages its host pages onto the executor's device (the inherited
+``_stage_replay``), which IS the replicated representation: _replicas
+copies it to each other mesh device where a shard reads it. At the
+root, the host sink reaches through Output and gather/broadcast
+exchanges over a replicated source (``_sink_chain_ids``), so a root
+hit crosses nothing.
 
 The ICI exchange plane (``ici_exchange_pages``) lowers a spooled
 repartition edge of the stage DAG to the same all_to_all when the
@@ -328,6 +334,34 @@ class DistExecutor(Executor):
             return self.dist(node.sources[0])
         children = node.children()
         return self.dist(children[0]) if children else REPLICATED
+
+    # ------------------------------------------------ cache residency
+    def _cache_subtree_ok(self, node: P.PhysicalNode) -> bool:
+        """Only REPLICATED subtrees may become result-cache points: their
+        pages are plain Pages a host replay reproduces, so a mesh query
+        with an uncacheable root still caches its gathered interior.
+        A sharded subtree's ShardedPages carry a per-shard layout a
+        replay could not rebuild."""
+        return self.dist(node) == REPLICATED
+
+    def _sink_chain_ids(self, node) -> frozenset:
+        """The mesh's host-sink chain: besides the Output pass-through, a
+        gather/broadcast Exchange over an already-REPLICATED source
+        yields its source's pages unchanged (_exec_exchange), so a cache
+        point below it serves host pages straight to result decode —
+        zero h2d and d2h on the hit."""
+        ids = {id(node)}
+        while True:
+            if isinstance(node, P.Output):
+                node = node.source
+            elif (isinstance(node, P.Exchange)
+                    and node.kind in ("gather", "broadcast")
+                    and self.dist(node.source) == REPLICATED):
+                node = node.source
+            else:
+                break
+            ids.add(id(node))
+        return frozenset(ids)
 
     def _replicated_subtree(self, node: P.PhysicalNode) -> bool:
         return self.dist(node) == REPLICATED and all(

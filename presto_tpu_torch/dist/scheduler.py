@@ -54,8 +54,13 @@ Checkpoints: with a ``checkpoint_handle`` on the coordinator
 placements and re-dispatchable payloads, the root's registration its
 fragment and input stages, and each HTTP-drained root input its
 consumed token and prefix digest; a failed barrier write is counted in
-``checkpoint_drops`` and the query runs on. The fleet cache probe is
-not ported (ROADMAP queue 1).
+``checkpoint_drops`` and the query runs on.
+
+The fleet cache probe (dist/cacheprobe.py): before a leaf task of a
+split fragment whose output is not repartitioned is dispatched, the
+worker whose bloom summary may hold its fragment key is asked to serve
+it from its result cache; on a hit the task is placed and done with no
+dispatch (``cache_remote_hits``).
 
 The ICI exchange plane (``mesh_exchange_mode``, auto by default): a
 repartition edge whose whole dispatch pool runs in this process, with a
@@ -174,6 +179,9 @@ class StageScheduler:
         self._mesh_fids: set = set()
         self._mesh_placement: Dict[int, _Placement] = {}
         self._mesh_stats: Dict[int, object] = {}
+        # the fleet cache probe: deserialized fragment roots for the
+        # coordinator-side key, one loads() per fragment, not per task
+        self._probe_roots: Dict[int, object] = {}
 
     # ------------------------------------------------------ plumbing
     def _retry_attempts(self) -> int:
@@ -605,6 +613,69 @@ class StageScheduler:
         ckpt.record_root(blob, list(self.dag.root_inputs))
 
     # ------------------------------------------------------- stages
+    def _probe_key(self, t: _SchedTask, frag) -> Optional[str]:
+        """The fragment-cache key THIS task's execution would compute on
+        a worker (dist/cacheprobe.fragment_cache_key mirrors the
+        worker's split wrap and salt over the shipped blob), or None
+        when the fragment's root is no cache point. Advisory: any
+        failure reads as a miss."""
+        from presto_tpu_torch.dist.cacheprobe import fragment_cache_key
+
+        root = self._probe_roots.get(t.fid)
+        if root is None:
+            try:
+                root = plan_serde.loads(self._frag_blob[t.fid])
+            except Exception:  # noqa: BLE001 - an advisory probe
+                return None
+            self._probe_roots[t.fid] = root
+        try:
+            return fragment_cache_key(
+                root, self.coord.runner.catalogs,
+                split_table=frag.split_table, split_index=t.index,
+                split_count=self._ntasks[t.fid],
+                collect_k=self.ex.collect_k, page_rows=self.ex.page_rows)
+        except Exception:  # noqa: BLE001 - an advisory probe
+            return None
+
+    def _probe_cache(self, t: _SchedTask, pool) -> bool:
+        """The pre-dispatch fleet cache probe: True iff some fleet member
+        served this leaf task's fragment from its result cache (the task
+        is then placed and done). The common miss is free: the bloom
+        summaries refreshed on heartbeats answer "definitely not cached"
+        with no round trip. Leaf split fragments with one-partition
+        output only: a repartition producer's P-way spool and the mesh
+        plane's raw-page contract are not what the cache holds."""
+        coord = self.coord
+        if not coord.cache_index.known():
+            return False
+        sess = coord.runner.session
+        if not (bool(sess.get("result_cache_enabled"))
+                and bool(sess.get("result_cache_remote_probe"))):
+            return False
+        frag = self.dag.fragment(t.fid)
+        if frag.inputs or frag.split_table is None \
+                or t.fid in self._mesh_fids \
+                or frag.output_kind == "repartition":
+            return False
+        key = self._probe_key(t, frag)
+        if key is None:
+            return False
+        uri = coord._probe_pool(key, t.base_id, pool)
+        if uri is None:
+            return False
+        t.placement = _Placement(uri, t.base_id)
+        t.dispatched_at = time.monotonic()
+        t.done = True
+        t.counted = True
+        self.ex.cache_remote_hits += 1
+        tr = self.trace
+        if tr is not None:
+            now = tr.now()
+            tr.complete("cache", f"remote-hit:{t.base_id}", now, now,
+                        uri=uri, key=key)
+            self.ex.trace_spans += 1
+        return True
+
     def _run_stage(self, fid: int) -> None:
         # pool recomputed per stage: an excluded node whose heartbeat
         # recovered rejoins HERE, mid-query
@@ -624,6 +695,11 @@ class StageScheduler:
                              pool=len(pool))
             self.ex.trace_spans += 1
         for t in stage:
+            if self._probe_cache(t, pool):
+                # a fleet member holds this split fragment's pages: the
+                # task is DONE without dispatch, and its consumers read
+                # the parked spool over the ordinary fetch plane
+                continue
             if pool[t.index % len(pool)] in self.coord._excluded:
                 # an earlier submit of this wave excluded a node:
                 # refresh the pool so the remaining tasks neither burn

@@ -5,7 +5,8 @@ sums.
 Port of presto_tpu/exec/agg_states.py: count, count(*), sum, avg, min,
 max, any, bool_or/bool_and, the variance family, approx_distinct's HLL
 words and the collect states of array_agg, map_agg and
-approx_percentile (plugin aggregates are not ported). 128-bit decimal
+approx_percentile, and the registry of plugin aggregates
+(AggregateFunctionSpec, plugin.py's aggregate_functions). 128-bit decimal
 sums split each unscaled i64 into (v >> 32, v & 0xFFFFFFFF) and sum the
 halves separately; hi*2^32 + lo reconstructs the exact total as a
 long-decimal limb Block.
@@ -36,8 +37,10 @@ class StateCol:
     input_kind: str  # ops.agg kind applied to raw input
     merge_kind: str  # ops.agg kind applied when combining partials
     type: T.SqlType
-    # transform applied to the raw input column before reduction
-    pre: Optional[str] = None  # None | 'hi32' | 'lo32' | 'sq'
+    # transform applied to the raw input column before reduction:
+    # None | 'hi32' | 'lo32' | 'sq', or a plugin aggregate's named
+    # module-level callable over the input tensor
+    pre: object = None
 
 
 # collect-state aggregate markers (handled by the executor's collect
@@ -115,12 +118,40 @@ def state_layout(function: str,
                      T.CollectStateType(T.UNKNOWN)),
             StateCol("count", A.COUNT, A.SUM, T.BIGINT),
         ]
+    if function in _PLUGIN_AGGS:
+        return list(_PLUGIN_AGGS[function].state)
     raise ValueError(f"unknown aggregate function: {function}")
 
 
+@dataclasses.dataclass(frozen=True)
+class AggregateFunctionSpec:
+    """Plugin aggregate (reference: @AggregationFunction state/input/
+    combine/output; spi/Plugin.getFunctions). ``state`` columns are
+    built from the primitive segmented-reduction kinds of ops/agg
+    (input_kind on raw input, merge_kind on partial states — so
+    partial/final splits, spill partitions and mesh repartition work
+    unchanged), and ``finalize(torch, states)`` combines the merged
+    (data, nulls) state pairs into ``(data, nulls or None)``.
+
+    ``StateCol.pre`` may be a module-level callable over the raw input
+    tensor; a lambda would give every plan a new program-cache key, so
+    use named functions."""
+
+    name: str
+    state: Tuple[StateCol, ...]
+    result: object  # SqlType, or callable(in_type) -> SqlType
+    finalize: object  # fn(torch, states) -> (data, nulls or None)
+
+
+_PLUGIN_AGGS: dict = {}
+
+
+def register_aggregate(spec: AggregateFunctionSpec) -> None:
+    _PLUGIN_AGGS[spec.name] = spec
+
+
 def is_plugin_aggregate(name: str) -> bool:
-    """Plugin aggregates are not ported; the planner asks."""
-    return False
+    return name in _PLUGIN_AGGS
 
 
 def result_type(
@@ -157,12 +188,17 @@ def result_type(
         return T.DOUBLE
     if function in VARIANCE_FNS:
         return T.DOUBLE
+    if function in _PLUGIN_AGGS:
+        r = _PLUGIN_AGGS[function].result
+        return r(in_type) if callable(r) else r
     raise ValueError(f"unknown aggregate function: {function}")
 
 
 def pre_transform(pre, data: torch.Tensor) -> torch.Tensor:
     if pre is None:
         return data
+    if callable(pre):  # a plugin aggregate's named transform
+        return pre(data)
     if pre == "hi32":
         return data.to(torch.int64) >> 32  # arithmetic: floor(v / 2^32)
     if pre == "lo32":
@@ -238,4 +274,7 @@ def finalize(
         if function.startswith("stddev"):
             var = torch.sqrt(var)
         return Block(data=var, type=T.DOUBLE, nulls=nulls)
+    if function in _PLUGIN_AGGS:
+        data, nulls = _PLUGIN_AGGS[function].finalize(torch, states)
+        return Block(data=data, type=out_type, nulls=nulls)
     raise ValueError(f"unknown aggregate function: {function}")

@@ -156,6 +156,47 @@ QUERY_COUNTERS: Dict[str, tuple] = {
         "gauge", "runs whose starting capacity bucket was seeded "
         "from a persisted observed-stats profile (obs/profile.py; "
         "per query)"),
+    "result_cache_hits": (
+        "counter", "result-cache hits: fragment page replays + full-"
+        "statement row replays (presto_tpu_torch/cache/; executor "
+        "lifetime — /metrics and system.metrics overlay the "
+        "process-shared store's totals)"),
+    "result_cache_misses": (
+        "counter", "result-cache lookups that executed for real (the "
+        "entry is published when the attempt completes overflow-free)"),
+    "result_cache_evictions": (
+        "counter", "result-cache entries dropped by the byte-budget "
+        "LRU or TTL aging (result_cache_bytes / result_cache_ttl_ms)"),
+    "result_cache_invalidations": (
+        "counter", "result-cache entries reclaimed by the write-path "
+        "invalidation hook after DML/CTAS to their scanned tables "
+        "(staleness itself is structural: snapshot_version rides in "
+        "every key)"),
+    "cache_warm_loads": (
+        "counter", "persisted result-cache entries re-admitted at the "
+        "warm-start pass (cache/persist.py manifest load): snapshot "
+        "tokens re-validated against live connectors, pages decoded "
+        "from the wire-serde payload files"),
+    "cache_manifest_drops": (
+        "counter", "persisted result-cache entries dropped LOUDLY at "
+        "warm load: snapshot token moved, payload file missing or "
+        "corrupt, manifest truncated, or wire-serde fingerprint "
+        "mismatch — never served, never a crash"),
+    "cache_remote_hits": (
+        "counter", "leaf tasks short-circuited by a FLEET member's "
+        "fragment cache: the coordinator's pre-dispatch probe "
+        "(dist/cacheprobe.py) found the fragment's pages on a worker "
+        "and fetched them over the spool plane instead of executing "
+        "the task"),
+    "cache_subsumed_hits": (
+        "counter", "fragments served by CONTAINMENT rewrite "
+        "(cache/rules.py): a cached sibling with a wider single-"
+        "column range/IN filter replayed through this fragment's own "
+        "predicate as a residual filter"),
+    "probe_deadline_skips": (
+        "counter", "remote-cache probes skipped because the query's "
+        "remaining query_max_run_time could not afford the probe "
+        "wall (the task dispatched normally instead)"),
     "h2d_bytes": (
         "gauge", "bytes staged host->device through the exec/xfer.py "
         "choke points this query"),

@@ -500,6 +500,54 @@ class Executor:
         self.cross_query_batched_queries = 0
         self.batch_gather_wait_ms = 0
         self.queries_per_launch = 0
+        # ---- the result cache (presto_tpu_torch/cache/): with a
+        # ResultCache wired (result_cache_enabled -> runner.
+        # apply_session, or set directly), execute()/stream_fragment()
+        # select the plan's maximal cacheable subtrees as CACHE POINTS
+        # (cache/rules.py) and pages() serves them from the store: a hit
+        # replays stored host pages and captures or replays no program
+        # (program_launches stays 0); a miss streams normally while
+        # collecting, and publishes ONLY after the attempt completes
+        # overflow-free (a truncated page set is never cached). The
+        # counters are executor-lifetime, like the join counters;
+        # /metrics and system.metrics overlay the process-shared store's
+        # totals so concurrent per-query executors add up
+        self.result_cache = None
+        self.result_cache_hits = 0
+        self.result_cache_misses = 0
+        self.result_cache_evictions = 0
+        self.result_cache_invalidations = 0
+        # the fleet tallies: warm-start loads and drops (the runner's
+        # boot pass), coordinator-probed remote hits (dist/dcn.py,
+        # dist/scheduler.py), containment-rewrite hits, and remote
+        # probes the query deadline could not afford
+        self.cache_warm_loads = 0
+        self.cache_manifest_drops = 0
+        self.cache_remote_hits = 0
+        self.cache_subsumed_hits = 0
+        self.probe_deadline_skips = 0
+        # serve contained filters from wider cached siblings
+        # (result_cache_subsumption)
+        self.cache_subsumption = False
+        # per-query cache-point state: id(subtree) -> (key, node,
+        # tables, watermark, snap, family), node refs held so the ids
+        # stay stable; inflight guards the miss path's re-entrant
+        # pages() call; pending holds completed-but-unpublished streams
+        # until the attempt succeeds
+        self._cache_points: Dict[int, tuple] = {}
+        self._cache_inflight: set = set()
+        self._cache_pending: List = []
+        # host-serve sink: ids of the plan nodes whose pages feed ONLY
+        # result decode or a task's serialization (the root and its
+        # pass-through chain): a cache replay there serves its host
+        # pages as they are, zero h2d and zero d2h
+        self._host_sink_ids: frozenset = frozenset()
+        # the captured programs this query's fused streams used (keys
+        # of exec/graphs.py's cache): a device fault releases these,
+        # not every query's (_release_device_memory); the releases'
+        # keys are recorded in programs_released, in order
+        self._query_programs: set = set()
+        self.programs_released: List[tuple] = []
         # counter baselines of the query in flight (_begin_query)
         self._joins_counter_base = (0, 0)
         self._graph_base = graphs.snapshot()
@@ -576,7 +624,16 @@ class Executor:
         OperatorContext wall/row accounting feeding PlanPrinter). A
         node's wall is the time spent in its next() calls, its inputs'
         included; a chain fused into one program per split reports on
-        its top node only, since no host code runs inside the program."""
+        its top node only, since no host code runs inside the program.
+
+        A result-cache point (cache/rules.py) serves from or populates
+        the shared store (_cached_pages); the inflight guard lets the
+        miss path re-enter this method for the real stream."""
+        if self._cache_points:
+            entry = self._cache_points.get(id(node))
+            if entry is not None and id(node) not in self._cache_inflight:
+                yield from self._cached_pages(node, entry)
+                return
         impl = self._pages_impl(node)
         if self._collect_stats is None:
             for page in impl:
@@ -779,7 +836,9 @@ class Executor:
         self.host_spill_bytes_used = 0
         self.disk_spill_pages = 0
         self.skew_chunks_used = 0
-        prof_key = self._begin_query(node)
+        # pages written to a table (decode=False) go on to device code,
+        # so only a decoding run serves cache hits as host pages
+        prof_key = self._begin_query(node, host_sink=decode)
         # lifecycle tracing borrows the EXPLAIN ANALYZE accounting for
         # its operator spans: per page two perf_counter calls and one
         # deferred row-count scalar, no device read until after the run
@@ -846,11 +905,14 @@ class Executor:
         return names, rows, stats
 
     # ------------------------------------------------- per-query plumbing
-    def _begin_query(self, node: P.PhysicalNode) -> Optional[str]:
+    def _begin_query(self, node: P.PhysicalNode,
+                     host_sink: bool = True) -> Optional[str]:
         """Per-query setup shared by execute() and stream_fragment():
         the ladder's and the gauges' resets, the plan check, the
-        counter baselines and the profile seed. Returns the profile key
-        to record under, or None."""
+        counter baselines, the result-cache points and the profile
+        seed. ``host_sink``: the root's pages feed only row decode or a
+        task's serialization, so a cache hit there serves host pages.
+        Returns the profile key to record under, or None."""
         self._capacity_boost = 1
         self.capacity_boost_retries = 0
         self.profile_store_hits = 0
@@ -866,8 +928,15 @@ class Executor:
                                     self.pallas_joins_used)
         self._graph_base = graphs.snapshot()
         self._reset_transfer_gauges()
+        self._query_programs = set()
         # pre-launch plan verification (exec/plan_check.py)
         self._verify_plan(node)
+        # result-cache points: pages() serves the selected subtrees from
+        # the shared store; a whole-plan hit replays with no capture and
+        # no launch
+        self._select_cache_points(node)
+        self._host_sink_ids = (self._sink_chain_ids(node) if host_sink
+                               else frozenset())
         return self._seed_profile(node)
 
     def _end_query(self) -> None:
@@ -878,6 +947,8 @@ class Executor:
         self.programs_compiled = int(d["captures"])
         self.compile_wall_s = d["capture_s"]
         self.program_cache_hits = int(d["replays"])
+        self._cache_points = {}
+        self._cache_pending = []
 
     def count_transfer(self, direction: str, nbytes: int,
                        wall_s: float) -> None:
@@ -1012,9 +1083,13 @@ class Executor:
     def _begin_attempt(self) -> None:
         """Per-attempt reset shared by every attempt of the ladder:
         deferred flags, materialized intermediates (they may embed an
-        overflow-truncated result) and the per-attempt counters."""
+        overflow-truncated result), the unpublished result-cache streams
+        (they may embed the overflow that forced this retry) and the
+        per-attempt counters."""
         self._pending_overflow = []
         self._release_stream_cache()
+        self._cache_pending = []
+        self._cache_inflight = set()
         self.gathers_deferred = 0
         self.gathers_materialized = 0
         self.fused_partial_aggs = 0
@@ -1099,6 +1174,10 @@ class Executor:
                         if trace_ops:
                             self._trace_operators(tr, att_span)
                         tr.end(att_span, outcome="ok", pages=len(out))
+                    if not cancelled():
+                        # only a completed overflow-free attempt's
+                        # streams enter the result cache
+                        self._publish_cache_pending()
                     return out
                 if tr is not None:
                     tr.end(att_span, outcome="overflow")
@@ -1163,11 +1242,28 @@ class Executor:
         """Return a failed attempt's memory before the retry. On CUDA the
         caching allocator keeps freed blocks and each captured graph
         keeps a private pool, and both outlive the attempt: without this
-        the retry at a halved budget meets the same full card."""
+        the retry at a halved budget meets the same full card.
+
+        Only this query's captured programs go (the reference's fault
+        gate tightens the budget and keeps every compiled program);
+        other queries' programs survive one query's fault. Then, on
+        CUDA, while the card's free memory is still short of the
+        retry's budget, the least recently used programs of the cache
+        go one at a time. Every released key is appended to
+        ``programs_released``."""
         gc.collect()
+        released = graphs.release(self._query_programs)
+        self._query_programs = set()
         if self.device.type == "cuda":
-            graphs.clear()
             torch.cuda.empty_cache()
+            need = self._budget()
+            while torch.cuda.mem_get_info(self.device)[0] < need:
+                key = graphs.release_lru()
+                if key is None:
+                    break
+                released.append(key)
+                torch.cuda.empty_cache()
+        self.programs_released.extend(released)
 
     def _maybe_inject_oom(self) -> None:
         """Fault-injection hook: the device allocator's failure mode, so
@@ -1268,6 +1364,179 @@ class Executor:
         payload during re-attach (dist/checkpoint._redispatch_dead)."""
         self.reattach_redispatches += 1
 
+    def count_cache_invalidations(self, n: int) -> None:
+        """The runner's write-path result-cache reclaim
+        (runner._invalidate_caches) counts here, so every counter
+        surface renders it."""
+        self.result_cache_invalidations += n
+
+    def count_warm_load(self, loaded: int, drops: int) -> None:
+        """One warm-start pass's outcome (runner.apply_session drives
+        it; the counters live here for EXPLAIN ANALYZE and /metrics)."""
+        self.cache_warm_loads += loaded
+        self.cache_manifest_drops += drops
+
+    # --------------------------------------------------------- result cache
+    def _select_cache_points(self, node: P.PhysicalNode) -> None:
+        """Per-query cache-point selection (cache/rules.py): the maximal
+        cacheable subtrees holding a materializing operator, gated by
+        _cache_subtree_ok (the mesh allows only replicated subtrees).
+
+        Keys are salted with the executor settings that change a
+        successful subtree's output without appearing in the plan:
+        collect_k bounds the collect aggregates and page_rows shapes the
+        replayed page stream. The store is process-shared, so two
+        sessions with different settings never address one entry. The
+        kernel switch, fusion and batching knobs change no result and
+        stay out of the key: a hit made with the kernels serves a run
+        without them."""
+        self._cache_points = {}
+        if self.result_cache is None:
+            return
+        from presto_tpu_torch.cache.rules import (
+            select_cache_points,
+            stream_watermark,
+        )
+
+        salt = f"k{self.collect_k}.p{self.page_rows}"
+        self._cache_points = {
+            i: (f"{key}:{salt}", n, tables,
+                stream_watermark(tables, self.catalogs), snap,
+                # family keys carry the entry keys' salt: siblings under
+                # other settings never answer each other
+                (f"{fam[0]}:{salt}", fam[1]) if fam is not None else None)
+            for i, (key, n, tables, snap, fam) in select_cache_points(
+                node, self.catalogs, allow=self._cache_subtree_ok,
+                subsumable=self.cache_subsumption).items()
+        }
+
+    def _cache_subtree_ok(self, node: P.PhysicalNode) -> bool:
+        """Whether a subtree's page stream may become a cache point: the
+        single-stream executor's pages are ordinary Pages, so every one
+        may (the DistExecutor narrows to replicated subtrees)."""
+        return True
+
+    @staticmethod
+    def _sink_chain_ids(node) -> frozenset:
+        """ids of the nodes whose page streams reach result decode or
+        emit untouched: the root plus its Output pass-through chain —
+        where a host page can be served with no device consumer."""
+        ids = {id(node)}
+        while isinstance(node, P.Output):
+            node = node.source
+            ids.add(id(node))
+        return frozenset(ids)
+
+    def _cached_pages(self, node: P.PhysicalNode, entry) -> Iterator[Page]:
+        """Serve one cache point: on a hit replay the stored host pages
+        (no capture, no launch; one staging copy per page for a device
+        consumer, none at the host sink); on a miss stream the real
+        subtree (re-entering pages() through the inflight guard) while
+        collecting, and stage the completed stream for publication once
+        the attempt proves overflow-free. A stream abandoned downstream
+        (a Limit stopped consuming) never reaches the staging append,
+        so a partial page set is never published."""
+        key, _node_ref, tables, watermark, snap, family = entry
+        tr = self.trace
+        t0 = tr.now() if tr is not None else 0.0
+        host_pages = self.result_cache.get_pages(key)
+        label = type(node).__name__
+        if host_pages is not None:
+            self.result_cache_hits += 1
+            # replayed pages still pass the per-query accounting (the
+            # memory limit holds whether a page came off the device or
+            # out of the cache), and EXPLAIN ANALYZE shows the replay's
+            # pages and rows on this node
+            st = None
+            if self._collect_stats is not None:
+                st = self._collect_stats.setdefault(
+                    id(node), NodeStats(label))
+            serve_host = id(node) in self._host_sink_ids
+            for hp in host_pages:
+                dp = hp if serve_host else self._stage_replay(hp)
+                self._account_page(dp)
+                if st is not None:
+                    st.pages += 1
+                    st.row_counts.append(
+                        int(XF.np_host(dp.valid, label="cache-replay")
+                            .sum()) if serve_host else dp.num_rows())
+                yield dp
+            if tr is not None:
+                tr.complete("cache", f"hit:{label}", t0, tr.now(),
+                            pages=len(host_pages), key=key)
+                self.trace_spans += 1
+            return
+        if family is not None:
+            # subsumption rewrite: a cached SIBLING whose filter
+            # descriptor CONTAINS this one answers by replaying its
+            # (wider) pages through this node's own predicate — a
+            # residual filter over cached pages instead of a rescan
+            sib = self.result_cache.probe_family(family[0], family[1])
+            wider = (self.result_cache.get_pages(sib[0])
+                     if sib is not None else None)
+            if wider is not None:
+                self.result_cache_hits += 1
+                self.cache_subsumed_hits += 1
+                self.result_cache.count_subsumed()
+                if tr is not None:
+                    tr.complete("cache", f"subsume:{label}", t0,
+                                tr.now(), key=key, wider=sib[0])
+                    self.trace_spans += 1
+                # the wider pages enter UNDER this Filter through the
+                # RemoteSource supplier path (the exchange plane's
+                # ingest), and the node's own predicate runs over them
+                skey = f"subsume:{id(node)}"
+                rs = P.RemoteSource(
+                    types=tuple(self.output_types(node.source)),
+                    key=skey, origin=node.source)
+                synthetic = dataclasses.replace(node, source=rs)
+                self.remote_sources[skey] = (
+                    lambda pages=wider: iter(pages))
+                collected: List = []
+                try:
+                    for page in self.pages(synthetic):
+                        collected.append(page)
+                        yield page
+                finally:
+                    self.remote_sources.pop(skey, None)
+                # the narrow result publishes under its EXACT key, so the
+                # next identical query hits without the rewrite
+                self._cache_pending.append(
+                    (key, collected, tables, watermark, snap, family))
+                return
+        self.result_cache_misses += 1
+        if tr is not None:
+            tr.complete("cache", f"miss:{label}", t0, tr.now(), key=key)
+            self.trace_spans += 1
+        self._cache_inflight.add(id(node))
+        try:
+            collected = []
+            for page in self.pages(node):
+                collected.append(page)
+                yield page
+        finally:
+            self._cache_inflight.discard(id(node))
+        self._cache_pending.append(
+            (key, collected, tables, watermark, snap, family))
+
+    def _stage_replay(self, page: Page) -> Page:
+        """Stage one replayed host page for a device consumer."""
+        return XF.to_device(page, self.device, label="cache-replay")
+
+    def _publish_cache_pending(self) -> None:
+        """Publish the attempt's completed cache streams — once per
+        SUCCESSFUL (overflow-free) attempt, where the engine syncs
+        anyway, so the store's per-page d2h reads stay off the
+        deferred-sync hot path."""
+        pending, self._cache_pending = self._cache_pending, []
+        cache = self.result_cache
+        if cache is None:
+            return
+        for key, pages, tables, watermark, snap, family in pending:
+            self.result_cache_evictions += cache.put_pages(
+                key, pages, tables, watermark=watermark, snap=snap,
+                family=family)
+
     # ------------------------------------------------------ fused pipelines
     def _scan_chain(self, node: P.PhysicalNode, *, through_joins: bool):
         """Walk a Filter/Project/Exchange chain (and, when through_joins,
@@ -1337,16 +1606,27 @@ class Executor:
         A single-split launch offers itself to the concurrent server's
         cross-query LaunchBatcher first (server/launch_batcher.py).
 
-        Reference: presto_tpu/exec/executor.py _fused_stream (without
-        its result-cache points, which are not ported);
-        operator/ScanFilterAndProjectOperator.java
-        fuses scan, filter and project for the same reason."""
+        A chain member that is a live result-cache point stays a
+        pages() boundary: fusing through it would bypass the cache (no
+        hit, no population), and the put's host read may not run inside
+        a captured program. An INFLIGHT point is its own miss-path
+        collection, where fusion is what we want.
+
+        Reference: presto_tpu/exec/executor.py _fused_stream;
+        operator/ScanFilterAndProjectOperator.java fuses scan, filter
+        and project for the same reason."""
         if not self.offload:
             return None
         walked = self._scan_chain(node, through_joins=True)
         if walked is None:
             return None
         cur, chain = walked
+        if self._cache_points:
+            for link in chain + [cur]:
+                n = link[0] if isinstance(link, tuple) else link
+                if id(n) in self._cache_points and \
+                        id(n) not in self._cache_inflight:
+                    return None
         if not chain and agg_tail is None:
             return None  # a bare scan is no pipeline
         conn = self.catalogs[cur.catalog]
@@ -1432,10 +1712,11 @@ class Executor:
         def program(kind, n_pad, batch, build):
             key = (kind, n_pad, batch)
             if key not in programs:
-                programs[key] = graphs.program(
-                    (kind, node, key_extra, cur.table, n_pad, batch,
-                     self.device, self.kernels, self._generators(node)),
-                    build, batch, self.device)
+                gkey = (kind, node, key_extra, cur.table, n_pad, batch,
+                        self.device, self.kernels, self._generators(node))
+                self._query_programs.add(gkey)
+                programs[key] = graphs.program(gkey, build, batch,
+                                               self.device)
             return programs[key]
 
         # cross-query launch batching: with a LaunchBatcher attached

@@ -29,7 +29,10 @@ generators the chain reads), so the tasks of a distributed query and
 repeated queries replay one capture. A Program runs one call at a time
 (its lock), on the caller's current stream. Each graph holds a private
 memory pool; the cache keeps at most MAX_PROGRAMS and frees the least
-recently used beyond that.
+recently used beyond that. A query's device fault releases that query's
+programs (``release``) and, while the card stays short, the least
+recently used others one by one (``release_lru``), never the whole
+cache at once.
 
 Kernel launch counts (presto_tpu_torch.cuda): the warm-up launches and
 counts as any op-by-op run; the capture records its launches apart; each
@@ -254,3 +257,25 @@ def clear() -> None:
     """Drop every cached program (and its graph's memory pool)."""
     with _programs_lock:
         _programs.clear()
+
+
+def release(keys) -> List[tuple]:
+    """Drop the cached programs of ``keys`` (one query's, on its device
+    fault); returns the keys that were cached, least recently used
+    first. A caller still holding a Program keeps it alive until it is
+    done with it."""
+    keys = set(keys)
+    with _programs_lock:
+        out = [k for k in _programs if k in keys]
+        for k in out:
+            del _programs[k]
+    return out
+
+
+def release_lru():
+    """Drop the least recently used cached program; its key, or None
+    when the cache is empty."""
+    with _programs_lock:
+        if not _programs:
+            return None
+        return _programs.popitem(last=False)[0]

@@ -189,6 +189,15 @@ class PageStore:
         path, spec, meta = entry
         return graphs.unflatten(spec, iter(_read_leaves(path, meta)))
 
+    def host_pages(self) -> List:
+        """The stored pages as host pages, with no device staging — the
+        result cache's replay and demotion plane (cache/store.py): a
+        host-tier store hands back its retained pages, a disk-tier one
+        reads its spill files, a device-tier one its device pages."""
+        if self.tier == "disk":
+            return [self._load(e) for e in self._pages]
+        return list(self._pages)
+
     def stream(self) -> Iterator[Page]:
         """The stored pages in order, on the store's device."""
         if self.tier == "device":

@@ -117,6 +117,14 @@ TRANSFER_REGISTRY: Dict[str, Tuple[str, str, str]] = {
         "h2d", "data",
         "RemoteSource ingest: deserialized exchange pages stage onto "
         "the device before entering the consumer fragment"),
+    "exec.executor.Executor._cached_pages": (
+        "d2h", "data",
+        "a result-cache hit at the host sink counts its EXPLAIN ANALYZE "
+        "rows from the stored host valid mask (numpy: nothing crosses)"),
+    "exec.executor.Executor._stage_replay": (
+        "h2d", "data",
+        "a result-cache hit below the host sink stages its stored host "
+        "pages onto the device for the consumer above (cache-replay)"),
     "exec.executor.Executor._join_partition_rebalanced": (
         "d2h", "data",
         "grace-join skew rebalance reads per-piece row counts (host "
@@ -178,6 +186,10 @@ TRANSFER_REGISTRY: Dict[str, Tuple[str, str, str]] = {
         "once); each round pulls its landing pages' row counts back "
         "(ici-counts, 8 bytes per page and partition)"),
     # ---- worker task runtime
+    "server.worker.TaskRuntime.serve_cached_fragment": (
+        "d2h", "data",
+        "the fleet cache probe's serve counts each cached host page's "
+        "rows from its valid mask (numpy: nothing crosses)"),
     "server.worker.TaskRuntime._run_task": (
         "d2h", "data",
         "host-tier fragment output leaves the device exactly once, at "

@@ -18,8 +18,7 @@ QueryMonitor building EventListener payloads):
 SPAN_KINDS is the span analog of exec/counters.QUERY_COUNTERS: every
 span kind the port emits is declared here, and
 tests/test_torch_obs.py fails when an emission site uses an undeclared
-kind or a declared kind has no emission site. The reference's cache
-and checkpoint kinds wait for the planes that emit them (ROADMAP).
+kind or a declared kind has no emission site.
 
 Tracing stays off the device path: spans are recorded at page, attempt
 and stage boundaries by host control code only, never inside a captured
@@ -60,6 +59,13 @@ SPAN_KINDS: Dict[str, str] = {
               "(adaptive/): attrs carry the flip/seed/skew-hint "
               "counts, or rejected=true with the verify_dag reason "
               "when the mutation rolled back",
+    "cache": "one result-cache point served (presto_tpu_torch/cache/): "
+             "hit:<Node> replays stored pages (attrs: pages, key) in "
+             "the span's interval, with no capture and no launch; "
+             "miss:<Node> marks the lookup, the real execution follows "
+             "as ordinary attempt/operator spans; subsume:<Node> a "
+             "residual filter over a wider cached sibling; "
+             "remote-hit:<task> a leaf task a worker's cache served",
     "checkpoint": "one durable coordinator-journal publish "
                   "(dist/checkpoint.py): attrs carry the record state "
                   "and serialized bytes, the barrier-write cost beside "

@@ -51,6 +51,13 @@ LOCK_REGISTRY: Dict[str, str] = {
     "cache.persist.ManifestStore._lock":
         "one manifest's entry map, pending-append queue and claim "
         "flags (every append and compaction runs OUTSIDE it)",
+    "cache.store.ResultCache._lock":
+        "the result cache's entry map, byte accounting, family index "
+        "and tallies (per-query runners and workers share one store; "
+        "page payloads are immutable once published, and persistence "
+        "file I/O runs OUTSIDE it)",
+    "cache.store._shared_lock":
+        "creation of the process-shared ResultCache",
     "cuda._lock":
         "kernel library builds and loads (one nvcc per source, once)",
     "cuda._count_lock":
@@ -58,6 +65,9 @@ LOCK_REGISTRY: Dict[str, str] = {
     "dist.checkpoint.CheckpointJournal._lock":
         "the journal's in-memory query records (barrier mutations; the "
         "durable publish runs OUTSIDE it)",
+    "dist.cacheprobe.RemoteCacheIndex._lock":
+        "the coordinator's per-worker bloom summaries (heartbeat threads "
+        "write them, dispatch threads read them)",
     "dist.connpool.ConnectionPool._lock":
         "the per-destination keep-alive connection free-lists (take/put "
         "are pure list ops — every connect, send and read happens "

@@ -9,10 +9,26 @@ from the counter registry, exec/counters.py), CREATE / DROP VIEW
 DEALLOCATE (per user), SET / SHOW SESSION, SHOW TABLES, and CREATE
 TABLE AS, INSERT, DELETE, UPDATE (a rewrite through SELECT plus a table
 replace) and DROP TABLE on a connector that stores tables (the memory
-connector). The system catalog is not ported and raises
-NotImplementedError (ROADMAP queue 5); neither are access control and
-the result cache: the runner takes no plugins, and their session
-properties are unknown to the port.
+connector).
+
+Every runner holds the system catalog (connectors/system.py: catalogs,
+tables, columns, session_properties, functions; the server adds its
+runtime tables and metrics). ``plugins=`` installs plugins (plugin.py):
+their connectors join the catalogs, their functions and types the
+registries, and at most one contributes the AccessControl
+(security.py) the runner consults at statement admission, on every
+planned scan (plan-time scalar subqueries included) and on each write,
+view, and SET SESSION.
+
+The result cache (presto_tpu_torch/cache/): under
+``result_cache_enabled`` the runner binds the process-shared store to
+its executor (which serves cacheable subtrees from it, the fragment
+level), answers an identical statement from the store's row entries
+without executing (the statement level, ``statement_cache_probe`` for
+the server's admission), and on every write reclaims the entries that
+read the written table. ``result_cache_persist_dir`` adds the
+warm-start tier: the first enabled session of a process re-admits the
+persisted entries whose snapshot tokens still hold.
 
 A statement that reaches the executor under ``query_trace_enabled`` or
 ``query_trace_dir`` records a lifecycle trace (presto_tpu_torch/obs/),
@@ -50,7 +66,10 @@ honours:
     ``stats_profile_dir`` (the observed-stats profile store);
   - the HTTP server's: ``cross_query_batching`` and
     ``cross_query_batch_wait_ms`` (the executor's launch batcher), and
-    ``estimate_memory``, which sizes the memory arbiter's admission.
+    ``estimate_memory``, which sizes the memory arbiter's admission;
+  - the result cache's: ``result_cache_enabled``, ``_bytes``,
+    ``_ttl_ms``, ``_persist_dir`` and ``_subsumption`` (the DcnRunner
+    reads ``_remote_probe``).
 
 With ``mesh=make_mesh(D)`` (dist/executor.py) the runner fragments
 every plan with exchanges (dist/fragmenter.add_exchanges, plan-time
@@ -65,6 +84,7 @@ mesh, DistributedQueryRunner: the same engine, with real exchanges).
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
@@ -100,8 +120,23 @@ class LocalRunner:
     def __init__(self, catalogs: Dict, default_catalog: str = "tpch",
                  session: Optional[Dict[str, object]] = None,
                  device=None, page_rows: Optional[int] = None,
-                 mesh=None, dist_options: Optional[Dict] = None):
+                 mesh=None, dist_options: Optional[Dict] = None,
+                 plugins=()):
         self.catalogs = dict(catalogs)
+        from presto_tpu_torch.security import ALLOW_ALL
+
+        self.access_control = ALLOW_ALL
+        if plugins:
+            from presto_tpu_torch.plugin import install
+
+            for p in plugins:
+                install(p, self.catalogs, allow_access_control=True)
+                ac = p.access_control()
+                if ac is not None:
+                    if self.access_control is not ALLOW_ALL:
+                        raise ValueError(
+                            "multiple plugins contribute access control")
+                    self.access_control = ac
         self.default_catalog = default_catalog
         self.session = Session(default_catalog, session)
         # the constructor's page_rows (the server's) applies unless the
@@ -115,6 +150,17 @@ class LocalRunner:
             from presto_tpu_torch.dist.executor import DistExecutor
 
             self.executor = DistExecutor(self.catalogs, mesh)
+        if "system" not in self.catalogs:
+            # live engine state as SQL (reference: SystemConnector +
+            # information_schema); the executor holds the same dict
+            from presto_tpu_torch.connectors.system import (
+                SystemConnector,
+                install_standard_tables,
+            )
+
+            sys_conn = SystemConnector(device=self.executor.device)
+            install_standard_tables(sys_conn, self)
+            self.catalogs["system"] = sys_conn
         # (catalog, name) -> view SQL text, expanded at analysis
         self.views: Dict[tuple, str] = {}
         # prepared statements keyed by user: one user can neither
@@ -122,6 +168,11 @@ class LocalRunner:
         self.prepared: Dict[str, Dict[str, str]] = {}
         # the finished trace of the last traced statement (obs/)
         self.last_trace = None
+        # plan-time scalar-subquery plans of the statement being
+        # planned: their scans run during planning and fold into the
+        # plan as literals, so the statement cache's key folds in their
+        # snapshot versions too (reset per plan pass)
+        self._scalar_subplans: List = []
         self.apply_session()
 
     def apply_session(self) -> None:
@@ -184,6 +235,31 @@ class LocalRunner:
             ex.profile_store = ProfileStore.at(profile_dir)
         else:
             ex.profile_store = None
+        # the result cache: ONE process-shared store behind every
+        # enabled session, which is what collapses repeated statements
+        # across the server's concurrent per-query runners. Budget and
+        # TTL are session-governed, last writer wins (shrinking the
+        # budget evicts at once)
+        if bool(s.get("result_cache_enabled")):
+            from presto_tpu_torch.cache import shared_cache
+
+            rc = shared_cache()
+            rc.configure(
+                budget_bytes=int(s.get("result_cache_bytes")),
+                ttl_ms=int(s.get("result_cache_ttl_ms")),
+                spill_dir=s.get("spill_path") or None,
+                persist_dir=s.get("result_cache_persist_dir"))
+            # the warm-start pass: once per persister binding, re-admit
+            # the persisted entries whose snapshot tokens still match
+            # the live connectors (the persister's guard makes repeat
+            # sessions free)
+            if s.get("result_cache_persist_dir"):
+                loaded, drops = rc.warm_load(self.catalogs)
+                ex.count_warm_load(loaded, drops)
+            ex.result_cache = rc
+        else:
+            ex.result_cache = None
+        ex.cache_subsumption = bool(s.get("result_cache_subsumption"))
 
     def session_dist_options(self) -> Dict:
         """The fragmenter's distribution knobs: the constructor's
@@ -240,9 +316,30 @@ class LocalRunner:
             return floor
         ex = self.executor
         total = 0
+        # a subtree whose fragment-cache entry is resident replays host
+        # pages and materializes no build, state or sort buffer, so the
+        # arbiter reserves one streamed page for it. Advisory like
+        # statement_cache_probe: the peek takes no tally, and a racing
+        # eviction just runs (and sizes) the query under its own budget
+        hit_roots = set()
+        if bool(self.session.get("result_cache_enabled")):
+            from presto_tpu_torch.cache import shared_cache_if_exists
+            from presto_tpu_torch.cache.rules import select_cache_points
+
+            rc = shared_cache_if_exists()
+            if rc is not None:
+                salt = f"k{ex.collect_k}.p{ex.page_rows}"
+                for key, node, _t, _s, _f in select_cache_points(
+                        plan, self.catalogs).values():
+                    if rc.peek_pages(f"{key}:{salt}"):
+                        hit_roots.add(id(node))
 
         def walk(n):
             nonlocal total
+            if id(n) in hit_roots:
+                total += min(ex.estimate_rows(n), ex.page_rows) * \
+                    _row_bytes(ex.output_types(n))
+                return
             if isinstance(n, P.HashJoin):
                 total += ex.estimate_rows(n.right) * _row_bytes(
                     ex.output_types(n.right))
@@ -261,10 +358,36 @@ class LocalRunner:
         walk(plan)
         return max(total, floor)
 
+    def statement_cache_probe(self, sql: str) -> bool:
+        """Whether this statement would be served whole from the
+        statement cache RIGHT NOW — host work only (parse, plan, a key
+        peek), for the server's cache-aware admission: a near-free hit
+        should take no resource-group slot and reserve no device memory.
+        Advisory: the admitted execute re-probes, so an eviction racing
+        in between just runs the query for real."""
+        try:
+            stmt = parse(sql)
+            if not isinstance(stmt, N.Query):
+                return False
+            self.apply_session()
+            if self.executor.result_cache is None:
+                return False
+            keyed = self._statement_cache_key(self._plan_query(stmt))
+            if keyed is None:
+                return False
+            # tally-free: the probe must not move the hit/miss counters
+            return self.executor.result_cache.peek_rows(keyed[0])
+        except Exception:  # noqa: BLE001 - an advisory probe: anything
+            return False   # unplannable fails on the execute path
+
     def _planner(self) -> Planner:
         def scalar_exec(node):
-            # plan-time scalar subqueries execute during planning, and
-            # are fragmented before they reach a mesh
+            # plan-time scalar subqueries execute during planning: they
+            # get their own access check, their plans join the statement
+            # cache's key material, and they are fragmented before they
+            # reach a mesh
+            self._check_plan_access(node)
+            self._scalar_subplans.append(node)
             return self.executor.execute(self._fragment(node))[1]
 
         return Planner(self.catalogs, self._current_catalog(),
@@ -283,8 +406,27 @@ class LocalRunner:
     def _plan_query(self, stmt) -> P.Output:
         if not isinstance(stmt, N.Query):
             raise ValueError(f"{type(stmt).__name__} is not a query")
+        # a fresh scalar-subquery record per plan pass (the statement
+        # cache reads it right after the outermost statement plans)
+        self._scalar_subplans = []
+        out = self._planner().plan_statement(stmt)
+        self._check_plan_access(out)
         return self._fragment(push_scan_constraints(prune_plan(
-            self._planner().plan_statement(stmt), self.catalogs)))
+            out, self.catalogs)))
+
+    def _check_plan_access(self, plan) -> None:
+        """checkCanSelect over every scanned table (reference:
+        AccessControlManager consulted by the analyzer; here the planned
+        scans, the set the query reads after view expansion)."""
+        ac, user = self.access_control, self.session.user
+
+        def walk(n):
+            if isinstance(n, P.TableScan):
+                ac.check_can_select(user, n.catalog, n.table, n.columns)
+            for c in n.children():
+                walk(c)
+
+        walk(plan)
 
     def _resolve_catalog(self, parts) -> Tuple[str, str]:
         """(catalog, object name) of a possibly qualified name: the one
@@ -303,15 +445,18 @@ class LocalRunner:
     def execute(self, sql: str) -> QueryResult:
         stmt = parse(sql)
         self.apply_session()
+        self.access_control.check_can_execute_query(self.session.user, sql)
         # query-lifecycle tracing (obs/): one trace per statement when
         # enabled; the executor records execute/attempt/operator/xfer
         # spans into it
         trace = OBS.maybe_trace(self.session, sql=sql)
         if trace is not None:
             OBS.attach(self.executor, trace)
+        token = _ACTIVE_SESSION.set(self.session)
         try:
             return self._execute_stmt(stmt)
         finally:
+            _ACTIVE_SESSION.reset(token)
             if trace is not None:
                 if trace.span_count > 1:
                     OBS.finalize(self.executor, trace,
@@ -326,8 +471,10 @@ class LocalRunner:
                 self.last_trace = None
 
     def _execute_stmt(self, stmt: N.Node) -> QueryResult:
+        ac, user = self.access_control, self.session.user
         if isinstance(stmt, N.CreateView):
             key = self._resolve_catalog(stmt.parts)
+            ac.check_can_create_view(user, *key)
             if key in self.views and not stmt.replace:
                 raise ValueError(f"view already exists: {key[1]}")
             # validate now, like the reference's analyzer; planning alone
@@ -337,6 +484,7 @@ class LocalRunner:
             return QueryResult([], [], update_type="CREATE VIEW")
         if isinstance(stmt, N.DropView):
             key = self._resolve_catalog(stmt.parts)
+            ac.check_can_drop_view(user, *key)
             if self.views.pop(key, None) is None:
                 raise ValueError(f"view not found: {key[1]}")
             return QueryResult([], [], update_type="DROP VIEW")
@@ -355,6 +503,7 @@ class LocalRunner:
         if isinstance(stmt, N.ExecutePrepared):
             return self._execute_prepared(stmt)
         if isinstance(stmt, N.SetSession):
+            ac.check_can_set_session(user, stmt.name)
             self.session.set(stmt.name, stmt.value)
             return QueryResult([], [], update_type="SET SESSION")
         if isinstance(stmt, N.ShowSession):
@@ -365,21 +514,24 @@ class LocalRunner:
             cat = stmt.catalog or self._current_catalog()
             conn = self.catalogs.get(cat)
             if conn is None:
-                if cat == "system":
-                    raise NotImplementedError(
-                        "the system catalog is not ported to "
-                        "presto_tpu_torch (ROADMAP queue 5)")
                 raise ValueError(f"unknown catalog: {cat}")
             return QueryResult(["table"], [(t,) for t in conn.tables()])
         if isinstance(stmt, N.DropTable):
             conn, cat, table = self._resolve_write_target(stmt.parts)
+            ac.check_can_drop_table(user, cat, table)
             conn.drop_table(table)
             self._invalidate_caches(cat, table)
             return QueryResult([], [], update_type="DROP TABLE")
         if isinstance(stmt, (N.Delete, N.Update)):
+            _conn, cat, table = self._resolve_write_target(stmt.parts)
+            (ac.check_can_delete if isinstance(stmt, N.Delete)
+             else ac.check_can_update)(user, cat, table)
             return self._execute_dml(stmt)
         if isinstance(stmt, (N.CreateTableAs, N.InsertInto)):
             conn, cat, table = self._resolve_write_target(stmt.parts)
+            (ac.check_can_create_table
+             if isinstance(stmt, N.CreateTableAs)
+             else ac.check_can_insert)(user, cat, table)
             inner = self._plan_query(stmt.query)
             types = self.executor.output_types(inner)
             names, pages = self.executor.execute_pages(inner)
@@ -404,10 +556,80 @@ class LocalRunner:
                 text = explain_text(out)
             return QueryResult(["Query Plan"],
                                [(line,) for line in text.splitlines()])
+        # a plain query: the statement cache answers an identical
+        # (planned fingerprint, catalog/schema, result-affecting
+        # properties, snapshot versions) repeat without executing; the
+        # fragment cache engages inside execute()
         out = self._plan_query(stmt)
-        names, rows = self.executor.execute(out)
-        types = [str(t) for t in self.executor.output_types(out)]
+        keyed = self._statement_cache_key(out)
+        ex = self.executor
+        if keyed is not None:
+            hit = ex.result_cache.get_rows(keyed[0])
+            if hit is not None:
+                names, rows, types = hit
+                ex.result_cache_hits += 1
+                # the executor never ran: every per-query gauge describes
+                # THIS statement (no launch, no spill, no crossing), not
+                # whatever ran last on this runner
+                ex._begin_attempt()
+                for gauge in ("peak_memory_bytes", "spill_partitions_used",
+                              "host_spill_pages", "disk_spill_pages",
+                              "skew_chunks_used", "device_oom_retries",
+                              "capacity_boost_retries",
+                              "profile_store_hits", "programs_compiled",
+                              "program_cache_hits"):
+                    setattr(ex, gauge, 0)
+                ex.compile_wall_s = 0.0
+                ex._reset_transfer_gauges()
+                return QueryResult(names, rows, column_types=types)
+        names, rows = ex.execute(out)
+        types = [str(t) for t in ex.output_types(out)]
+        if keyed is not None:
+            key, tables = keyed
+            ex.result_cache_evictions += ex.result_cache.put_rows(
+                key, list(names or []), rows, types, tables)
         return QueryResult(list(names or []), rows, column_types=types)
+
+    def _statement_cache_key(self, plan):
+        """(key, scanned tables) for the statement cache, or None when
+        the statement cannot cache: no store wired, a non-deterministic
+        or snapshot-less plan, or a plan-time scalar subquery that was
+        itself uncacheable (its value is baked into the plan). Key
+        material: the canonical fingerprint of the PLANNED statement
+        (after view expansion and parameter binding, so whitespace and
+        case still hit while CREATE OR REPLACE VIEW moves the key), the
+        resolved catalog and schema, the result-affecting session
+        properties, and every scanned table's snapshot version (main
+        plan and scalar subplans)."""
+        from presto_tpu_torch.cache import (
+            RESULT_AFFECTING_PROPS,
+            cacheable,
+            scan_tables,
+            snapshot_tokens,
+        )
+        from presto_tpu_torch.obs.profile import (
+            plan_fingerprint,
+            structural_fingerprint,
+        )
+
+        if self.executor.result_cache is None:
+            return None
+        if not cacheable(plan, self.catalogs):
+            return None
+        tables = scan_tables(plan)
+        for sub in self._scalar_subplans:
+            if not cacheable(sub, self.catalogs):
+                return None
+            tables |= scan_tables(sub)
+        snap = snapshot_tokens(tables, self.catalogs)
+        if snap is None:
+            return None
+        props = tuple((p, str(self.session.get(p)))
+                      for p in RESULT_AFFECTING_PROPS)
+        fp = structural_fingerprint((
+            plan_fingerprint(plan, self.catalogs),
+            self._current_catalog(), self.session.schema, props, snap))
+        return f"stmt:{fp}", frozenset(tables)
 
     def _unique_outputs(self, plan: P.Output, names) -> List[str]:
         """The output columns the plan proves unique: a source's declared
@@ -437,15 +659,26 @@ class LocalRunner:
         return self._execute_stmt(_bind_parameters(inner, stmt.args))
 
     def _invalidate_caches(self, catalog: str, table: str) -> None:
-        """After a write through this runner, drop a wrapping page
-        cache's stale pages (the connector's invalidate / drop_cache
-        hook). The reference's result-cache reclaim is not ported."""
+        """THE write-path invalidation hub: after any DML/CTAS/DROP
+        through this runner, (a) reclaim the result-cache entries that
+        read the written table (their keys are already unreachable —
+        snapshot_version moved — this frees the bytes now), and (b)
+        drop a wrapping page cache's stale lists (connectors/cached.py's
+        invalidate / drop_cache). Counted on result_cache_invalidations."""
+        from presto_tpu_torch.cache import shared_cache_if_exists
+
+        n = 0
+        rc = shared_cache_if_exists()
+        if rc is not None:
+            n += rc.invalidate_tables({(catalog, table)})
         conn = self.catalogs.get(catalog)
         inv = getattr(conn, "invalidate", None)
         if inv is not None:
-            inv(table)
+            n += int(inv(table) or 0)
         elif hasattr(conn, "drop_cache"):
             conn.drop_cache()
+        if n:
+            self.executor.count_cache_invalidations(n)
 
     def _execute_dml(self, stmt) -> QueryResult:
         """DELETE/UPDATE as a rewrite through SELECT plus a table replace
@@ -519,6 +752,17 @@ class LocalRunner:
         self._invalidate_caches(catalog, table)
         return QueryResult(["rows"], [(matched,)], update_type="UPDATE",
                            column_types=["bigint"])
+
+
+# the session of the statement executing in this thread/context: the
+# system catalog's shared providers resolve through it, so they see the
+# querying session, not the runner they were registered on
+_ACTIVE_SESSION: contextvars.ContextVar = contextvars.ContextVar(
+    "presto_tpu_torch_active_session", default=None)
+
+
+def current_session():
+    return _ACTIVE_SESSION.get()
 
 
 def _sql_has_subquery(expr_sql: str) -> bool:

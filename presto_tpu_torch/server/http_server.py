@@ -35,12 +35,25 @@ the delivered pages' digests verify.
 ``mesh=make_mesh(D)`` (dist/executor.py) runs every statement on a
 DistExecutor over the mesh's shards, serial and concurrent paths alike.
 
-Not ported, each raising NotImplementedError naming its ROADMAP queue:
-the tailing cursor and IVM (``start_tail``; queue 5) and plugins
-(queue 5). The result cache and cache-aware
-admission are not ported (queue 5: no statement is ever a cache hit);
-access control is allow-all; runtime tables need the system catalog,
-which the port lacks (queue 5).
+The result cache: the concurrent path defaults ``result_cache_enabled``
+on (an explicit client or deployment off wins), so its per-query
+runners share the process store; a statement the store would answer
+whole (``LocalRunner.statement_cache_probe``) runs at once, outside the
+resource-group line and the arbiter (``cache_admission_bypasses``), and
+the arbiter's estimate discounts resident cached fragments. /metrics
+and system.metrics overlay the store's process totals.
+
+``plugins=`` installs plugins on the bootstrap runner (plugin.py): their
+catalogs, functions and types serve every query, their event listeners
+join the server's, and a contributed AccessControl guards every
+statement, every scan and every X-Presto-Session property; a denial is
+a FAILED query (``AccessDeniedError``; ``PERMISSION_DENIED`` with HTTP
+403 when a header property is denied at submission). The system
+catalog gains the server's runtime tables: runtime_queries,
+runtime_tasks, nodes and metrics.
+
+Not ported, raising NotImplementedError naming its ROADMAP queue: the
+tailing cursor and IVM (``start_tail``; queue 5).
 """
 
 from __future__ import annotations
@@ -155,13 +168,30 @@ class MemoryArbiter:
             self._cv.notify_all()
 
 
+def _result_cache_totals() -> Dict[str, int]:
+    """Process-total result-cache tallies under the registry counter
+    names (zeros when no session ever created the shared store: a
+    metrics scrape never allocates one)."""
+    from presto_tpu_torch.cache import shared_cache_if_exists
+
+    rc = shared_cache_if_exists()
+    if rc is None:
+        return {name: 0 for name in (
+            "result_cache_hits", "result_cache_misses",
+            "result_cache_evictions", "result_cache_invalidations",
+            "cache_warm_loads", "cache_remote_hits",
+            "cache_subsumed_hits", "cache_manifest_drops")}
+    return rc.counters()
+
+
 def _overlay_totals() -> Dict[str, float]:
     """Process totals the /metrics scrape overlays on the bootstrap
     executor's counters: the transfer ledger (exec/xfer.py) and the
     exchange wire and connection-reuse tallies (dist/serde.py,
     dist/connpool.py). Per-query executors come and go on the
     concurrent path, and worker task executors never surface here, so
-    the process accumulation is the truth."""
+    the process accumulation is the truth. The result cache's totals
+    come from the process-shared store the queries actually shared."""
     from presto_tpu_torch.dist import connpool as CONNPOOL
     from presto_tpu_torch.dist import serde as SERDE
     from presto_tpu_torch.exec import xfer as XF
@@ -169,6 +199,7 @@ def _overlay_totals() -> Dict[str, float]:
     out = dict(XF.process_totals())
     out.update(SERDE.wire_totals())
     out.update(CONNPOOL.pool_totals())
+    out.update(_result_cache_totals())
     return out
 
 
@@ -181,6 +212,7 @@ class QueryManager:
     # self._lock outside __init__
     _shared_attrs = ("_queries", "_seq", "completed_by_state",
                      "rows_returned_total", "query_wall_ms_total",
+                     "cache_admission_bypasses",
                      "exec_counter_totals", "queued_now", "peak_queued")
 
     # launch/batch counters accumulated across the concurrent path's
@@ -230,6 +262,9 @@ class QueryManager:
         self.completed_by_state: Dict[str, int] = {}
         self.rows_returned_total = 0
         self.query_wall_ms_total = 0
+        # statements served whole from the result cache without taking
+        # a resource-group slot or an arbiter reservation
+        self.cache_admission_bypasses = 0
         self.exec_counter_totals: Dict[str, int] = {}
         # admission queue depth: queries waiting for a resource-group
         # slot, a memory reservation or the serial exec lock, and the
@@ -335,6 +370,21 @@ class QueryManager:
 
     def _run(self, q: _Query) -> None:
         group = q.resource_group
+        runner = None
+        if self.memory is not None and not q.cancelled:
+            # cache-aware admission: a statement the result cache would
+            # serve whole costs near nothing, so it takes no
+            # resource-group slot and no arbiter reservation (host work
+            # only: parse, plan, a tally-free peek). Advisory: an
+            # eviction racing in between runs the query for real
+            runner = self._runner_factory(q.session)
+            if runner.statement_cache_probe(q.sql):
+                if group is not None:
+                    self.resource_groups.cancel_queued(group)
+                with self._lock:
+                    self.cache_admission_bypasses += 1
+                self._execute(q, runner)
+                return
         self._queue_enter(q)
         if group is not None:
             if q.cancelled:
@@ -347,7 +397,7 @@ class QueryManager:
                 self._record_completion(q)
                 return
         try:
-            self._run_admitted(q)
+            self._run_admitted(q, runner)
         finally:
             if group is not None:
                 self.resource_groups.release(group)
@@ -367,7 +417,7 @@ class QueryManager:
             with self._lock:
                 self.queued_now -= 1
 
-    def _run_admitted(self, q: _Query) -> None:
+    def _run_admitted(self, q: _Query, runner=None) -> None:
         if self.memory is None:
             with self._exec_lock:
                 self._execute(q)
@@ -376,7 +426,8 @@ class QueryManager:
         # global lock; each query runs on its own runner/executor
         # (captured programs are process-wide), so small queries
         # interleave while the arbiter keeps the sum under budget
-        runner = self._runner_factory(q.session)
+        if runner is None:
+            runner = self._runner_factory(q.session)
         est = runner.estimate_memory(q.sql)
         group = q.resource_group
         if group is not None:
@@ -589,8 +640,13 @@ class QueryManager:
                 f"presto_tpu_transfer_wall_seconds "
                 f"{overlay['transfer_wall_s']}",
             ]
-        lines += ["# TYPE presto_tpu_peak_queued gauge",
-                  f"presto_tpu_peak_queued {peak_q}"]
+        with self._lock:
+            bypasses = self.cache_admission_bypasses
+        lines += [
+            "# TYPE presto_tpu_admission_cache_bypasses_total counter",
+            f"presto_tpu_admission_cache_bypasses_total {bypasses}",
+            "# TYPE presto_tpu_peak_queued gauge",
+            f"presto_tpu_peak_queued {peak_q}"]
         return "\n".join(lines) + "\n"
 
 
@@ -737,16 +793,22 @@ class _Handler(BaseHTTPRequestHandler):
         reference ignores unknown keys; a known property whose value is
         invalid, or asks for an unported plane, raises here."""
         props = {}
+        user = self.headers.get("X-Presto-User", "presto")
+        access = self.app._runner.access_control
         for part in self.headers.get("X-Presto-Session", "").split(","):
             part = part.strip()
             if part and "=" in part:
                 k, v = part.split("=", 1)
                 if k.strip() in SYSTEM_SESSION_PROPERTIES:
+                    # a header-carried property passes the choke point
+                    # SET SESSION does (reference:
+                    # checkCanSetSystemSessionProperty)
+                    access.check_can_set_session(user, k.strip())
                     props[k.strip()] = v.strip()
         return Session(
             catalog=self.headers.get("X-Presto-Catalog"),
             properties=props,
-            user=self.headers.get("X-Presto-User", "presto"),
+            user=user,
             schema=self.headers.get("X-Presto-Schema", "default"),
         )
 
@@ -789,12 +851,16 @@ class _Handler(BaseHTTPRequestHandler):
             return
         length = int(self.headers.get("Content-Length", 0))
         sql = self.rfile.read(length).decode()
+        from presto_tpu_torch.security import AccessDeniedError
         from presto_tpu_torch.server.resource_groups import (
             QueryQueueFullError,
         )
 
         try:
             session = self._session_from_headers()
+        except AccessDeniedError as e:
+            self._failed(e, "PERMISSION_DENIED", 403)
+            return
         except (ValueError, NotImplementedError) as e:
             # a header property the port rejects: a FAILED query with
             # an error body, never a dropped connection
@@ -963,8 +1029,9 @@ class PrestoTpuServer:
         from presto_tpu_torch import resolve_device
         from presto_tpu_torch.runner import LocalRunner
 
-        if plugins:
-            raise _not_ported("plugins", "queue 5")
+        event_listeners = list(event_listeners)
+        for p in plugins:
+            event_listeners.extend(p.event_listeners())
         self.device = resolve_device(device)
         self.catalogs = dict(catalogs)
         self.port = port
@@ -983,11 +1050,14 @@ class PrestoTpuServer:
 
             self.failure_detector = HeartbeatFailureDetector(
                 list(peer_uris))
-        # the bootstrap runner serves the serial (no-arbiter) path and
-        # carries the server-wide views and prepared statements
+        # the bootstrap runner serves the serial (no-arbiter) path,
+        # installs the plugins into the catalogs and registries, and
+        # carries the server-wide views, prepared statements and access
+        # control
         self._runner = LocalRunner(self.catalogs, default_catalog,
                                    device=self.device, page_rows=page_rows,
-                                   mesh=mesh)
+                                   mesh=mesh, plugins=plugins)
+        self.catalogs = self._runner.catalogs  # plugin catalogs, system
         self._page_rows = page_rows
         # a mesh makes every runner of this server a distributed one
         self._mesh = mesh
@@ -1044,10 +1114,17 @@ class PrestoTpuServer:
                 if self._dcn is not None:
                     return _DcnServerRunner(self._dcn, self._runner)
                 return self._runner
+            # the concurrent path defaults the result cache ON: the
+            # process-shared store is what collapses repeated statements
+            # across per-query runners, and cache-aware admission needs
+            # hits to bypass the queue. An explicit off wins
+            if not session.is_set("result_cache_enabled"):
+                session.set("result_cache_enabled", True)
             # concurrent path: a runner/executor per query, so query
             # state (overflow flags, capacity boosts, stream caches)
-            # never crosses queries; views and prepared statements are
-            # server-wide (the prepared registry is keyed per user)
+            # never crosses queries; views, prepared statements and
+            # access control are server-wide (the prepared registry is
+            # keyed per user)
             r = LocalRunner(self.catalogs, self._default_catalog,
                             device=self.device, page_rows=self._page_rows,
                             mesh=self._mesh)
@@ -1055,6 +1132,7 @@ class PrestoTpuServer:
             r.executor.launch_batcher = self._launch_batcher
             r.views = self._runner.views
             r.prepared = self._runner.prepared
+            r.access_control = self._runner.access_control
             r.apply_session()
             return r
 
@@ -1089,6 +1167,7 @@ class PrestoTpuServer:
                 self.catalogs, node_id="coordinator-worker",
                 default_catalog=default_catalog, page_rows=page_rows,
                 device=self.device)
+        self._install_runtime_tables()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         # crash re-attach: pick up every query a previous coordinator
@@ -1179,6 +1258,103 @@ class PrestoTpuServer:
             q._finish_clock()
             q.done.set()
             self.manager._record_completion(q)
+
+    def _install_runtime_tables(self) -> None:
+        """system.runtime_queries / runtime_tasks / nodes / metrics over
+        live server state (reference: the system.runtime.* tables and
+        the jmx connector's SQL over metrics)."""
+        from presto_tpu_torch import types as T
+
+        sys_conn = self.catalogs.get("system")
+        if sys_conn is None or not hasattr(sys_conn, "register"):
+            return
+        V, B = T.VARCHAR, T.BIGINT
+        mgr = self.manager
+
+        def runtime_queries():
+            out = []
+            for q in mgr.queries():
+                info = q.info()
+                out.append((q.id, q.state, q.session.user, q.sql,
+                            info["elapsedTimeMillis"], len(q.rows)))
+            return sorted(out)
+
+        def nodes():
+            me = (f"http://127.0.0.1:{self.port}", "active", 1)
+            peers = []
+            fd = self.failure_detector
+            if fd is not None:
+                for info in fd.snapshot():
+                    # the coordinator row's vocabulary: active / failed
+                    alive = info.get("state") == "ALIVE"
+                    peers.append((info.get("uri"),
+                                  "active" if alive else "failed", 0))
+            return [me] + sorted(peers)
+
+        def metrics():
+            from presto_tpu_torch.exec import counters as CTRS
+
+            with mgr._lock:
+                out = [("rows_returned_total", mgr.rows_returned_total),
+                       ("query_wall_ms_total", mgr.query_wall_ms_total)]
+                by_state = dict(mgr.completed_by_state)
+                totals = dict(mgr.exec_counter_totals)
+                bypasses = mgr.cache_admission_bypasses
+                peak_q = mgr.peak_queued
+            for state, n in sorted(by_state.items()):
+                out.append((f"queries_completed_{state.lower()}", n))
+            ex = self._runner.executor
+            out.append(("device_memory_budget_bytes", ex._budget()))
+            out.append(("peak_device_bytes", ex.peak_memory_bytes))
+            # every registry counter, with /metrics' process overlay, so
+            # the two surfaces cannot drift
+            overlay = _overlay_totals()
+            snap = CTRS.snapshot(ex)
+            snap.update({k: int(v) for k, v in overlay.items()
+                         if k in CTRS.QUERY_COUNTERS})
+            for name in mgr._EXEC_TOTAL_SUMS:
+                snap[name] += totals.get(name, 0)
+            for name in mgr._EXEC_TOTAL_MAX:
+                snap[name] = max(snap[name], totals.get(name, 0))
+            out.extend(sorted(snap.items()))
+            # system.metrics values are BIGINT: the crossing wall rides
+            # as integer milliseconds
+            out.append(("transfer_wall_ms",
+                        int(overlay["transfer_wall_s"] * 1000)))
+            out.append(("admission_cache_bypasses", bypasses))
+            out.append(("peak_queued", peak_q))
+            return out
+
+        def runtime_tasks():
+            # one row per stage task from the QueryInfo tree
+            # /v1/query/{id} serves, so the two surfaces agree
+            out = []
+            for q in mgr.queries():
+                info = mgr.query_info(q.id)
+                if not info:
+                    continue
+                for stage in info.get("stages", ()):
+                    for t in stage["tasks"]:
+                        out.append((
+                            q.id, str(stage["stageId"]), t["taskId"],
+                            t["state"], t.get("uri") or "",
+                            int(t["wallMs"]), int(t.get("rows") or 0),
+                            int(t.get("retries") or 0)))
+            return sorted(out)
+
+        sys_conn.register(
+            "runtime_queries",
+            [("query_id", V), ("state", V), ("user", V), ("query", V),
+             ("elapsed_ms", B), ("result_rows", B)], runtime_queries)
+        sys_conn.register(
+            "runtime_tasks",
+            [("query_id", V), ("stage_id", V), ("task_id", V),
+             ("state", V), ("uri", V), ("wall_ms", B), ("rows", B),
+             ("retries", B)], runtime_tasks)
+        sys_conn.register(
+            "nodes", [("uri", V), ("state", V), ("is_coordinator", B)],
+            nodes)
+        sys_conn.register("metrics", [("name", V), ("value", B)], metrics)
 
     def start_tail(self, sql: str, session: Session):
         """The tailing cursor over an append-only stream."""

@@ -521,6 +521,14 @@ def route_task_post(app, path: str, body: bytes):
         app.set_fault_config({
             k: int(v) for k, v in json.loads(body or b"{}").items()})
         return _jresp({"ok": True, "fault": app.fault_config})
+    if path.startswith("/v1/cache/task"):
+        # the fleet cache probe (dist/cacheprobe.py): serve one fragment
+        # key from THIS process's result cache by parking its host pages
+        # in a pre-finished task spool; the consumer fetches them over
+        # the ordinary spool-fetch plane, as from an executed task
+        req = json.loads(body)
+        return _jresp(app.serve_cached_fragment(
+            str(req.get("taskId") or ""), str(req.get("key") or "")))
     if not path.startswith("/v1/task"):
         return None
     if app.maybe_inject_submit_fault():
@@ -700,9 +708,21 @@ class _WorkerHandler(BaseHTTPRequestHandler):
 
         split = urlsplit(self.path)
         if split.path.startswith("/v1/info"):
-            self._write(_jresp({"nodeId": self.app.node_id,
-                                "state": "ACTIVE",
-                                "tasks": self.app.task_count()}))
+            info = {"nodeId": self.app.node_id, "state": "ACTIVE",
+                    "tasks": self.app.task_count()}
+            # the fleet-cache advertisement: a bloom summary of this
+            # process's cached fragment keys rides every heartbeat poll,
+            # so the coordinator's RemoteCacheIndex stays fresh with no
+            # plane of its own; absent while the store holds nothing
+            from presto_tpu_torch.cache import shared_cache_if_exists
+
+            rc = shared_cache_if_exists()
+            keys = rc.pages_keys() if rc is not None else []
+            if keys:
+                from presto_tpu_torch.dist.cacheprobe import bloom_summary
+
+                info["cacheSummary"] = bloom_summary(keys)
+            self._write(_jresp(info))
             return
         self._write(route_task_get(self.app, split.path, split.query))
 
@@ -764,6 +784,28 @@ class TaskRuntime:
             t.done = True
         with self._tasks_lock:
             self.tasks[task_id] = t
+
+    def serve_cached_fragment(self, task_id: str, key: str) -> Dict:
+        """The fleet cache probe's target: if this process's result
+        cache holds ``key``, park its host pages in a pre-finished
+        single-partition task spool (register_finished_task) and report
+        the hit; the prober reads the pages over the spool-fetch plane.
+        A miss is one dictionary probe."""
+        from presto_tpu_torch.cache import shared_cache_if_exists
+
+        rc = shared_cache_if_exists()
+        if rc is None or not task_id or not key:
+            return {"hit": False}
+        pages = rc.get_pages(key)
+        if pages is None:
+            return {"hit": False}
+        spool = _TaskSpool(1, 0)
+        for page in pages:
+            spool.put_page(0, page, rows=int(XF.np_host(
+                page.valid, label="cache-remote-serve").sum()))
+        self.register_finished_task(task_id, spool)
+        rc.count_remote()
+        return {"hit": True, "taskId": task_id, "pages": len(pages)}
 
     def task_count(self) -> int:
         with self._tasks_lock:

@@ -38,6 +38,10 @@ model. ``speculation_enabled`` races a straggler's copy;
 ``adaptive_execution`` ("auto" = on under the stage scheduler) re-plans
 the not-yet-dispatched stages from observed spool statistics.
 
+The result cache's six properties take the reference's defaults: the
+cache off (the concurrent server turns it on for its queries), the
+fleet probe (``result_cache_remote_probe``) on, subsumption off.
+
 A plane that is not ported defaults to off, and asking for it raises
 NotImplementedError naming its ROADMAP item (``Session.set``, at
 construction and on SET SESSION).
@@ -401,9 +405,75 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             int, 4,
         ),
         PropertyMetadata(
+            "result_cache_enabled",
+            "serve repeated work from the two-level result cache "
+            "(presto_tpu_torch/cache/): cacheable plan subtrees replay "
+            "their pages (no capture, no launch) and identical full "
+            "statements return the finished row set, keyed by "
+            "(canonical plan/statement fingerprint, connector "
+            "snapshot versions) so a write to any scanned table "
+            "structurally invalidates. The store is process-shared "
+            "across concurrent queries. Observability: "
+            "result_cache_hits / result_cache_misses / "
+            "result_cache_evictions / result_cache_invalidations "
+            "counters in EXPLAIN ANALYZE",
+            bool, False,
+        ),
+        PropertyMetadata(
+            "result_cache_bytes",
+            "host-resident byte budget for the result cache: LRU "
+            "page entries past it demote to disk-tier PageStore "
+            "spill files, and total bytes past 4x the budget evict "
+            "outright (result_cache_evictions counts both reclaim "
+            "paths). An entry larger than the whole budget is never "
+            "admitted",
+            int, 1 << 28,
+        ),
+        PropertyMetadata(
+            "result_cache_ttl_ms",
+            "age bound for result-cache entries in milliseconds: an "
+            "entry older than this reads as a miss and is reclaimed "
+            "(0 = no age bound; snapshot-version keying already "
+            "handles write staleness — TTL exists for wall-clock "
+            "freshness policies on slowly-polled dashboards)",
+            int, 0,
+        ),
+        PropertyMetadata(
+            "result_cache_persist_dir",
+            "directory for the persistent warm-start tier of the "
+            "result cache (cache/persist.py): completed fragment "
+            "entries publish a wire-serde payload file plus a record "
+            "in a generation-numbered manifest (entry key, snapshot "
+            "tokens, stream watermark, serde fingerprint), and the "
+            "first enabled session after a process boot warm-loads "
+            "every entry whose snapshot tokens still match the live "
+            "connectors (cache_warm_loads counter); stale, corrupt or "
+            "mismatched entries drop loudly (cache_manifest_drops). "
+            "Empty = memory only",
+            str, "",
+        ),
+        PropertyMetadata(
             "result_cache_remote_probe",
-            "the fleet cache probe before leaf dispatch; not ported "
-            "(false)",
+            "let the DCN coordinator probe fleet members' fragment "
+            "caches before dispatching a leaf task "
+            "(dist/cacheprobe.py): any worker's cached fragment "
+            "short-circuits the task (cache_remote_hits) and its "
+            "pages replay over the existing pooled spool-fetch "
+            "plane; probes are gated by bloom-style summaries "
+            "refreshed with heartbeats, so the common miss costs "
+            "nothing on the wire",
+            bool, True,
+        ),
+        PropertyMetadata(
+            "result_cache_subsumption",
+            "serve a fragment whose single-column range/IN filter is "
+            "CONTAINED by an already-cached sibling (same scan + "
+            "projection chain) by re-filtering the cached pages "
+            "(cache/rules.py descriptor containment): WHERE d < 5 "
+            "replays the cached WHERE d < 10 pages through a "
+            "residual filter instead of rescanning "
+            "(cache_subsumed_hits); anything beyond single-column "
+            "range/IN stays exact-match",
             bool, False,
         ),
         PropertyMetadata(
@@ -463,10 +533,6 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
 # property -> (predicate over its value that asks for a plane the port
 # lacks, what to say). ROADMAP queue 1 lists each plane.
 _NOT_PORTED = {
-    "result_cache_remote_probe": (
-        lambda v: v is True,
-        "result_cache_remote_probe: the fleet cache probe is not "
-        "ported (ROADMAP queue 1)"),
     "stream_tail_enabled": (
         lambda v: v is True,
         "stream_tail_enabled: the tailing cursor and IVM are not ported "

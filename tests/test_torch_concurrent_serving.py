@@ -1,15 +1,19 @@
 """The port's concurrent serving path (memory arbiter on: a runner and
-executor per query, resource groups, the shared LaunchBatcher) raced by
-protocol clients under the armed lock sanitizer: the counterparts of
-tests/test_concurrent_serving.py and of
-``tests/test_views_prepared.py::test_views_persist_on_concurrent_server``.
+executor per query, resource groups, the shared LaunchBatcher, the
+result cache on by default) raced by protocol clients under the armed
+lock sanitizer: the counterparts of tests/test_concurrent_serving.py and
+of ``tests/test_views_prepared.py::test_views_persist_on_concurrent_server``.
 
 The reference's two wall-clock races are not copied. Overlap is shown
 by a listener that parks the first query, its admission still held,
 until a second query is RUNNING (impossible on the serial path); the
 priority order is read from the resource-group manager's admission
-order, with every waiter queued before the slot frees. The result cache
-is not ported, so every statement executes."""
+order, with every waiter queued before the slot frees. The cases that
+count launches or queue repeated statements pin
+``result_cache_enabled=false``, as the reference's do: a cache hit
+launches nothing and bypasses the queue. The cache-on race holds every
+client's rows equal with the cache engaged and no sanitizer
+violation."""
 
 import re
 import threading
@@ -70,6 +74,9 @@ def _race(server_url, batching: str):
 
     def client(idx: int) -> None:
         cl = StatementClient(server_url, user=f"xq{idx}", catalog="tpch")
+        # every statement executes: replays would launch nothing and
+        # flatter the batching numbers
+        cl.session_properties["result_cache_enabled"] = "false"
         cl.session_properties["cross_query_batching"] = batching
         # a wide window makes the 8-thread overlap near certain on a
         # loaded box; correctness must hold at any window
@@ -229,10 +236,12 @@ def test_priority_scheduling_by_admission_order():
             if e.user == "batch_hold":
                 release.wait(60)
 
+    # the repeated scan must queue, not bypass admission as a cache hit
     srv = PrestoTpuServer({"tpch": TpchConnector(0.003, device="cpu")},
                           port=0, device="cpu", resource_groups=rg,
                           memory_budget_bytes=1 << 32,
-                          event_listeners=[Park()])
+                          event_listeners=[Park()],
+                          session_defaults={"result_cache_enabled": "false"})
     base = f"http://127.0.0.1:{srv.start()}"
     scan = "select count(*) from lineitem where l_quantity < 30"
     results = {}
@@ -332,11 +341,65 @@ def test_concurrent_metrics_overlay_the_per_query_executors(server_url):
     launches accumulate into the process totals /metrics reads."""
     before = _scrape(server_url, "presto_tpu_program_launches")
     c = StatementClient(server_url, catalog="tpch")
+    c.session_properties["result_cache_enabled"] = "false"
     for sql in STATEMENTS:
         assert c.execute(sql).error is None
     assert _scrape(server_url, "presto_tpu_program_launches") >= \
         before + len(STATEMENTS)
     assert _scrape(server_url, "presto_tpu_peak_queued") >= 1
+
+
+def test_concurrent_clients_cache_on_zero_sanitizer_violations(server_url):
+    """The counterpart of the reference's cache-on race: 8 clients x 3
+    rounds x 3 statements with the cache at the concurrent path's
+    default (on). Every client sees every statement every round with
+    the same rows, the shared store takes hits, and the armed sanitizer
+    sees no violation anywhere in the engine."""
+    from presto_tpu_torch.cache import shared_cache_if_exists
+
+    if SAN.is_armed():
+        SAN.reset()
+    results = [[] for _ in range(CLIENTS)]
+    errors = []
+
+    def client(idx: int) -> None:
+        cl = StatementClient(server_url, user=f"race{idx}", catalog="tpch")
+        for _ in range(ROUNDS):
+            for sql in STATEMENTS:
+                try:
+                    res = cl.execute(sql)
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e))
+                    continue
+                if res.error is not None:
+                    errors.append(str(res.error))
+                else:
+                    results[idx].append((sql, tuple(map(tuple, res.rows))))
+
+    hits0 = _scrape(server_url, "presto_tpu_result_cache_hits_total")
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads), "client hung"
+    assert not errors, errors[:5]
+    by_sql = {}
+    for idx in range(CLIENTS):
+        assert len(results[idx]) == ROUNDS * len(STATEMENTS)
+        for sql, rows in results[idx]:
+            by_sql.setdefault(sql, set()).add(rows)
+    for sql, variants in by_sql.items():
+        assert len(variants) == 1, f"divergent rows for {sql!r}"
+    rc = shared_cache_if_exists()
+    assert rc is not None and rc.hits > 0
+    assert _scrape(server_url,
+                   "presto_tpu_result_cache_hits_total") > hits0
+    assert _scrape(server_url,
+                   "presto_tpu_admission_cache_bypasses_total") > 0
+    if SAN.is_armed():
+        assert SAN.violation_count() == 0, SAN.report()
 
 
 @pytest.mark.cuda

@@ -13,9 +13,9 @@ the device spool's HTTP fetch equals its local read and re-fetches
 byte-identically, the spool_exchange_bytes budget spills to disk, a
 failed task fails the query with DcnQueryFailed under
 task_retry_attempts=0 and re-dispatches to the healthy worker under the
-default, and each plane the port leaves out raises
-NotImplementedError. Every coordinator is closed (its heartbeat
-thread) when the module's workers stop."""
+default, and the planes once left out (the mesh exchange, the fleet
+cache probe) run with the local runner's rows. Every coordinator is
+closed (its heartbeat thread) when the module's workers stop."""
 
 import collections
 import json
@@ -23,6 +23,7 @@ import time
 import urllib.request
 
 import pytest
+import torch
 
 from presto_tpu.connectors.tpch import TpchConnector as RefConnector
 from presto_tpu_torch import cuda
@@ -37,6 +38,18 @@ from presto_tpu_torch.runner import LocalRunner
 from presto_tpu_torch.server.worker import WorkerServer, local_runtime
 from tests.oracle import load_sqlite
 from tests.test_sql_tpch import ENGINE_SQL, ORACLE, compare
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SF = 0.01
 PAGE_ROWS = 1 << 13
@@ -276,15 +289,12 @@ def test_unsplittable_plan_runs_locally(workers):
     ("hash_partition_count", 4),
 ])
 def test_left_out_planes_raise(prop, value, workers, local_rows):
-    """The fleet cache probe is still left out and raises. The mesh
-    planes are ported: under mesh_exchange_mode true/auto (and at the
-    default session with hash_partition_count set) the DAG over these
-    in-process workers lowers its repartition edges to the mesh
-    all_to_all, with no fallback, and gives the local runner's rows."""
-    if prop == "result_cache_remote_probe":
-        with pytest.raises(NotImplementedError):
-            _coord(workers, **{prop: value})
-        return
+    """The planes once left out are ported. The fleet cache probe is
+    the default (true) and, with the result cache off, probes nothing.
+    Under mesh_exchange_mode true/auto (and at the default session with
+    hash_partition_count set) the DAG over these in-process workers
+    lowers its repartition edges to the mesh all_to_all, with no
+    fallback, and gives the local runner's rows."""
     coord = _coord(workers, **{prop: value})
     rows = coord.execute(Q3_FAMILY)
     assert _multiset(rows) == _multiset(local_rows["q3_family"])

@@ -7,6 +7,7 @@ decimals and dates bit for bit, doubles to 9 significant digits."""
 
 import numpy as np
 import pytest
+import torch
 
 from presto_tpu import types as RT
 from presto_tpu.expr import eval as REV
@@ -18,6 +19,18 @@ from presto_tpu_torch import interop
 from presto_tpu_torch import types as T
 from presto_tpu_torch.expr import eval as EV
 from presto_tpu_torch.expr import ir as IR
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N = 256
 FLAGS = ["A", "N", "R"]

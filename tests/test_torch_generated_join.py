@@ -11,12 +11,25 @@ the table holds and keys it does not.
 
 import numpy as np
 import pytest
+import torch
 
 from presto_tpu.connectors.tpch import TpchConnector as RefConnector
 from presto_tpu.runner import LocalRunner as RefRunner
 from presto_tpu_torch.connectors.tpch import TpchConnector
 from presto_tpu_torch.runner import LocalRunner
 from tests.oracle import load_sqlite
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SF = 0.01
 

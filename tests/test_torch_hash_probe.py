@@ -18,6 +18,18 @@ from presto_tpu.ops import pallas_join as RPJ
 from presto_tpu_torch import cuda
 from presto_tpu_torch.ops import cuda_join as CJ
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = np.uint64(0x9E3779B97F4A7C15)
 MAXH = np.uint64(0xFFFFFFFFFFFFFFFF)
 

@@ -22,6 +22,18 @@ from presto_tpu_torch.ops import keys as K
 from presto_tpu_torch.ops import sort as S
 from presto_tpu_torch.ops import u64
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EDGE = np.array([0, 1, -1, 2**63 - 1, -(2**63), -2, 12345], dtype=np.int64)
 
 

@@ -8,7 +8,8 @@ every exception as the reference's does — control-flow exceptions and
 non-memory errors (a kernel wrapper's launch failure included) are
 never absorbed. The ladder: an injected device fault re-enters the
 query under a halved budget with the reference's device_oom_retries
-and rows; task_retry_attempts bounds it. A card-only case runs a real
+and rows; task_retry_attempts bounds it; the fault frees that query's
+captured programs and no other query's. A card-only case runs a real
 out-of-memory during a CUDA graph capture and checks that the stream
 leaves capture mode."""
 
@@ -234,6 +235,61 @@ def test_session_defaults_are_the_reference_s():
                  "join_skew_rebalance", "task_retry_attempts"):
         assert OURS[name].type is REF[name].type, name
         assert OURS[name].default == REF[name].default, name
+
+
+# ------------------------------------------ the programs a fault frees
+FUSED = {"page_rows": PAGE_ROWS, "fused_partial_agg_enabled": "true",
+         "split_batch_size": "64"}
+OTHER_SQL = ("select count(*), sum(l_quantity) from lineitem "
+             "where l_quantity < 25")
+FAULTING_SQL = ("select l_returnflag, sum(l_extendedprice) from lineitem "
+                "group by l_returnflag")
+
+
+def test_device_fault_releases_only_the_faulting_querys_programs(conns):
+    """One query's device fault frees that query's captured programs, not
+    every query's (the reference's fault gate keeps every compiled
+    program): the executor's programs_released seam records the keys,
+    another query's programs stay cached, and the retried rows equal
+    the unfaulted run — for a fault injected at the attempt's start
+    (inject_device_oom: nothing of this query was touched yet, nothing
+    goes) and for one raised after the query's programs ran."""
+    other = LocalRunner({"tpch": conns[1]}, session=FUSED, device="cpu")
+    other.execute(OTHER_SQL)
+    other_keys = set(other.executor._query_programs)
+    faulting = LocalRunner({"tpch": conns[1]}, session=FUSED, device="cpu")
+    want = sorted(faulting.execute(FAULTING_SQL).rows)
+    mine = set(faulting.executor._query_programs)
+    assert other_keys and mine and not other_keys & mine
+    ex = faulting.executor
+
+    # injected at the attempt's start
+    ex.inject_device_oom = 1
+    assert sorted(faulting.execute(FAULTING_SQL).rows) == want
+    assert ex.device_oom_retries == 1 and ex.programs_released == []
+    assert other_keys | mine <= {k for k, _p in graphs.cached()}
+
+    # raised by the consumer after the first page: the query's programs
+    # ran, and only they are released
+    faulting.apply_session()
+    plan = faulting.plan(FAULTING_SQL)
+    calls = []
+
+    def emit(page):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("RESOURCE_EXHAUSTED: a device fault after "
+                               "the query's programs ran")
+        return page.to_pylist()
+
+    rows = sorted(r for page in ex.stream_fragment(plan, emit) for r in page)
+    assert rows == want and ex.device_oom_retries == 1
+    released = set(ex.programs_released)
+    assert released and released <= mine
+    cached = {k for k, _p in graphs.cached()}
+    assert other_keys <= cached, "another query's programs were dropped"
+    # the retry recreated what the fault released
+    assert released <= cached
 
 
 # ------------------------------------------------------------- the card

@@ -28,6 +28,18 @@ from presto_tpu_torch.exec.executor import Executor
 from presto_tpu_torch.ops import cuda_part as CP
 from presto_tpu_torch.page import Page
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NPARTS = (2, 3, 4, 8)
 
 # every partitionable key family with NULLs, -0.0 and NaN

@@ -266,6 +266,33 @@ def test_engine_locks_are_instrumented_under_pytest(tmp_path):
         assert getattr(type(owner), "_san_instrumented", False)
 
 
+def test_result_cache_locks_are_instrumented_under_pytest():
+    """The counterpart of the reference's ResultCache case: a store
+    built after arming carries a sanitized lock, its class keeps its
+    name and is instrumented (so the cache-on serving race really runs
+    under the sanitizer); so do the shared-store lock and the fleet
+    index."""
+    if not SAN.is_armed():
+        pytest.skip("sanitizer disarmed via PRESTO_TPU_LOCK_SANITIZER")
+    from presto_tpu_torch.cache import store
+    from presto_tpu_torch.cache.store import ResultCache
+    from presto_tpu_torch.dist.cacheprobe import RemoteCacheIndex
+
+    rc = ResultCache(budget_bytes=1 << 20)
+    assert isinstance(rc._lock, SAN._SanitizedLock)
+    assert type(rc).__name__ == "ResultCache"
+    assert getattr(type(rc), "_san_instrumented", False)
+    idx = RemoteCacheIndex()
+    for lk in (rc._lock, store._shared_lock, idx._lock):
+        assert isinstance(lk, SAN._SanitizedLock)
+        assert lk.name in SAN.LOCK_REGISTRY
+    # a shared-attr write under the lock is silent, one outside is not
+    before = SAN.violation_count()
+    rc.put_rows("k", ["a"], [(1,)], ["bigint"], {("m", "t")})
+    assert rc.get_rows("k") == (["a"], [(1,)], ["bigint"])
+    assert SAN.violation_count() == before
+
+
 # --------------------------------------------------- the registries
 def _sites():
     """(make_lock names, threading.Lock/RLock/Condition creations

@@ -19,6 +19,17 @@ from presto_tpu_torch.ops import agg as A
 from presto_tpu_torch.ops import cuda_agg as CA
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both_sums(vals, ids, groups):
     got = CA.segmented_sum_i64(torch.from_numpy(vals), torch.from_numpy(ids),
                                groups).numpy()

@@ -9,8 +9,8 @@ as raw protocol requests, following nextUri, and every document's
 (errorName and message), final state and ``X-Presto-Set-Session``
 headers must be equal, integers, decimals and dates exactly and doubles
 to 9 significant digits. Ids, URIs, walls and /v1/info's backend are
-masked. The reference server runs with ``result_cache_enabled=false``,
-so neither side caches."""
+masked. The reference server runs with ``result_cache_enabled=false``
+and the port's serial path defaults it off, so neither side caches."""
 
 import json
 import threading
@@ -195,7 +195,7 @@ def test_protocol_parity_with_the_reference_server(case, server,
 
 def test_unknown_header_properties_are_ignored_as_in_the_reference(
         server, ref_server):
-    # result_cache_enabled is unknown to the port, nosuch to both
+    # nosuch is unknown to both engines; result_cache_enabled is known
     h = {"X-Presto-Session": "result_cache_enabled=false, nosuch=1, "
                              "page_rows=2048"}
     views = [_view(*_documents(s.port, "select count(*) from nation", h))
@@ -291,11 +291,11 @@ def test_unported_plane_fails_the_query_with_an_error_body(server):
     a FAILED document (HTTP 400), not a dropped connection; as SET
     SESSION, a FAILED query."""
     c = StatementClient(server=f"http://127.0.0.1:{server.port}")
-    c.session_properties["result_cache_remote_probe"] = "true"
+    c.session_properties["stream_tail_enabled"] = "true"
     res = c.execute("select 1")
     assert res.state == "FAILED"
     assert res.error["errorName"] == "NotImplementedError"
-    assert "queue 1" in res.error["message"]
+    assert "queue 5" in res.error["message"]
     c.session_properties.clear()
     c.session_properties["page_rows"] = "lots"
     assert c.execute("select 1").error["errorName"] == "ValueError"
@@ -562,11 +562,12 @@ def test_the_server_runs_on_the_card_by_default():
     ({"mesh": make_mesh(4, device="cpu")}, "mesh"),
 ])
 def test_unported_server_options_raise(kw, match, client):
-    """Plugins are not ported and raise. The mesh is: a server built
-    with one runs its statements on a DistExecutor and answers them as
-    the server without a mesh does."""
+    """Both options once left out are ported. A plugin object must be a
+    Plugin (this one is not, and install() says so); the mesh runs the
+    server's statements on a DistExecutor and answers them as the
+    server without a mesh does."""
     if "plugins" in kw:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(AttributeError, match="event_listeners"):
             PrestoTpuServer({"tpch": TpchConnector(SF, device="cpu")},
                             port=0, device="cpu", **kw)
         return

@@ -21,6 +21,7 @@ presto_tpu's for the same session and split layout.
 import dataclasses
 
 import pytest
+import torch
 
 from presto_tpu.connectors.tpch import TpchConnector as RefConnector
 from presto_tpu.runner import LocalRunner as RefRunner
@@ -33,6 +34,18 @@ from presto_tpu_torch.runner import LocalRunner
 from presto_tpu_torch.server.worker import WorkerServer, local_runtime
 from tests.oracle import load_sqlite
 from tests.test_torch_dist import _post_task, _wait_task
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SF = 0.01
 PAGE_ROWS = 1 << 13

@@ -24,6 +24,18 @@ from presto_tpu_torch.runner import LocalRunner
 from tests.oracle import load_sqlite
 from tests.test_sql_tpch import ENGINE_SQL, ORACLE, compare
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SF = 0.005
 QUERIES = (1, 3, 5, 6, 10, 12, 17)
 PAGE_ROWS = 1 << 15

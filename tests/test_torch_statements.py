@@ -8,8 +8,8 @@ column type the connector stores, NULLs, several splits, INSERT's
 dictionary merge, and the result-page write path); CREATE TABLE AS of
 TPC-H SF 0.01 then Q1 and Q3 over the copies against sqlite; the keys
 CREATE TABLE AS carries, which let Q5 over the copies plan as over
-tpch; and the statement the port leaves out (the system catalog)
-raises NotImplementedError."""
+tpch; and SHOW TABLES FROM system, once left out, lists the reference's
+system tables."""
 
 import numpy as np
 import pytest
@@ -121,11 +121,12 @@ def test_explain_text_equals_the_reference(pair, q):
 
 
 def test_unported_statements_raise(pair):
-    # EXPLAIN ANALYZE is ported: tests/test_torch_explain_analyze.py
-    # holds it against the reference
-    port, _ = pair
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        port.execute("show tables from system")
+    # every statement is ported now: EXPLAIN ANALYZE is held against the
+    # reference in tests/test_torch_explain_analyze.py, and the system
+    # catalog here (and in tests/test_torch_system_catalog.py)
+    assert run(pair, "show tables from system").rows == [
+        ("catalogs",), ("tables",), ("columns",), ("session_properties",),
+        ("functions",)]
 
 
 ROWS = [(i, None if i % 4 == 0 else i * 7 - 50, f"s{i % 9}"

@@ -5,6 +5,7 @@ tests/test_tpch_gen.py on the port's own pages."""
 
 import numpy as np
 import pytest
+import torch
 
 from presto_tpu.connectors.tpch import TpchConnector as RefConnector
 from presto_tpu_torch.connectors.tpch import (
@@ -15,6 +16,18 @@ from presto_tpu_torch.connectors.tpch import (
     TpchConnector,
 )
 from presto_tpu_torch.ops.compact import concat_all
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SF = 0.005
 TABLES = ("region", "nation", "part", "supplier", "partsupp", "customer",

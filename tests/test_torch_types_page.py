@@ -14,6 +14,18 @@ from presto_tpu_torch import interop
 from presto_tpu_torch import types as T
 from presto_tpu_torch.page import Dictionary, Page
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 rng = np.random.default_rng(20261016)
 
 CASES = {

@@ -12,6 +12,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 from presto_tpu import types as RT
 from presto_tpu.connectors.tpch import TpchConnector as RefConnector
@@ -27,6 +28,18 @@ from presto_tpu_torch.dist import serde as SERDE
 from presto_tpu_torch.page import Page
 from presto_tpu_torch.runner import LocalRunner
 from tests.test_sql_tpch import ENGINE_SQL
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per worker process: the suite runs several
+    files at once, and torch's default of one thread per core spins
+    against the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N = 300
 

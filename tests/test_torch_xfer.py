@@ -27,6 +27,11 @@ spill tier, SF 0.01, the kernel dispatch points off): each label's
 crossing count and bytes equal the reference's, read off the two
 engines' traced ``xfer`` spans. A label one engine meters and the other
 does not is named below with its cause.
+
+The result cache's ledger: the transfer counters on /metrics and
+system.metrics, and a cache replay crossing nothing at the host sink
+and staging its stored pages once below a device consumer, as the
+reference's does.
 """
 
 import ast
@@ -386,3 +391,88 @@ def test_gauges_are_per_query(pair):
     ex = Executor({}, device="cpu")
     assert (ex.h2d_bytes, ex.d2h_bytes, ex.h2d_transfers,
             ex.d2h_transfers, ex.transfer_wall_s) == (0, 0, 0, 0, 0.0)
+
+
+# -------------------------------------------------- the cache's ledger
+def test_transfer_counters_reach_metrics_and_system_metrics():
+    """The server surfaces: /metrics carries the byte and count gauges
+    and the transfer_wall_seconds gauge, system.metrics the same names
+    plus transfer_wall_ms — overlaid with the process totals like the
+    result-cache counters (the reference's case of this name)."""
+    import urllib.request
+
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.server import PrestoTpuServer
+
+    srv = PrestoTpuServer({"tpch": TpchConnector(0.001, device="cpu")},
+                          port=0, device="cpu", page_rows=1 << 12)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        c = StatementClient(server=base)
+        assert c.execute("select count(*) from nation").error is None
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+            text = r.read().decode()
+        for name in ("presto_tpu_h2d_bytes", "presto_tpu_d2h_bytes",
+                     "presto_tpu_h2d_transfers", "presto_tpu_d2h_transfers",
+                     "presto_tpu_transfer_wall_seconds",
+                     "presto_tpu_result_cache_hits_total"):
+            assert re.search(rf"^{name} ", text, re.M), name
+        # the query above decoded rows: the process total is live
+        assert int(re.search(r"^presto_tpu_d2h_bytes (\d+)", text,
+                             re.M).group(1)) > 0
+        res = c.execute("select * from system.metrics")
+        assert res.error is None
+        names = {row[0] for row in res.rows}
+        assert {"h2d_bytes", "d2h_bytes", "h2d_transfers",
+                "d2h_transfers", "transfer_wall_ms",
+                "result_cache_hits"} <= names
+    finally:
+        srv.stop()
+
+
+def test_cache_replay_meters_only_real_crossings(pair):
+    """The cache-replay half of the reference's
+    test_to_host_and_np_host_meter_only_real_crossings: a fragment hit
+    at the host sink crosses nothing, and a hit below a device consumer
+    stages its stored host pages once (h2d:cache-replay), with the
+    reference's per-label counts and bytes."""
+    from presto_tpu.cache import ResultCache as RefCache
+    from presto_tpu.exec import plan as RP
+    from presto_tpu.exec import xfer as RXF
+    from presto_tpu_torch.cache import ResultCache
+    from presto_tpu_torch.exec import plan as P
+
+    sql = ("select l_returnflag, count(*), sum(l_quantity) "
+           "from tpch.lineitem group by l_returnflag")
+    out = []
+    for r, cache, plan_mod, xf in ((pair[0], ResultCache, P, XF),
+                                   (pair[1], RefCache, RP, RXF)):
+        r.apply_session()
+        ex = r.executor
+        ex.result_cache = cache()
+        try:
+            root = r.plan(sql)
+            ex.execute(root)
+            base = xf.process_totals()
+            _n, rows = ex.execute(root)  # a root hit: host pages served
+            after = xf.process_totals()
+            root_hit = (ex.result_cache_hits, ex.h2d_bytes, ex.d2h_bytes,
+                        after["h2d_bytes"] - base["h2d_bytes"],
+                        after["d2h_bytes"] - base["d2h_bytes"])
+            # UniqueId above the aggregation: the hit stages for it
+            above = plan_mod.Output(
+                source=plan_mod.UniqueId(source=root.source),
+                names=("f", "c", "q", "uid"))
+            ex.execute(above)
+            hits0 = ex.result_cache_hits
+            ex.execute(above)
+            out.append((sorted(rows), root_hit,
+                        ex.result_cache_hits - hits0, ex.h2d_transfers,
+                        ex.h2d_bytes))
+        finally:
+            ex.result_cache = None
+    got, want = out
+    assert got == want
+    assert got[1][0] == 1 and got[1][1:] == (0, 0, 0, 0)
+    assert got[2] == 1 and got[3] >= 1 and got[4] > 0
