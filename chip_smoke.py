@@ -158,6 +158,15 @@ Phases:
            admitted as hits; system.runtime_queries, SHOW TABLES FROM
            system, a plugin's access control denying a statement), and
            Q1 SF 10 on make_mesh(4) (a root hit with no crossing)
+  stream   the streaming plane: an append log of lineitem SF 10's Q1
+           columns (CREATE TABLE AS of 90%, then ten 1% INSERTs); TPC-H
+           Q1 as a maintained view refreshed after each append (the
+           delta rows, delta pages, K1 launches and ledger bytes of each
+           fold) beside a cold recompute at the same offset (rows
+           equal; the last == val_q1_sf10.json), one refresh with
+           ivm_enabled=false; a server with two tailing cursors (the
+           Q1 view, a per-row filter) while three appends land, the
+           lock sanitizer armed
   profile  (only when asked for) the base scale rungs under each session
            and the dist queries once more under torch.profiler: device
            busy share, device kernels, graph replays, device time by
@@ -192,7 +201,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
               "surface", "statements", "governed", "oom", "analyze",
-              "serve", "mesh", "reuse")
+              "serve", "mesh", "reuse", "stream")
 
 # timed runs of each scale query, after one warm-up
 TIMED_RUNS = 3
@@ -4653,6 +4662,330 @@ def phase_reuse(dev, cluster: "DistCluster", oracles=None) -> dict:
     log(f"reuse: launches of the misses {launches}; {card}")
     return launches
 
+STREAM_SF = 10.0
+STREAM_PAGE_ROWS = 1 << 20
+STREAM_COLUMNS = ("l_orderkey, l_linenumber, l_quantity, l_extendedprice, "
+                  "l_discount, l_tax, l_returnflag, l_linestatus, "
+                  "l_shipdate")
+# (a): lineitem SF 10's order keys run to 60,000,000: the log is seeded
+# with the keys <= 54,000,000 (about 90% of 59,994,468 rows), then
+# STREAM_APPENDS INSERTs of 600,000 keys each (about 1%) complete it
+STREAM_SEED_KEY = 54_000_000
+STREAM_STEP = 600_000
+STREAM_APPENDS = 10
+# (c): the delta cursor's statement and the appends that land while
+# both cursors tail: copies of the first three batches with
+# l_linenumber + 8, so the log stays append-only with fresh rows
+STREAM_DELTA_SQL = ("select l_orderkey, l_linenumber, l_quantity "
+                    "from lineitem where l_quantity = 50")
+STREAM_TAIL_APPENDS = 3
+STREAM_POLL_MS = 400
+
+
+def _stream_batch(i: int, linenumber: str = "l_linenumber") -> str:
+    lo = STREAM_SEED_KEY + STREAM_STEP * i
+    cols = STREAM_COLUMNS.replace("l_linenumber", linenumber, 1)
+    return (f"select {cols} from tpch.lineitem where l_orderkey > {lo} "
+            f"and l_orderkey <= {lo + STREAM_STEP}")
+
+
+def _tail_post(url: str, text: str) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/v1/statement", data=text.encode(), method="POST",
+        headers={"X-Presto-User": "tailer", "X-Presto-Catalog": "stream",
+                 "X-Presto-Session": f"stream_tail_enabled=true,"
+                                     f"stream_poll_ms={STREAM_POLL_MS}"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read().decode())
+
+
+def _tail_get(uri: str, method: str = "GET") -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(uri, method=method,
+                                 headers={"X-Presto-User": "tailer"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read().decode())
+
+
+def phase_stream(dev) -> dict:
+    """The streaming plane on the card. (a) An append log of lineitem SF
+    10's Q1 columns: CREATE TABLE AS of the order keys <= 54,000,000
+    (about 54M rows, host arrays), then 10 INSERTs of about 1% each,
+    until the log holds all of lineitem. (b) TPC-H Q1 over the log as a
+    registered view: after each append a refresh (its wall, the delta
+    rows it scanned == the rows appended, delta_pages_folded, its K1
+    launches > 0, the ledger's h2d/d2h bytes) beside a cold recompute
+    at the same offset (result_cache_enabled=false; rows equal, exact
+    but for doubles at 9 digits); after the last append the refresh ==
+    val_q1_sf10.json; a refresh under ivm_enabled=false counts one full
+    recompute. (c) A server over the stream and tpch catalogs, the lock
+    sanitizer armed: one client tails the Q1 view (view mode), one
+    tails STREAM_DELTA_SQL (delta mode) while three appends land; the
+    delta cursor delivers exactly the matching appended rows (count and
+    checksum), the view cursor's changed groups rebuild the cold Q1 at
+    the final offset, cursor_polls and stream_appends_seen count, 0
+    sanitizer violations, DELETE ends both cursors. Returns the K1-K4
+    launches of the refreshes, the cold runs and the server part."""
+    import threading
+
+    from presto_tpu_torch import cuda
+    from presto_tpu_torch.connectors.stream import StreamConnector
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.exec import xfer as XF
+    from presto_tpu_torch.obs import sanitizer as SAN
+    from presto_tpu_torch.runner import LocalRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.server.http_server import _json_row
+    from presto_tpu_torch.streaming import ivm as IVM
+
+    card = card_line()
+    launches = {k: 0 for k in KERNEL_NAMES}
+
+    def counted(fn, *a):
+        """fn(*a) with the kernel counts from 0; adds its launches."""
+        cuda.reset_counts()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        got = {k: cuda.launches.get(k, 0) for k in KERNEL_NAMES}
+        for k in KERNEL_NAMES:
+            launches[k] += got[k]
+        return out, got
+
+    SAN.arm()
+    SAN.reset()
+    try:
+        log_conn = StreamConnector(device=dev)
+        cats = {"tpch": TpchConnector(STREAM_SF, device=dev),
+                "stream": log_conn}
+        session = {"page_rows": STREAM_PAGE_ROWS,
+                   "result_cache_enabled": "false"}
+        runner = LocalRunner(cats, "stream", device=dev, session=session)
+        cold = LocalRunner(cats, "stream", device=dev, session=session)
+        text = sql("tpch", 1)
+
+        # ---- (a) the seed
+        t0 = time.perf_counter()
+        seeded = runner.execute(
+            f"create table stream.lineitem as "
+            f"select {STREAM_COLUMNS} from tpch.lineitem "
+            f"where l_orderkey <= {STREAM_SEED_KEY}").rows[0][0]
+        seed_wall = time.perf_counter() - t0
+        log(f"stream: (a) seed {seeded:,} rows in {seed_wall:.4f} s "
+            f"(CREATE TABLE AS into host arrays); {card}")
+
+        # ---- (b) Q1 as a view, refreshed after each append
+        view = IVM.IvmRegistry().register(runner, "q1", text)
+        if not view.ivm_safe:
+            raise AssertionError(f"stream: Q1 not IVM-safe: "
+                                 f"{view.unsafe_reason}")
+        ex = runner.executor
+
+        def refresh():
+            x0 = XF.process_totals()
+            f0 = ex.delta_pages_folded
+            t = time.perf_counter()
+            (_names, rows, _types), k = counted(
+                IVM.refresh, view, runner.session, ex)
+            wall = time.perf_counter() - t
+            x1 = XF.process_totals()
+            return rows, dict(
+                wall_s=round(wall, 4), delta_rows=view.last_delta_rows,
+                delta_pages_folded=ex.delta_pages_folded - f0,
+                h2d_bytes=x1["h2d_bytes"] - x0["h2d_bytes"],
+                d2h_bytes=x1["d2h_bytes"] - x0["d2h_bytes"], launches=k)
+
+        rows, first = refresh()
+        log(f"stream: (b) initial refresh over {seeded:,} rows: "
+            f"{json.dumps(first)}")
+        if first["delta_rows"] != seeded:
+            raise AssertionError(f"stream: initial fold {first}")
+        readings = []
+        for i in range(STREAM_APPENDS):
+            t = time.perf_counter()
+            appended = runner.execute(
+                "insert into stream.lineitem " + _stream_batch(i)
+            ).rows[0][0]
+            insert_wall = time.perf_counter() - t
+            rows, r = refresh()
+            t = time.perf_counter()
+            want, k_cold = counted(lambda: cold.execute(text).rows)
+            cold_wall = time.perf_counter() - t
+            r.update(append=i + 1, appended=appended,
+                     offset=log_conn.offset("lineitem"),
+                     insert_wall_s=round(insert_wall, 4),
+                     cold_wall_s=round(cold_wall, 4),
+                     cold_k1=k_cold["segsum"])
+            log(f"stream: (b) {json.dumps(r)}")
+            if r["delta_rows"] != appended or appended <= 0:
+                raise AssertionError(f"stream: delta rows {r}")
+            if r["launches"]["segsum"] <= 0 or r["delta_pages_folded"] < 1:
+                raise AssertionError(f"stream: no K1 on the fold {r}")
+            if not same_rows(rows, want):
+                raise AssertionError(f"stream: refresh {i + 1} != cold")
+            readings.append(r)
+        note = check_validated(1, STREAM_SF, rows)
+        if ex.ivm_full_recomputes or ex.ivm_refreshes != STREAM_APPENDS + 1:
+            raise AssertionError("stream: refresh counters "
+                                 f"{ex.ivm_refreshes} "
+                                 f"{ex.ivm_full_recomputes}")
+        # ivm_enabled=false: one counted full recompute (a view of its
+        # own, so the main view keeps its settled state)
+        full_view = IVM.IvmRegistry().register(runner, "q1_full", text)
+        runner.session.set("ivm_enabled", False)
+        try:
+            t = time.perf_counter()
+            (_n, full_rows, _t), _k = counted(
+                IVM.refresh, full_view, runner.session, ex)
+            full_wall = time.perf_counter() - t
+        finally:
+            runner.session.unset("ivm_enabled")
+        if ex.ivm_full_recomputes != 1 or not same_rows(full_rows, rows):
+            raise AssertionError("stream: ivm_enabled=false refresh")
+        refresh_walls = [r["wall_s"] for r in readings]
+        cold_walls = [r["cold_wall_s"] for r in readings]
+        log(f"stream: (b) {STREAM_APPENDS} appends: refresh walls "
+            f"{refresh_walls} s against cold {cold_walls} s; final "
+            f"offset {log_conn.offset('lineitem'):,}{note}; "
+            f"ivm_enabled=false refresh {full_wall:.4f} s (1 full "
+            f"recompute); {card}")
+
+        # ---- (c) tailing cursors on a server
+        srv = PrestoTpuServer(cats, "stream", port=0, device=dev,
+                              page_rows=STREAM_PAGE_ROWS)
+        url = f"http://127.0.0.1:{srv.start()}"
+        try:
+            sex = srv._runner.executor
+            IVM.shared_registry().register(srv._runner, "q1_tail", text)
+            c0 = {n: getattr(sex, n) for n in (
+                "cursor_polls", "stream_appends_seen", "ivm_refreshes",
+                "delta_pages_folded")}
+            cuda.reset_counts()
+            t = time.perf_counter()
+            vdoc = _tail_post(url, text)
+            view_wall = time.perf_counter() - t
+            t = time.perf_counter()
+            ddoc = _tail_post(url, STREAM_DELTA_SQL)
+            delta_wall = time.perf_counter() - t
+            if "nextUri" not in vdoc or "nextUri" not in ddoc:
+                raise AssertionError(f"stream: (c) not tailing: "
+                                     f"{vdoc.get('error')} "
+                                     f"{ddoc.get('error')}")
+            vtypes = [c["type"] for c in vdoc["columns"]]
+            dtypes = [c["type"] for c in ddoc["columns"]]
+            snapshot = {tuple(r[:2]): r for r in vdoc["data"]}
+            initial_delta = len(ddoc.get("data", []))
+            log(f"stream: (c) initial snapshots: view {len(snapshot)} "
+                f"groups in {view_wall:.4f} s, delta {initial_delta:,} "
+                f"rows in {delta_wall:.4f} s "
+                f"({initial_delta / delta_wall:,.0f} rows/s)")
+            # the rows the appends must deliver, straight from tpch
+            want_rows, want_view = [], None
+            for i in range(STREAM_TAIL_APPENDS):
+                res = cold.execute(
+                    "select l_orderkey, l_linenumber + 8, l_quantity from "
+                    + _stream_batch(i).split(" from ", 1)[1]
+                    + " and l_quantity = 50")
+                want_rows += [_json_row(r, dtypes) for r in res.rows]
+            got = {"delta": [], "view": []}
+            last = {}
+            stop = threading.Event()
+            errors = []
+
+            def tail(kind, doc):
+                try:
+                    while not stop.is_set() and "nextUri" in doc:
+                        doc = _tail_get(doc["nextUri"])
+                        if doc.get("error"):
+                            raise AssertionError(doc["error"])
+                        if doc.get("data"):
+                            got[kind].append(
+                                (time.perf_counter(), doc["data"]))
+                    last[kind] = doc
+                except Exception as e:  # noqa: BLE001 - checked below
+                    errors.append(f"{kind}: {e!r}")
+
+            threads = [threading.Thread(target=tail, args=(k, d),
+                                        daemon=True)
+                       for k, d in (("view", vdoc), ("delta", ddoc))]
+            for th in threads:
+                th.start()
+            appended_at = []
+            for i in range(STREAM_TAIL_APPENDS):
+                srv._runner.execute(
+                    "insert into stream.lineitem "
+                    + _stream_batch(i, "l_linenumber + 8"))
+                appended_at.append(time.perf_counter())
+                time.sleep(STREAM_POLL_MS / 1000.0)
+            final = log_conn.offset("lineitem")
+            want_view = [_json_row(r, vtypes)
+                         for r in cold.execute(text).rows]
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline and not errors:
+                delivered = sum(len(d) for _t, d in got["delta"])
+                rebuilt = dict(snapshot)
+                for _t, page in got["view"]:
+                    rebuilt.update({tuple(r[:2]): r for r in page})
+                if delivered >= len(want_rows) and \
+                        sorted(rebuilt.values()) == sorted(want_view):
+                    break
+                time.sleep(0.05)
+            stop.set()
+            for doc in (vdoc, ddoc):
+                _tail_get(f"{url}/v1/statement/{doc['id']}", "DELETE")
+            for th in threads:
+                th.join(timeout=STREAM_POLL_MS / 100.0 + 30)
+            k_srv = {k: cuda.launches.get(k, 0) for k in KERNEL_NAMES}
+            for k in KERNEL_NAMES:
+                launches[k] += k_srv[k]
+            if errors or any(th.is_alive() for th in threads):
+                raise AssertionError(f"stream: (c) tail errors {errors}")
+            delta_rows = [tuple(r) for _t, d in got["delta"] for r in d]
+            want_t = [tuple(r) for r in want_rows]
+            if len(delta_rows) != len(want_t) or \
+                    rows_checksum(delta_rows) != rows_checksum(want_t):
+                raise AssertionError(
+                    f"stream: (c) delta cursor {len(delta_rows)} rows, "
+                    f"checksum {rows_checksum(delta_rows)}; want "
+                    f"{len(want_t)}, {rows_checksum(want_t)}")
+            changed = {tuple(r[:2]) for _t, d in got["view"] for r in d}
+            if sorted(rebuilt.values()) != sorted(want_view) or not changed:
+                raise AssertionError("stream: (c) the view cursor's "
+                                     "groups do not rebuild Q1")
+            for doc in last.values():
+                # the page after the DELETE ends the cursor
+                end = _tail_get(doc["nextUri"]) if "nextUri" in doc \
+                    else doc
+                if "nextUri" in end or end["stats"]["state"] != "CANCELED":
+                    raise AssertionError(f"stream: (c) DELETE: {end}")
+            c1 = {n: getattr(sex, n) - c0[n] for n in c0}
+            if c1["cursor_polls"] < 2 or c1["stream_appends_seen"] < 1:
+                raise AssertionError(f"stream: (c) counters {c1}")
+            # each append's delivery: its first delta page after it
+            lags = [round(min((t for t, _d in got["delta"] if t > a),
+                              default=float("nan")) - a, 4)
+                    for a in appended_at]
+            log(f"stream: (c) {STREAM_TAIL_APPENDS} appends to offset "
+                f"{final:,} while tailing: the delta cursor got "
+                f"{len(delta_rows):,} rows == the matching appended rows "
+                f"(checksum {rows_checksum(delta_rows)}), each append's "
+                f"rows delivered {lags} s after it; the view "
+                f"cursor sent {len(got['view'])} pages changing groups "
+                f"{sorted(changed)} == cold Q1; counters {json.dumps(c1)}; "
+                f"launches {k_srv}")
+        finally:
+            srv.stop()
+    finally:
+        violations = SAN.violation_count()
+        report = SAN.report()
+        SAN.disarm()
+    if violations:
+        raise AssertionError(f"stream: sanitizer: {report}")
+    log(f"stream: sanitizer 0 violations; launches {launches}; {card}")
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -4755,6 +5088,10 @@ def main() -> int:
         if "reuse" in phases:
             reu = timed("reuse", phase_reuse, dev, cluster, oracles)
             launches = {k: (launches[k] or 0) + reu[k]
+                        for k in KERNEL_NAMES}
+        if "stream" in phases:
+            stm = timed("stream", phase_stream, dev)
+            launches = {k: (launches[k] or 0) + stm[k]
                         for k in KERNEL_NAMES}
         if "profile" in phases:
             timed("profile", phase_profile, dev, cluster)

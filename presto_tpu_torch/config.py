@@ -13,10 +13,10 @@ port's server unchanged:
                                  tpch.scale-factor=1.0
 
 Unknown connector names or malformed files raise at load. The factories
-are those of the ported connectors (tpch, tpcds, memory, blackhole);
-``connector.name=stream`` raises NotImplementedError (ROADMAP queue 5),
-and so does the structural key of an unported plane,
-``compile-cache.dir`` (the port adopts no torch.compile).
+are those of the ported connectors (tpch, tpcds, memory, blackhole,
+stream); the structural key of the one unported plane,
+``compile-cache.dir`` (the port adopts no torch.compile), raises
+NotImplementedError.
 ``checkpoint.dir`` binds the server's durable coordinator journal.
 The server built here runs on the card unless the
 caller passes ``device="cpu"``; the connectors follow it.
@@ -83,9 +83,9 @@ def _builtin_factories() -> Dict[str, Callable]:
         return BlackholeConnector()
 
     def stream(props, device):
-        raise NotImplementedError(
-            "the stream connector is not ported to presto_tpu_torch "
-            "(ROADMAP queue 5)")
+        from presto_tpu_torch.connectors.stream import StreamConnector
+
+        return StreamConnector(device=device)
 
     return {"tpch": tpch, "tpcds": tpcds, "memory": memory,
             "blackhole": blackhole, "stream": stream}
@@ -168,7 +168,9 @@ ETC_SESSION_KEYS: Dict[str, str] = {
     "result-cache.persist-dir": "result_cache_persist_dir",
     "result-cache.remote-probe": "result_cache_remote_probe",
     "result-cache.subsumption": "result_cache_subsumption",
+    "ivm.enabled": "ivm_enabled",
     "stream-tail.enabled": "stream_tail_enabled",
+    "stream-poll.ms": "stream_poll_ms",
     "cross-query-batching": "cross_query_batching",
     "cross-query-batch.wait-ms": "cross_query_batch_wait_ms",
     "checkpoint.enabled": "checkpoint_enabled",

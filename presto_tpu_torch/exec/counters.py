@@ -10,9 +10,8 @@ its own; tests/test_torch_explain_analyze.py fails when a ``self.x +=``
 counter of the executor family is missing here.
 
 Only the counters the port maintains are declared, each under the
-reference's name and kind. The reference's counters of planes the port
-lacks (result cache, IVM, the mesh exchange, ...) are
-listed in ROADMAP.md beside the plane that brings each one.
+reference's name and kind: every one of the reference's but
+``buffers_donated`` (torch has no buffer donation).
 
 Adding a counter = initialize it to 0 in Executor.__init__, increment
 it, and add one row here.
@@ -215,6 +214,27 @@ QUERY_COUNTERS: Dict[str, tuple] = {
         "edges served Pages directly between same-process placements "
         "(dist/spool.local_source_pages — no HTTP, no serde; executor "
         "lifetime)"),
+    "delta_pages_folded": (
+        "counter", "delta partial-state pages folded into persisted "
+        "materialized-view state by incremental refreshes "
+        "(streaming/ivm.py — the O(new rows) refresh input; executor "
+        "lifetime)"),
+    "ivm_refreshes": (
+        "counter", "incremental materialized-view refreshes completed "
+        "(delta fold through the partial-agg kernels + finalize; "
+        "streaming/ivm.py)"),
+    "ivm_full_recomputes": (
+        "counter", "view refreshes that fell back to a FULL recompute "
+        "(non-IVM-safe plan shape or ivm_enabled=false) — the loud, "
+        "counted degradation path, never a silent wrong answer"),
+    "cursor_polls": (
+        "counter", "tailing /v1/statement cursor polls served "
+        "(stream_tail_enabled; each poll long-polls the append log "
+        "and emits only delta-derived rows)"),
+    "stream_appends_seen": (
+        "counter", "append batches observed on append-only stream "
+        "connectors: the runner's INSERT advance path plus tail "
+        "polls that saw the log offset move"),
     "adaptive_replans": (
         "counter", "stage-boundary re-plans applied by the adaptive "
         "executor (adaptive/): the not-yet-dispatched suffix of a "

@@ -496,6 +496,23 @@ class Executor:
         self.launch_batcher = None
         self.cross_query_batching = "auto"
         self.cross_query_batch_wait_ms = 25
+        # ---- the streaming plane (connectors/stream.py, streaming/,
+        # the server's tailing cursors): lifetime counters, so every
+        # surface (EXPLAIN ANALYZE, /metrics, system.metrics) renders
+        # refresh activity. delta_pages_folded = delta partial-state
+        # pages an IVM refresh folded into persisted view state;
+        # ivm_refreshes = incremental refreshes completed;
+        # ivm_full_recomputes = refreshes that fell back to a full
+        # recompute (a non-IVM-safe plan or ivm_enabled=false, counted,
+        # never silent); cursor_polls = tailing /v1/statement polls
+        # served; stream_appends_seen = append batches seen on
+        # append-only connectors (the runner's INSERT path and tail
+        # polls that saw the offset move)
+        self.delta_pages_folded = 0
+        self.ivm_refreshes = 0
+        self.ivm_full_recomputes = 0
+        self.cursor_polls = 0
+        self.stream_appends_seen = 0
         self.cross_query_batches = 0
         self.cross_query_batched_queries = 0
         self.batch_gather_wait_ms = 0
@@ -1376,6 +1393,34 @@ class Executor:
         self.cache_warm_loads += loaded
         self.cache_manifest_drops += drops
 
+    # the streaming plane's sinks: plain GIL-guarded adds, so a lost
+    # increment under contention is a metric error, never a correctness
+    # one (exec/xfer.py's stance)
+    def count_ivm_refresh(self, full: bool = False) -> None:
+        """streaming/ivm.refresh: one incremental refresh completed, or
+        — ``full`` — one full-recompute fallback (a non-IVM-safe plan,
+        or ivm_enabled off)."""
+        if full:
+            self.ivm_full_recomputes += 1
+        else:
+            self.ivm_refreshes += 1
+
+    def count_delta_pages(self, n: int) -> None:
+        """``n`` delta partial-state pages folded into persisted view
+        state by one refresh (streaming/ivm.refresh)."""
+        self.delta_pages_folded += n
+
+    def count_cursor_poll(self) -> None:
+        """One tailing /v1/statement cursor poll
+        (server/http_server.TailCursor.poll)."""
+        self.cursor_polls += 1
+
+    def count_stream_append(self) -> None:
+        """One append batch seen on an append-only stream connector:
+        the runner's INSERT advance path and tail polls that saw the
+        offset move."""
+        self.stream_appends_seen += 1
+
     # --------------------------------------------------------- result cache
     def _select_cache_points(self, node: P.PhysicalNode) -> None:
         """Per-query cache-point selection (cache/rules.py): the maximal
@@ -2139,6 +2184,69 @@ class Executor:
         out, overflow = final_fn(merged, fcap, max_iters)
         self._pending_overflow.append(overflow)
         yield out
+
+    # ------------------------------------------------ the IVM plane
+    def ivm_delta_states(self, partial_node: P.Aggregation) -> List:
+        """Run a view's partial-step aggregation over the delta window
+        (this executor's catalogs hold the pinned StreamWindowConnector)
+        and return HOST copies of its partial-state pages: the O(new
+        rows) half of an incremental refresh (streaming/ivm.py). It
+        rides stream_fragment's overflow and device-OOM ladder, and its
+        partial step reaches K1 (_partial_agg_page with the kernels on)
+        as a cold run's does."""
+        return self.stream_fragment(
+            partial_node, emit=lambda p: XF.to_host(p, label="ivm-delta"))
+
+    def ivm_fold_finalize(self, node: P.Aggregation, state_pages,
+                          cap_hint: Optional[int] = None):
+        """Merge partial-state pages (host pages: the persisted settled
+        state plus this refresh's delta states) into ONE settled state
+        and finalize it — the other half of a refresh. The merge and
+        final steps are the single-step aggregation's
+        (_merge_partials_page, _final_agg_page) under a local boost
+        ladder: an overflow re-stages and retries at the next rung.
+        Returns ``(settled host state page, final host page)``; the
+        settled state is pulled to the host before the final step, the
+        reference's order (its final step donates the buffer; torch
+        donates nothing, and the order costs nothing).
+
+        ``cap_hint`` (the view's OBSERVED group count) sizes the state:
+        the planner's capacity follows the LOG's row count and would
+        pin an ever-growing state page, so the state compacts to the
+        observed cardinality and real growth overflows onto the ladder."""
+        if not state_pages:
+            raise ValueError("ivm_fold_finalize needs >=1 state page")
+        in_types = self._agg_in_types(node)
+        layouts = self._layouts(node, in_types)
+        nkeys = len(node.group_channels)
+        boost = 1
+        for _ in range(6):
+            max_iters = 64 * boost
+            collect_k = self.collect_k * boost
+            staged = [XF.to_device(p, self.device, label="ivm-state")
+                      for p in state_pages]
+            merged = concat_all(staged) if len(staged) > 1 else staged[0]
+            self._account_page(merged)
+            cap = _next_pow2(max(cap_hint or node.capacity, 8) * boost)
+            settled, ovf = _merge_partials_page(
+                node.aggregates, layouts, nkeys, merged,
+                min(cap, _next_pow2(merged.capacity)), max_iters,
+                collect_k=collect_k)
+            if bool(ovf):
+                boost = SH.next_boost(boost)
+                continue
+            settled_host = XF.to_host(settled, label="ivm-state")
+            final, ovf = _final_agg_page(
+                node.group_channels, node.aggregates, layouts, in_types,
+                settled, min(cap, _next_pow2(settled.capacity)),
+                max_iters, collect_k=collect_k,
+                extra_types=self._agg_extra_types(node))
+            if bool(ovf):
+                boost = SH.next_boost(boost)
+                continue
+            return settled_host, XF.to_host(final, label="ivm-final")
+        raise RuntimeError(
+            "IVM state fold overflow persisted after 6 boosted retries")
 
     def _agg_parts(self, node: P.Aggregation, in_types) -> int:
         """Hash-partition pass count of a grouped single-step

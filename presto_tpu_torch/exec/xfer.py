@@ -108,6 +108,20 @@ TRANSFER_REGISTRY: Dict[str, Tuple[str, str, str]] = {
     "connectors.memory._columns_of_pages": (
         "d2h", "data",
         "table writes read each result page's validity mask"),
+    # ---- the stream connector (the append log's ingest and writes)
+    "connectors.stream.StreamConnector.page_for_split": (
+        "h2d", "data",
+        "a log split (a full scan, a delta scan or a pinned window's) "
+        "stages its chunk slices onto the device, one copy per array "
+        "(page-build)"),
+    "connectors.stream._encode_blocks": (
+        "d2h", "data",
+        "an INSERT or CTAS into a stream pulls each result block to "
+        "host numpy once per write"),
+    "connectors.stream._StreamTable.encode_pages": (
+        "d2h", "data",
+        "an INSERT or CTAS into a stream reads each result page's "
+        "validity mask"),
     "connectors.blackhole.BlackholeConnector._count": (
         "d2h", "data",
         "a write into the blackhole reads each result page's validity "
@@ -125,6 +139,17 @@ TRANSFER_REGISTRY: Dict[str, Tuple[str, str, str]] = {
         "h2d", "data",
         "a result-cache hit below the host sink stages its stored host "
         "pages onto the device for the consumer above (cache-replay)"),
+    "exec.executor.Executor.ivm_delta_states": (
+        "d2h", "data",
+        "IVM refresh delta fold: the delta window's partial-state "
+        "pages pull to host for persistence as view state "
+        "(streaming/ivm.py; O(new rows) per refresh; ivm-delta)"),
+    "exec.executor.Executor.ivm_fold_finalize": (
+        "h2d+d2h", "data",
+        "IVM state merge and finalize: the persisted host state pages "
+        "re-stage for the merge and final steps (ivm-state, h2d); the "
+        "settled state and the finalized result pull back for "
+        "persistence and row decode (ivm-state, ivm-final, d2h)"),
     "exec.executor.Executor._join_partition_rebalanced": (
         "d2h", "data",
         "grace-join skew rebalance reads per-piece row counts (host "
@@ -232,6 +257,7 @@ DATA_PLANE_MODULES = frozenset({
     "page",
     "connectors.blackhole",
     "connectors.memory",
+    "connectors.stream",
     "exec.executor",
     "exec.graphs",
     "exec.pagestore",

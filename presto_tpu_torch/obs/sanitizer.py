@@ -58,6 +58,11 @@ LOCK_REGISTRY: Dict[str, str] = {
         "file I/O runs OUTSIDE it)",
     "cache.store._shared_lock":
         "creation of the process-shared ResultCache",
+    "connectors.stream.StreamConnector._cv":
+        "the append log's table map and offsets (appends, scan "
+        "snapshots, tail pollers; fronted by a Condition whose "
+        "notify_all wakes every wait_for_offset long-poller — page "
+        "copies run OUTSIDE it over immutable chunks)",
     "cuda._lock":
         "kernel library builds and loads (one nvcc per source, once)",
     "cuda._count_lock":
@@ -106,6 +111,11 @@ LOCK_REGISTRY: Dict[str, str] = {
     "server.http_server.QueryManager._lock":
         "the query registry and the /metrics tallies (HTTP handler "
         "threads vs query threads)",
+    "server.http_server.TailCursor._cv":
+        "one tailing cursor's emitted rows, token spans and poll "
+        "serialization flag (concurrent protocol GETs on one cursor; "
+        "fronted by a Condition); the poll's query execution runs "
+        "OUTSIDE it behind the _polling flag",
     "server.launch_batcher.LaunchBatcher._cv":
         "the pending gather groups and per-key in-flight counts of the "
         "cross-query batch point (fronted by a Condition; the shared "
@@ -127,6 +137,17 @@ LOCK_REGISTRY: Dict[str, str] = {
     "server.worker._Task.lock":
         "one task's spool and lifecycle flags (its execution thread vs "
         "the fetch/status/cancel handlers)",
+    "streaming.ivm.IvmRegistry._lock":
+        "the materialized-view registry (register and lookup by name "
+        "and by statement shape fingerprint)",
+    "streaming.ivm.MaterializedView._cv":
+        "one view's persisted state, watermark and last-result "
+        "publication plus the refresh serialization flag (fronted by "
+        "a Condition); the refresh itself (delta scan, fold, "
+        "finalize) runs OUTSIDE it behind _refreshing, so concurrent "
+        "tailers coalesce onto one fold",
+    "streaming.ivm._shared_lock":
+        "creation of the process-shared IvmRegistry",
 }
 
 THREAD_REGISTRY: Dict[str, str] = {

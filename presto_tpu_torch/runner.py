@@ -9,7 +9,8 @@ from the counter registry, exec/counters.py), CREATE / DROP VIEW
 DEALLOCATE (per user), SET / SHOW SESSION, SHOW TABLES, and CREATE
 TABLE AS, INSERT, DELETE, UPDATE (a rewrite through SELECT plus a table
 replace) and DROP TABLE on a connector that stores tables (the memory
-connector).
+connector, and the stream connector, where an INSERT is an append that
+advances the result cache instead of invalidating it).
 
 Every runner holds the system catalog (connectors/system.py: catalogs,
 tables, columns, session_properties, functions; the server adds its
@@ -36,8 +37,7 @@ kept as ``last_trace`` and written as a Chrome trace to the directory;
 control statements record none.
 
 Session properties come as a plain dict (or SET SESSION), validated
-through the port's property registry (session.py); a property that asks
-for a plane the port lacks raises NotImplementedError. The runner
+through the port's property registry (session.py). The runner
 honours:
 
   - ``page_rows``: target rows per generated page (split granularity);
@@ -69,7 +69,10 @@ honours:
     ``estimate_memory``, which sizes the memory arbiter's admission;
   - the result cache's: ``result_cache_enabled``, ``_bytes``,
     ``_ttl_ms``, ``_persist_dir`` and ``_subsumption`` (the DcnRunner
-    reads ``_remote_probe``).
+    reads ``_remote_probe``);
+  - the streaming plane's: ``ivm_enabled`` (streaming/ivm.refresh
+    reads it off the session) and ``stream_tail_enabled`` /
+    ``stream_poll_ms`` (the HTTP server's tailing cursors).
 
 With ``mesh=make_mesh(D)`` (dist/executor.py) the runner fragments
 every plan with exchanges (dist/fragmenter.add_exchanges, plan-time
@@ -540,10 +543,15 @@ class LocalRunner:
                     table, names or [], types, pages,
                     unique=self._unique_outputs(inner, names))
                 kind = "CREATE TABLE AS"
+                self._invalidate_caches(cat, table)
             else:
                 n = conn.insert_pages(table, pages)
                 kind = "INSERT"
-            self._invalidate_caches(cat, table)
+                # an append-only stream ADVANCES instead of invalidating:
+                # watermarked (pinned-prefix, IVM view) entries stay
+                # servable, live-head entries reclaim
+                self._invalidate_caches(
+                    cat, table, append=getattr(conn, "append_only", False))
             return QueryResult(["rows"], [(n,)], update_type=kind,
                                column_types=["bigint"])
         if isinstance(stmt, N.Explain):
@@ -658,19 +666,30 @@ class LocalRunner:
                 f"{want}, EXECUTE supplies {len(stmt.args)}")
         return self._execute_stmt(_bind_parameters(inner, stmt.args))
 
-    def _invalidate_caches(self, catalog: str, table: str) -> None:
+    def _invalidate_caches(self, catalog: str, table: str,
+                           append: bool = False) -> None:
         """THE write-path invalidation hub: after any DML/CTAS/DROP
         through this runner, (a) reclaim the result-cache entries that
         read the written table (their keys are already unreachable —
         snapshot_version moved — this frees the bytes now), and (b)
         drop a wrapping page cache's stale lists (connectors/cached.py's
-        invalidate / drop_cache). Counted on result_cache_invalidations."""
+        invalidate / drop_cache). Counted on result_cache_invalidations.
+
+        ``append`` (an INSERT into an append-only stream) switches (a)
+        to the ADVANCE model: only live-head entries reclaim, and
+        watermarked pinned-prefix and IVM-view entries, which describe
+        exactly the prefix they cover, survive the write
+        (cache/store.advance_tables); the append counts on
+        stream_appends_seen."""
         from presto_tpu_torch.cache import shared_cache_if_exists
 
         n = 0
         rc = shared_cache_if_exists()
         if rc is not None:
-            n += rc.invalidate_tables({(catalog, table)})
+            n += (rc.advance_tables if append else rc.invalidate_tables)(
+                {(catalog, table)})
+        if append:
+            self.executor.count_stream_append()
         conn = self.catalogs.get(catalog)
         inv = getattr(conn, "invalidate", None)
         if inv is not None:

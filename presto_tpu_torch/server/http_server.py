@@ -52,8 +52,16 @@ a FAILED query (``AccessDeniedError``; ``PERMISSION_DENIED`` with HTTP
 catalog gains the server's runtime tables: runtime_queries,
 runtime_tasks, nodes and metrics.
 
-Not ported, raising NotImplementedError naming its ROADMAP queue: the
-tailing cursor and IVM (``start_tail``; queue 5).
+Tailing cursors: under ``stream_tail_enabled`` (a header flag or SET
+SESSION) a plain query over an append-only stream table
+(connectors/stream.py) becomes a never-finishing cursor (TailCursor):
+its nextUri persists, each fresh token long-polls the log for
+``stream_poll_ms`` and serves only the rows derived from new offsets —
+through the registered materialized view the statement matches
+(streaming/ivm.py), through the pinned delta window for a per-row
+pipeline, else by a re-run and a multiset diff. DELETE ends it.
+Tailing statements pass the resource-group gate; a mesh server tails
+nothing (the cursors ride the local executor), as in the reference.
 """
 
 from __future__ import annotations
@@ -76,6 +84,10 @@ from presto_tpu_torch.obs.sanitizer import (
 from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES, Session
 
 _PAGE_ROWS = 4096  # rows per protocol fetch (client paging granularity)
+# tailing cursors retain only this many recent token spans' rows — the
+# retry horizon; a never-finishing cursor must not hold every row it
+# ever emitted (clients only ever re-fetch their latest token)
+_TAIL_RETAIN_SPANS = 8
 
 
 class _Query:
@@ -110,6 +122,9 @@ class _Query:
         # non-None means this query's lifecycle and protocol-token
         # advances are journaled for crash re-attach
         self.checkpoint = None
+        # a tailing cursor: non-None turns this query into a
+        # never-finishing stream cursor served by _tail_results
+        self.tail: Optional["TailCursor"] = None
 
     def _finish_clock(self) -> None:
         if self.finished_at is None:
@@ -128,6 +143,274 @@ class _Query:
             "error": self.error,
             "rowCount": len(self.rows),
         }
+
+
+class TailCursor:
+    """One tailing /v1/statement cursor over an append-only stream: the
+    statement's nextUri never terminates — each poll long-polls the log
+    (StreamConnector.wait_for_offset) and emits ONLY rows derived from
+    new offsets. Three poll strategies, chosen once from the planned
+    statement:
+
+      view       the statement IS a registered materialized view (shape
+                 fingerprint match, streaming/ivm.py): polls ride the
+                 incremental refresh — an O(new rows) fold — and emit
+                 the multiset delta of the refreshed result against the
+                 previously emitted one (changed or new aggregate rows);
+      delta      a pure per-row pipeline (Output → Filter/Project* →
+                 stream scan): polls execute the plan over the pinned
+                 [last, head) window only — exactly the new rows;
+      recompute  anything else over a stream: polls re-execute the
+                 statement and emit the multiset delta — O(full) per
+                 poll, never wrong.
+
+    Concurrency: protocol GETs may race on one cursor. State mutates
+    only under ``_cv``; a poll's query execution runs OUTSIDE it behind
+    the ``_polling`` flag (concurrent pollers wait, then read the fresh
+    span), so no engine work runs under a lock. Token paging is
+    span-addressed: token t re-serves its recorded row span verbatim
+    (retry-safe), the first fresh token takes everything new."""
+
+    # lock discipline
+    _shared_attrs = ("columns", "types", "rows", "error", "closed",
+                     "_polling", "_spans", "last_rows", "last_offset",
+                     "_base", "_span_base", "resource_group")
+
+    def __init__(self, runner, plan, streams, sink):
+        from presto_tpu_torch.streaming import ivm as IVM
+
+        self.runner = runner
+        self.plan = plan
+        # every append-only table the statement scans: polls wake on ANY
+        # of them advancing (view and delta modes have exactly one;
+        # recompute mode may join several streams)
+        self.streams = list(streams)
+        self.catalog, self.table = self.streams[0]
+        self.conn = runner.catalogs[self.catalog]
+        self.sink = sink  # the bootstrap executor: registry counters
+        self.poll_ms = int(runner.session.get("stream_poll_ms"))
+        reg = IVM.shared_registry_if_exists()
+        self.view = reg.match(plan) if reg is not None else None
+        self.window = None
+        self.executor = None
+        if self.view is not None:
+            self.mode = "view"
+        elif self._delta_shape(plan):
+            self.mode = "delta"
+            self.executor, self.window = IVM.windowed_executor(
+                runner.catalogs, self.catalog, self.table,
+                like=runner.executor)
+        else:
+            self.mode = "recompute"
+        self.columns: Optional[List[Dict]] = None
+        self.types: List[str] = []
+        # emitted rows, trimmed to the retry horizon: _base is the
+        # ABSOLUTE index of rows[0]
+        self.rows: List[tuple] = []
+        self._base = 0
+        # recent token spans only (ABSOLUTE (lo, hi) row indices);
+        # _span_base counts the spans trimmed off the front — an idle
+        # cursor heartbeats one span per poll forever, so the span list
+        # is bounded like the rows it addresses
+        self._spans: List[tuple] = []
+        self._span_base = 0
+        self.last_rows: List[tuple] = []  # the last full result (diff)
+        # the SUM of the offsets of every scanned stream
+        self.last_offset = 0
+        self.error: Optional[Dict] = None
+        self.closed = False
+        self._polling = False
+        # the resource-group admission slot (start_tail admits a tailing
+        # statement through submit()'s gate; close releases it)
+        self.resource_group = None
+        self._rg_manager = None
+        self._cv = make_condition(lock=make_lock(
+            "server.http_server.TailCursor._cv"))
+        register_owner(self, lock_attrs=("_cv",))
+
+    def _delta_shape(self, plan) -> bool:
+        """True for Output → (Filter|Project)* → TableScan of THE stream
+        table: the shape whose delta-window execution equals the delta
+        of its results."""
+        from presto_tpu_torch.exec import plan as P
+
+        if not isinstance(plan, P.Output):
+            return False
+        node = plan.source
+        while isinstance(node, (P.Filter, P.Project)):
+            node = node.source
+        return (isinstance(node, P.TableScan)
+                and node.catalog == self.catalog
+                and node.table == self.table)
+
+    # ------------------------------------------------------- polling
+    def _offsets_total(self) -> int:
+        return sum(self.runner.catalogs[c].offset(t)
+                   for c, t in self.streams)
+
+    def _wait_any(self, timeout_s: float) -> int:
+        """Long-poll until ANY scanned stream advances past the last
+        observed offsets, or the timeout lapses; returns the summed
+        offset. A single-stream cursor waits on the connector's
+        condition; a multi-stream one polls in slices (an append to
+        EITHER side of a stream join must produce rows)."""
+        base = self.last_offset
+        if len(self.streams) == 1:
+            c, t = self.streams[0]
+            self.runner.catalogs[c].wait_for_offset(t, base, timeout_s)
+            return self._offsets_total()
+        deadline = time.monotonic() + max(timeout_s, 0.0)
+        while True:
+            total = self._offsets_total()
+            remaining = deadline - time.monotonic()
+            if total > base or remaining <= 0:
+                return total
+            time.sleep(min(0.05, remaining))
+
+    def poll(self, timeout_s: float) -> None:
+        """Advance the cursor: wait for new offsets (up to
+        ``timeout_s``), compute the delta-derived rows, append them. A
+        failure closes the cursor with an error body (the protocol's
+        FAILED contract, never a dropped connection)."""
+        with self._cv:
+            while self._polling and not self.closed:
+                self._cv.wait(0.05)
+            if self.closed:
+                return
+            self._polling = True
+        new_rows: List[tuple] = []
+        full = cols = types = offset = err = None
+        try:
+            new_rows, full, cols, types, offset = self._compute(timeout_s)
+        except Exception as e:  # noqa: BLE001 - the protocol surfaces
+            # every tail failure as an error body on the cursor
+            err = {"message": str(e)[:2000], "errorName": type(e).__name__}
+        with self._cv:
+            self._polling = False
+            if err is not None:
+                self.error = err
+                self.closed = True
+            else:
+                if cols is not None and self.columns is None:
+                    self.columns = cols
+                    self.types = types or []
+                if full is not None:
+                    self.last_rows = full
+                if offset is not None:
+                    self.last_offset = offset
+                self.rows.extend(new_rows)
+            self._cv.notify_all()
+
+    def _compute(self, timeout_s: float):
+        """(delta rows, full result or None, columns or None, types,
+        new offset). Runs OUTSIDE the lock (see the class docstring)."""
+        from presto_tpu_torch.streaming import ivm as IVM
+
+        initial = self.columns is None
+        hi = self._offsets_total() if initial else self._wait_any(timeout_s)
+        self.sink.count_cursor_poll()
+        if not initial and hi <= self.last_offset:
+            return [], None, None, None, None  # a quiet poll
+        if not initial:
+            # the log moved under a tailing cursor: one observed batch
+            self.sink.count_stream_append()
+        if self.mode == "view":
+            names, rows, types = IVM.refresh(
+                self.view, session=self.runner.session, sink=self.sink)
+            delta = rows if initial else _multiset_delta(rows,
+                                                         self.last_rows)
+            cols = [{"name": n, "type": t} for n, t in zip(names, types)]
+            return delta, list(rows), cols, types, hi
+        if self.mode == "delta":
+            ex = self.executor
+            self.window.set_range(0 if initial else self.last_offset, hi)
+            names, rows = ex.execute(self.plan)
+            types = [str(t) for t in ex.output_types(self.plan)]
+            cols = [{"name": n, "type": t}
+                    for n, t in zip(names or [], types)]
+            return rows, None, cols, types, hi
+        # recompute: the statement re-executes and its multiset diff is
+        # emitted — every poll is a real run, never a wrong one
+        ex = self.runner.executor
+        names, rows = ex.execute(self.plan)
+        types = [str(t) for t in ex.output_types(self.plan)]
+        cols = [{"name": n, "type": t} for n, t in zip(names or [], types)]
+        delta = rows if initial else _multiset_delta(rows, self.last_rows)
+        return delta, list(rows), cols, types, hi
+
+    # ------------------------------------------------- token paging
+    def take_span(self, token: int):
+        """JSON rows for ``token``: a RECENT token re-serves its exact
+        recorded span (retry-safe); the next fresh token takes every row
+        emitted since the previous span. None for tokens further ahead
+        or already trimmed past the retry horizon."""
+        with self._cv:
+            idx = token - self._span_base
+            if idx < 0:
+                return None  # trimmed: beyond the retry horizon
+            if idx < len(self._spans):
+                lo, hi = self._spans[idx]
+            elif idx == len(self._spans):
+                lo = self._spans[-1][1] if self._spans else self._base
+                hi = self._base + len(self.rows)
+                self._spans.append((lo, hi))
+                # bound the cursor's memory: spans AND the rows they
+                # address drop past the retry horizon
+                if len(self._spans) > _TAIL_RETAIN_SPANS:
+                    drop = len(self._spans) - _TAIL_RETAIN_SPANS
+                    floor = self._spans[drop][0]
+                    del self._spans[:drop]
+                    self._span_base += drop
+                    if floor > self._base:
+                        del self.rows[:floor - self._base]
+                        self._base = floor
+            else:
+                return None
+            types = self.types
+            return [_json_row(r, types)
+                    for r in self.rows[lo - self._base:hi - self._base]]
+
+    def spans_served(self) -> int:
+        with self._cv:
+            return self._span_base + len(self._spans)
+
+    def close(self) -> None:
+        """Stop the cursor and RELEASE its engine state (the dedicated
+        runner and executor, the delta window, the diff snapshot) and its
+        resource-group slot. The already-emitted rows stay servable for
+        the final page. Waits out an in-flight poll (bounded by the poll
+        timeout) so the engine refs are never dropped under a running
+        query."""
+        with self._cv:
+            self.closed = True
+            self._cv.notify_all()
+            while self._polling:
+                self._cv.wait(0.05)
+            self.last_rows = []
+            group, self.resource_group = self.resource_group, None
+        if group is not None and self._rg_manager is not None:
+            self._rg_manager.cancel_queued(group)
+        self.runner = None
+        self.executor = None
+        self.window = None
+        self.view = None
+
+
+def _multiset_delta(new_rows, old_rows):
+    """Rows of ``new_rows`` not covered by ``old_rows`` as a multiset
+    (repr-keyed: rows may carry unhashable nested values) — the changed
+    or new rows a dashboard diff emits per refresh."""
+    import collections
+
+    old = collections.Counter(map(repr, old_rows))
+    out = []
+    for r in new_rows:
+        k = repr(r)
+        if old[k] > 0:
+            old[k] -= 1
+        else:
+            out.append(r)
+    return out
 
 
 class MemoryArbiter:
@@ -330,6 +613,19 @@ class QueryManager:
 
     def get(self, qid: str) -> Optional[_Query]:
         return self._queries.get(qid)
+
+    def register_tail(self, sql: str, session: Session,
+                      cursor: TailCursor) -> _Query:
+        """Register a tailing cursor as a RUNNING query: it appears in
+        /v1/query and system.runtime_queries like any statement, but no
+        execution thread is spawned — polls ride the protocol GET
+        handlers (TailCursor.poll serializes them)."""
+        q = _Query(self._next_id(), sql, session)
+        q.tail = cursor
+        q.state = "RUNNING"
+        with self._lock:
+            self._queries[q.id] = q
+        return q
 
     def queries(self) -> List[_Query]:
         with self._lock:
@@ -791,7 +1087,7 @@ class _Handler(BaseHTTPRequestHandler):
         """X-Presto-User / -Catalog / -Schema / -Session. A header key
         that names no property of the port is ignored, as the
         reference ignores unknown keys; a known property whose value is
-        invalid, or asks for an unported plane, raises here."""
+        invalid raises here."""
         props = {}
         user = self.headers.get("X-Presto-User", "presto")
         access = self.app._runner.access_control
@@ -861,12 +1157,21 @@ class _Handler(BaseHTTPRequestHandler):
         except AccessDeniedError as e:
             self._failed(e, "PERMISSION_DENIED", 403)
             return
-        except (ValueError, NotImplementedError) as e:
-            # a header property the port rejects: a FAILED query with
-            # an error body, never a dropped connection
+        except ValueError as e:
+            # a header property value the port rejects: a FAILED query
+            # with an error body, never a dropped connection
             self._failed(e, type(e).__name__, 400)
             return
         try:
+            # the tailing-cursor mode: stream_tail_enabled (a header
+            # flag or SET SESSION) turns a query over an append-only
+            # stream into a never-finishing cursor; a statement that
+            # cannot tail falls through to the normal submit path
+            if bool(session.get("stream_tail_enabled")):
+                q = self.app.start_tail(sql, session)
+                if q is not None:
+                    self._send_json(self._tail_results(q, 0))
+                    return
             q = self.app.manager.submit(sql, session)
         except QueryQueueFullError as e:
             self._failed(e, "QUERY_QUEUE_FULL", 429)
@@ -891,6 +1196,11 @@ class _Handler(BaseHTTPRequestHandler):
             q = mgr.get(parts[2])
             if q is None:
                 self._send_json({"error": "no such query"}, 404)
+                return
+            if q.tail is not None:
+                # a tailing cursor: the poll IS the long-poll (it waits
+                # on the append log, not on query completion)
+                self._send_json(self._tail_results(q, int(parts[3])))
                 return
             # long-poll up to ~1s for progress (reference client)
             q.done.wait(timeout=1.0)
@@ -951,9 +1261,60 @@ class _Handler(BaseHTTPRequestHandler):
             return
         parts = [p for p in urlparse(self.path).path.split("/") if p]
         if parts[:2] == ["v1", "statement"] and len(parts) >= 3:
-            self._send_json({"cancelled": self.app.manager.cancel(parts[2])})
+            q = self.app.manager.get(parts[2])
+            ok = self.app.manager.cancel(parts[2])
+            if q is not None and q.tail is not None:
+                # stop tailing: wake blocked pollers; the final GET
+                # serves the remaining rows with no nextUri
+                q.tail.close()
+            self._send_json({"cancelled": ok})
             return
         self._send_json({"error": "not found"}, 404)
+
+    def _tail_results(self, q: _Query, token: int) -> Dict:
+        """Protocol page of a tailing cursor: a fresh token first POLLS
+        (long-polling the append log up to stream_poll_ms), then serves
+        the rows the poll derived from new offsets; a known token
+        re-serves its recorded span. nextUri persists until the cursor
+        is cancelled or closed — an empty page with a fresh nextUri is
+        the idle tail's heartbeat."""
+        cur = q.tail
+        base = f"http://{self.headers.get('Host', 'localhost')}"
+        out: Dict = {
+            "id": q.id,
+            "infoUri": f"{base}/v1/query/{q.id}",
+            "stats": {
+                "state": q.state,
+                "queued": False,
+                "elapsedTimeMillis": q.info()["elapsedTimeMillis"],
+                "tail": True,
+            },
+        }
+        if token >= cur.spans_served() and not q.cancelled \
+                and not cur.closed:
+            cur.poll(cur.poll_ms / 1000.0)
+        if cur.error is not None:
+            q.error = cur.error
+            q.state = "FAILED"
+            q._finish_clock()
+            q.done.set()
+            out["stats"]["state"] = "FAILED"
+            out["error"] = cur.error
+            return out
+        chunk = cur.take_span(token)
+        if chunk is None:
+            out["error"] = {"message": f"unknown result token {token}",
+                            "errorName": "INVALID_TOKEN"}
+            return out
+        if cur.columns is not None:
+            out["columns"] = cur.columns
+        if chunk:
+            out["data"] = chunk
+        if (q.cancelled or cur.closed) and token + 1 >= cur.spans_served():
+            out["stats"]["state"] = q.state
+        else:
+            out["nextUri"] = f"{base}/v1/statement/{q.id}/{token + 1}"
+        return out
 
     def _results(self, q: _Query, token: int) -> Dict:
         base = f"http://{self.headers.get('Host', 'localhost')}"
@@ -995,11 +1356,6 @@ class _Handler(BaseHTTPRequestHandler):
         elif ckpt is not None:
             ckpt.delivered()  # the whole stream went out
         return out
-
-
-def _not_ported(what: str, queue: str):
-    return NotImplementedError(
-        f"{what} is not ported to presto_tpu_torch (ROADMAP {queue})")
 
 
 class PrestoTpuServer:
@@ -1356,10 +1712,69 @@ class PrestoTpuServer:
             nodes)
         sys_conn.register("metrics", [("name", V), ("value", B)], metrics)
 
-    def start_tail(self, sql: str, session: Session):
-        """The tailing cursor over an append-only stream."""
-        raise _not_ported("the tailing cursor (stream_tail_enabled, IVM)",
-                          "queue 5")
+    def start_tail(self, sql: str, session: Session) -> Optional[_Query]:
+        """Register a tailing cursor for ``sql`` when it can tail: a
+        plain query, on the local engine, scanning at least one
+        append-only stream table. None otherwise — the statement then
+        runs the normal protocol path (which also surfaces its parse,
+        plan and access errors with the ordinary error body). A tailing
+        statement passes the SAME resource-group gate as a submitted one
+        (QueryQueueFullError is a 429); the slot releases when the
+        cursor closes."""
+        rg = self.manager.resource_groups
+        group = rg.admit(session.user) if rg is not None else None
+        cursor = self.make_tail_cursor(sql, session)
+        if cursor is None:
+            if group is not None:
+                rg.cancel_queued(group)
+            return None
+        with cursor._cv:
+            cursor.resource_group = group
+        cursor._rg_manager = rg
+        return self.manager.register_tail(sql, session, cursor)
+
+    def make_tail_cursor(self, sql: str,
+                         session: Session) -> Optional[TailCursor]:
+        if self._mesh is not None:
+            return None  # tail cursors ride the local executor
+        # a cheap check before any planning: a deployment with no
+        # append-only catalog never tails, so a session that left
+        # stream_tail_enabled on pays no throwaway runner and no second
+        # planning pass per ordinary statement
+        if not any(getattr(c, "append_only", False)
+                   for c in self.catalogs.values()):
+            return None
+        from presto_tpu_torch.cache.rules import scan_tables
+        from presto_tpu_torch.runner import LocalRunner
+        from presto_tpu_torch.sql import ast_nodes as N
+        from presto_tpu_torch.sql.parser import parse
+
+        try:
+            stmt = parse(sql)
+        except Exception:  # noqa: BLE001 - not tailable; the normal
+            return None    # path surfaces the parse error properly
+        if not isinstance(stmt, N.Query):
+            return None  # DDL, SET, EXPLAIN, ... never tail
+        # a dedicated runner (the concurrent path's shape): cursor polls
+        # run on protocol handler threads and must never race the serial
+        # bootstrap runner's queries
+        r = LocalRunner(self.catalogs, self._default_catalog,
+                        device=self.device, page_rows=self._page_rows)
+        r.session = session
+        r.views = self._runner.views
+        r.prepared = self._runner.prepared
+        r.access_control = self._runner.access_control
+        try:
+            r.access_control.check_can_execute_query(session.user, sql)
+            r.apply_session()
+            plan = r._plan_query(stmt)
+        except Exception:  # noqa: BLE001 - not tailable; the normal
+            return None    # path surfaces plan/access errors properly
+        streams = [(c, t) for c, t in sorted(scan_tables(plan))
+                   if getattr(r.catalogs.get(c), "append_only", False)]
+        if not streams:
+            return None  # nothing appends: a plain finite statement
+        return TailCursor(r, plan, streams, sink=self._runner.executor)
 
     def start(self) -> int:
         self._httpd = ThreadingHTTPServer(("127.0.0.1", self.port),

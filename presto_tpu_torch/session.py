@@ -42,9 +42,9 @@ The result cache's six properties take the reference's defaults: the
 cache off (the concurrent server turns it on for its queries), the
 fleet probe (``result_cache_remote_probe``) on, subsumption off.
 
-A plane that is not ported defaults to off, and asking for it raises
-NotImplementedError naming its ROADMAP item (``Session.set``, at
-construction and on SET SESSION).
+The streaming plane's three take the reference's defaults:
+``ivm_enabled`` on, ``stream_tail_enabled`` off (a client asks for a
+tailing cursor per request), ``stream_poll_ms`` 1000.
 """
 
 from __future__ import annotations
@@ -502,10 +502,37 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
             int, 25,
         ),
         PropertyMetadata(
+            "ivm_enabled",
+            "maintain registered materialized views incrementally "
+            "(streaming/ivm.py): a refresh folds ONLY the pages "
+            "appended since the view's offset watermark through the "
+            "partial-aggregation kernels into persisted settled "
+            "state — O(new rows) instead of a full recompute. false "
+            "forces full recomputes (counted loudly on "
+            "ivm_full_recomputes; results identical either way). "
+            "Non-IVM-safe view shapes always recompute in full",
+            bool, True,
+        ),
+        PropertyMetadata(
             "stream_tail_enabled",
-            "turn a /v1/statement query over an append-only stream "
-            "into a never-finishing tailing cursor; not ported (false)",
+            "turn /v1/statement into a TAILING cursor for queries "
+            "over append-only stream tables (connectors/stream.py): "
+            "nextUri never terminates — each poll long-polls the log "
+            "and emits only rows derived from new offsets, riding "
+            "the incremental-view-maintenance path when the "
+            "statement matches a registered view's shape. Set per "
+            "request via the X-Presto-Session header (the protocol's "
+            "per-request flag) or session-wide via SET SESSION; "
+            "DELETE the statement to stop tailing",
             bool, False,
+        ),
+        PropertyMetadata(
+            "stream_poll_ms",
+            "long-poll interval in milliseconds for tailing "
+            "/v1/statement cursors: a poll with no new offsets "
+            "returns an empty page (with a fresh nextUri) after this "
+            "long; an append wakes waiting pollers immediately",
+            int, 1000,
         ),
         PropertyMetadata(
             "checkpoint_enabled",
@@ -530,16 +557,6 @@ SYSTEM_SESSION_PROPERTIES: Dict[str, PropertyMetadata] = {
     ]
 }
 
-# property -> (predicate over its value that asks for a plane the port
-# lacks, what to say). ROADMAP queue 1 lists each plane.
-_NOT_PORTED = {
-    "stream_tail_enabled": (
-        lambda v: v is True,
-        "stream_tail_enabled: the tailing cursor and IVM are not ported "
-        "(ROADMAP queue 5)"),
-}
-
-
 class Session:
     """Reference: Session.java — user + catalog + property overrides."""
 
@@ -554,18 +571,13 @@ class Session:
             self.set(k, v)
 
     def set(self, name: str, value: Any) -> None:
-        """Override a property (construction, SET SESSION). A value that
-        asks for a plane the port lacks raises NotImplementedError and
-        leaves the session as it was."""
+        """Override a property (construction, SET SESSION)."""
         prop = SYSTEM_SESSION_PROPERTIES.get(name)
         if prop is None:
             raise KeyError(f"unknown session property: {name}")
         parsed = _parse_value(prop, value)
         if prop.validate and not prop.validate(parsed):
             raise ValueError(f"invalid value for {name}: {value!r}")
-        asks, why = _NOT_PORTED.get(name, (lambda v: False, ""))
-        if asks(parsed):
-            raise NotImplementedError(why)
         self._values[name] = parsed
 
     def is_set(self, name: str) -> bool:

@@ -165,13 +165,17 @@ def test_probe_key_mirror_matches_worker_keys():
 ], ids=["classic", "dag"])
 def test_fleet_hit_short_circuits_dispatch(props):
     def sc(E, coord):
+        # the store's serve tally is process-lifetime (clear() keeps
+        # it), so count this scenario's serves from a baseline
+        rc = E.shared()
+        served0 = rc.remote_hits if rc is not None else 0
         r1 = coord.execute(AGG_Q)
         hits0 = coord.runner.executor.cache_remote_hits
         coord.heartbeat.check_once()      # pull the cacheSummary blooms
         r2 = coord.execute(AGG_Q)
         return (sorted(r1), sorted(r2), coord.last_distribution, hits0,
                 coord.runner.executor.cache_remote_hits,
-                E.shared().remote_hits)
+                E.shared().remote_hits - served0)
 
     port, ref = _both(props, sc)
     assert port == ref

@@ -287,21 +287,24 @@ def test_syntax_error(client):
 
 
 def test_unported_plane_fails_the_query_with_an_error_body(server):
-    """A known property asking for a plane the port lacks: as a header,
-    a FAILED document (HTTP 400), not a dropped connection; as SET
-    SESSION, a FAILED query."""
+    """The tailing flag on a statement over no stream is ignored, as a
+    header and through SET SESSION: the query runs to FINISHED. A
+    property value the port rejects, as a header, is a FAILED document
+    (HTTP 400) with a ValueError body, not a dropped connection."""
     c = StatementClient(server=f"http://127.0.0.1:{server.port}")
     c.session_properties["stream_tail_enabled"] = "true"
     res = c.execute("select 1")
-    assert res.state == "FAILED"
-    assert res.error["errorName"] == "NotImplementedError"
-    assert "queue 5" in res.error["message"]
+    assert res.state == "FINISHED" and res.error is None
+    assert res.rows == [[1]]
     c.session_properties.clear()
     c.session_properties["page_rows"] = "lots"
-    assert c.execute("select 1").error["errorName"] == "ValueError"
+    res = c.execute("select 1")
+    assert res.state == "FAILED" and res.error["errorName"] == "ValueError"
     c.session_properties.clear()
     res = c.execute("set session stream_tail_enabled = true")
-    assert res.state == "FAILED" and "queue 5" in res.error["message"]
+    assert res.state == "FINISHED" and res.error is None
+    assert c.execute("select count(*) from nation").rows == [[25]]
+    c.session_properties.clear()
 
 
 def test_info_endpoints(server, client):
@@ -589,8 +592,16 @@ def test_unported_server_options_raise(kw, match, client):
 
 
 def test_start_tail_is_not_ported(server):
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        server.start_tail("select 1", server._runner.session)
+    """start_tail is ported: with no append-only catalog nothing can
+    tail, so it returns None (the statement takes the normal path) and
+    registers no query — the reference's answer."""
+    n = len(server.manager.queries())
+    assert server.start_tail("select 1", server._runner.session) is None
+    assert server.start_tail("select count(*) from nation",
+                             server._runner.session) is None
+    assert server.make_tail_cursor("set session page_rows = 8",
+                                   server._runner.session) is None
+    assert len(server.manager.queries()) == n
 
 
 def test_embedded_task_plane_serves_a_stage_dag():

@@ -405,7 +405,7 @@ def test_batching_properties_equal_reference():
     from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES as PP
 
     for name in ("cross_query_batching", "cross_query_batch_wait_ms",
-                 "stream_tail_enabled"):
+                 "stream_tail_enabled", "ivm_enabled", "stream_poll_ms"):
         assert (PP[name].type, PP[name].default) == \
             (RP[name].type, RP[name].default), name
     s = Session(properties={"cross_query_batching": "TRUE",
@@ -414,8 +414,12 @@ def test_batching_properties_equal_reference():
     assert s.get("cross_query_batch_wait_ms") == 50
     with pytest.raises(ValueError):
         s.set("cross_query_batching", "sometimes")
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        s.set("stream_tail_enabled", "true")
+    # the streaming plane's properties are taken, as in the reference
+    s.set("stream_tail_enabled", "true")
+    s.set("stream_poll_ms", "250")
+    s.set("ivm_enabled", "false")
+    assert (s.get("stream_tail_enabled"), s.get("stream_poll_ms"),
+            s.get("ivm_enabled")) == (True, 250, False)
 
 
 # ---------------------------------------------------- wire and pool totals
@@ -568,14 +572,27 @@ def test_server_from_etc_equals_reference(tmp_path):
 
 @pytest.mark.parametrize("conf,catalogs,match", [
     ("compile-cache.dir=/tmp/c\n", CATALOGS, "compile"),
-    ("", {"s": "connector.name=stream\n"}, "queue 5"),
+    ("ivm.enabled=false\nstream-poll.ms=250\n",
+     {"s": "connector.name=stream\n"}, None),
 ])
 def test_etc_unported_planes_raise(tmp_path, conf, catalogs, match):
+    """The one unported plane's key raises at startup; the stream
+    connector is ported: ``connector.name=stream`` builds a stream
+    catalog on the server's device, and the streaming etc keys seed
+    their session defaults."""
     from presto_tpu_torch import config as CONF_
+    from presto_tpu_torch.connectors.stream import StreamConnector
 
     etc = _etc(tmp_path, conf, catalogs)
-    with pytest.raises(NotImplementedError, match=match):
-        CONF_.server_from_etc(etc, device="cpu")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            CONF_.server_from_etc(etc, device="cpu")
+        return
+    srv = CONF_.server_from_etc(etc, device="cpu")
+    assert isinstance(srv.catalogs["s"], StreamConnector)
+    assert srv.catalogs["s"].device == torch.device("cpu")
+    assert srv.session_defaults == {"ivm_enabled": "false",
+                                    "stream_poll_ms": "250"}
 
 
 def test_etc_unknown_connector_and_missing_catalogs(tmp_path):

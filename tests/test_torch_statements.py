@@ -86,9 +86,14 @@ def test_set_session_refuses_unported_planes(pair):
         .update_type == "SET SESSION"
     assert port.session.get("mesh_exchange_mode") == "true"
     port.session.unset("mesh_exchange_mode")
-    # the tailing cursor is not: asking for it raises, session unchanged
-    with pytest.raises(NotImplementedError, match="stream_tail_enabled"):
-        port.execute("set session stream_tail_enabled = true")
+    # so is the streaming plane: SET SESSION takes its three properties
+    for name, value, want in (("stream_tail_enabled", "true", True),
+                              ("stream_poll_ms", "250", 250),
+                              ("ivm_enabled", "false", False)):
+        assert port.execute(f"set session {name} = {value}") \
+            .update_type == "SET SESSION"
+        assert port.session.get(name) == want
+        port.session.unset(name)
     assert port.session.get("stream_tail_enabled") is False
     with pytest.raises(KeyError):
         port.execute("set session no_such_property = 1")
