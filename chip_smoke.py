@@ -42,15 +42,17 @@ Phases:
            must launch, unless this size puts that dispatch point beyond
            the kernel's range (DispatchPoints); then the BASELINE
            ladder's memory-governed rungs at their stated scale, Q3 and
-           Q5 at SF 10 and Q1 at SF 100, under default and eager; Q1
+           Q5 at SF 10 under default and eager, Q1 at SF 100 under
+           default; Q1
            and Q6 at SF 10 must match the reference's row checksums
            (val_q1_sf10.json, val_q6_sf10.json)
   dist     the distributed path: 4 in-process WorkerServers on the card
            and a DcnRunner (the stage DAG forced, partitioned joins,
            every exchange partitioned on the card through K4). Q3 and Q5 at SF 0.01 ==
            the card's LocalRunner == sqlite; then Q1 at SF 10, Q3 and Q5
-           at SF 1 (page_rows 2^20): one warm-up and 3 timed runs each,
-           rows == the single-process rows, and == again with K4 off;
+           at SF 1 (page_rows 2^20): one warm-up and TIMED_RUNS timed
+           runs each, rows == the single-process rows, and == again
+           with K4 off;
            the peak with spools kept to the query's end beside the one
            with task_retry_attempts=0's eager acks. Then the replay
            part at SF 1: a worker stopped after the first stage and one
@@ -76,10 +78,11 @@ Phases:
            counted; Q3 with a worker killed after its first results
            fetch, recovered by re-running its split share
   surface  the relational surface at size, under default and eager (one
-           warm-up, median of 3): the ten window shapes over orders SF 1
-           (== sqlite), count(DISTINCT) beside plain aggregates
+           warm-up, median of TIMED_RUNS): the ten window shapes over
+           orders SF 1 (== sqlite), count(DISTINCT) beside plain aggregates
            (MarkDistinct, SF 1, == sqlite), ROLLUP over lineitem SF 10
-           (== the plain GROUP BY rolled up on the host; at SF 1 through
+           under default (== the plain GROUP BY rolled up on the host,
+           also under default; at SF 1 through
            the stage DAG == the single process, and a rollup over
            integer keys whose exchange repartitions through K4),
            approx_distinct over lineitem SF 10 (within 4 standard errors
@@ -167,6 +170,20 @@ Phases:
            ivm_enabled=false; a server with two tailing cursors (the
            Q1 view, a per-row filter) while three appends land, the
            lock sanitizer armed
+  chaos    tools/chaos_torch.py on the card as OS processes: this
+           process (the single-process oracle, the DcnRunner), 2 worker
+           processes and, for kill-coordinator, 2 coordinator processes
+           in turn, every one on the card and the lock sanitizer armed
+           in all. (a) 8 seeded iterations over TPC-H Q3, Q5 and the
+           DAG query at SF 1 with the stage DAG forced, visiting the
+           delay, drop, kill, submit-drop, kill-nonleaf and corrupt
+           faults (killed workers reboot on their ports); (b) one
+           kill-coordinator iteration, the successor re-attaching from
+           the journal. Every row == the oracle's, nonleaf_replays >= 1
+           in (a), coordinator_reattaches >= 1 in (b), 0 sanitizer
+           violations in every process, K4 launched in the workers (their
+           /v1/info launch counts) and K1 here; the card's free memory
+           before and after
   profile  (only when asked for) the base scale rungs under each session
            and the dist queries once more under torch.profiler: device
            busy share, device kernels, graph replays, device time by
@@ -175,7 +192,8 @@ Phases:
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero without that line. Imports nothing but
-presto_tpu_torch, torch, numpy and the standard library.
+presto_tpu_torch, tools/chaos_torch.py, torch, numpy and the standard
+library.
 """
 
 from __future__ import annotations
@@ -201,10 +219,12 @@ HBM_BYTES_PER_S = 3.35e12
 
 ALL_PHASES = ("build", "kernels", "check", "fused", "scale", "dist",
               "surface", "statements", "governed", "oom", "analyze",
-              "serve", "mesh", "reuse", "stream")
+              "serve", "mesh", "reuse", "stream", "chaos")
 
-# timed runs of each scale query, after one warm-up
-TIMED_RUNS = 3
+# timed runs of each rung of every phase, after one warm-up: three ran
+# the whole script in 1,067.8-1,323.3 s of its 1,200 s on an H100, the
+# hosts a run lands on differing by up to 1.6x (PERF.md section 4)
+TIMED_RUNS = 1
 
 # kernel timing: back-to-back launches per event pair, event pairs per
 # reading, and the bytes of rotated inputs (twice the H100's 50 MB L2)
@@ -909,8 +929,10 @@ EAGER_SESSION = SCALE_MODES["eager"]
 LATE_MAT_RUNGS = ((3, 1.0), (5, 1.0), (17, 1.0))
 # the BASELINE ladder's memory-governed rungs at their stated scale
 # (bench.py: q3_sf10, q5_sf10, q1_sf100), under default and eager
+# (Q1 SF 100 under default only: its eager warm-up and run took 21.9 s
+# on an H100 on a slow host, PERF.md section 4: the script's time limit)
 STATED_SCALE = ((3, 10.0), (5, 10.0), (1, 100.0))
-STATED_MODES = ("default", "eager")
+STATED_MODES = {(1, 100.0): ("default",)}
 SCALE_RUNS = (tuple(("tpch", q, sf) for q, sf in BASE_SCALE)
               + tuple(("tpch", q, 1.0) for q in NEW_TPCH)
               + tuple(("tpcds", q, 1.0) for q in NEW_TPCDS)
@@ -923,7 +945,7 @@ VALIDATED = {(1, 10.0): "val_q1_sf10.json", (6, 10.0): "val_q6_sf10.json",
 
 def scale_modes(suite: str, q: int, sf: float) -> tuple:
     if suite == "tpch" and (q, sf) in STATED_SCALE:
-        return STATED_MODES
+        return STATED_MODES.get((q, sf), ("default", "eager"))
     if suite == "tpch" and (q, sf) in LATE_MAT_RUNGS:
         return tuple(SCALE_MODES)
     return ("default", "three_off", "eager")
@@ -1258,7 +1280,7 @@ def phase_statements(dev) -> dict:
     x 16 columns, orders, customer, supplier, nation, region); then
     BASELINE config 1, Q1 over the memory copy (== val_q1_sf1.json), and
     Q6, Q3 and Q5 over the copies (== the same queries over tpch), each
-    under default and eager (one warm-up, median of 3, peaks), with the
+    under default and eager (one warm-up, median of TIMED_RUNS, peaks), with the
     kernels each must launch; DELETE, UPDATE, INSERT and DROP at size,
     each held to its predicate over tpch, and Q1 again after the DELETE;
     a view over Q1, a prepared statement against its literal query and
@@ -1420,8 +1442,7 @@ def _statements_functions(tpch_card, dev, card) -> None:
 # disk_spill_bytes to the budget or to the threshold (the stores go to
 # files). Each threshold partitions only the builds named: Q3's
 # orders build (its passes re-read a regenerated lineitem scan, so no
-# store exists to spill, and Q3 has no disk variant); Q5 SF 10's orders build
-# over a stored probe; in each of TPC-DS Q64's two CTE halves, the
+# store exists to spill, and Q3 has no disk variant); in each of TPC-DS Q64's two CTE halves, the
 # catalog-side build (95 MB by estimate) over a stored chain that holds
 # the store_sales x store_returns join (111 MB), so that those two nest
 # (its final self-join, 327 MB, has string keys and stays single-pass;
@@ -1437,11 +1458,10 @@ GOVERNED = (
     ("tpch", 3, 10.0, {"budget": {"device_memory_budget": 2 << 30}}),
     ("tpch", 3, 1.0, {"host": {"spill_threshold_bytes": 24 << 20,
                                "host_spill_bytes": 1}}),
-    ("tpch", 5, 10.0, {"budget": {"device_memory_budget": 2 << 30},
-                       "host": {"spill_threshold_bytes": 256 << 20,
-                                "host_spill_bytes": 1},
-                       "disk": {"device_memory_budget": 2 << 30,
-                                "disk_spill_bytes": 1}}),
+    # no host or disk variant (21.5 and 26.3 s on an H100 on a slow
+    # host, PERF.md section 4: the script's time limit); Q5 SF 1 and
+    # Q18 reach the host tier, Q18 the disk tier
+    ("tpch", 5, 10.0, {"budget": {"device_memory_budget": 2 << 30}}),
     ("tpch", 5, 1.0, {"host": {"spill_threshold_bytes": 2 << 20,
                                "host_spill_bytes": 1}}),
     ("tpch", 18, 1.0, {"budget": {"device_memory_budget": 256 << 20},
@@ -1450,7 +1470,7 @@ GOVERNED = (
                        "disk": {"device_memory_budget": 256 << 20,
                                 "disk_spill_bytes": 1}}),
     # no disk variant here (58.9 s on an H100, PERF.md: the script's
-    # time limit); Q5 SF 10 and Q18 reach the disk tier
+    # time limit); Q18 reaches the disk tier
     ("tpcds", 64, 1.0, {"budget": {"device_memory_budget": 2 << 30},
                         "host": {"spill_threshold_bytes": 64 << 20,
                                  "host_spill_bytes": 1}}),
@@ -1726,34 +1746,25 @@ def _collect_oracle(db):
     return out
 
 
-def phase_surface(dev, cluster: "DistCluster") -> dict:
+def phase_surface(dev, cluster: "DistCluster", oracle_future) -> dict:
     """The relational surface at the size users run it, each rung under
-    default and eager (one warm-up, median of 3): the window shapes,
+    default and eager (one warm-up, median of TIMED_RUNS): the window shapes,
     MarkDistinct and the collect aggregates over orders SF 1, ROLLUP and
     approx_distinct over lineitem SF 10, and CROSS JOIN UNNEST of the
     collected arrays, each against its oracle (sqlite, the plain GROUP
     BY rolled up on the host, the exact distinct count, orders' own
     pairs). The ROLLUP also runs through the stage DAG at SF 1 (4
     workers), beside an integer-key rollup whose exchange launches K4.
-    The sqlite oracles run in a child process meanwhile. Prints every
-    rung's walls, peaks, kernel launches and governor counters beside
-    the card's name and power limit; returns the kernel launches of the
-    rungs' runs."""
-    import concurrent.futures
-    import multiprocessing
-
+    The sqlite oracles run in a child process meanwhile (main() starts
+    it after `check`: ``oracle_future``). Prints every rung's walls,
+    peaks, kernel launches and governor counters beside the card's name
+    and power limit; returns the kernel launches of the rungs' runs."""
     from presto_tpu_torch.connectors.memory import MemoryConnector
 
     card = card_line()
     t_phase = time.perf_counter()
-    pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        oracle_future = pool.submit(_surface_oracles, SURFACE_ORACLE_SF)
-        return _surface_rungs(dev, cluster, card, oracle_future,
-                              MemoryConnector, t_phase)
-    finally:
-        pool.shutdown(cancel_futures=True)
+    return _surface_rungs(dev, cluster, card, oracle_future,
+                          MemoryConnector, t_phase)
 
 
 def _surface_rungs(dev, cluster, card, oracle_future, MemoryConnector,
@@ -1768,13 +1779,13 @@ def _surface_rungs(dev, cluster, card, oracle_future, MemoryConnector,
     launches_total = {k: 0 for k in KERNEL_NAMES}
     readings = {}
 
-    def rung(name, conn, text, session=None):
-        """The query under each surface mode over ``conn`` (the catalog
+    def rung(name, conn, text, session=None, modes=SURFACE_MODES):
+        """The query under each of ``modes`` over ``conn`` (the catalog
         "tpch", or "mem" for a memory connector): rows equal across
         modes; returns the first mode's rows."""
         catalog = "mem" if isinstance(conn, MemoryConnector) else "tpch"
         first = None
-        for mode in SURFACE_MODES:
+        for mode in modes:
             runner = LocalRunner({catalog: conn}, catalog, session={
                 "page_rows": SURFACE_PAGE_ROWS, **SCALE_MODES[mode],
                 **(session or {})}, device=dev)
@@ -1799,7 +1810,7 @@ def _surface_rungs(dev, cluster, card, oracle_future, MemoryConnector,
                 first = rows
             elif not same_bag(rows, first):
                 raise AssertionError(f"surface: {name} {mode}: rows differ "
-                                     f"from {SURFACE_MODES[0]}")
+                                     f"from {modes[0]}")
         return first
 
     # windows and MarkDistinct: held to sqlite below, when its thread
@@ -1808,10 +1819,12 @@ def _surface_rungs(dev, cluster, card, oracle_future, MemoryConnector,
                for i, text in enumerate(SURFACE_WINDOWS)]
     distinct = rung("distinct", sf1, SURFACE_DISTINCT)
     # ROLLUP at SF 10: the plain GROUP BY rolled up on the host, then the
-    # stage DAG
-    got = rung("rollup", sf10, SURFACE_ROLLUP)
+    # stage DAG; under default only (eager, the rollup and its oracle
+    # took 28.5 s on an H100 on a slow host, PERF.md section 4: the
+    # script's time limit)
+    got = rung("rollup", sf10, SURFACE_ROLLUP, modes=("default",))
     plain = rung("rollup oracle (plain group by)", sf10,
-                 SURFACE_ROLLUP_PLAIN)
+                 SURFACE_ROLLUP_PLAIN, modes=("default",))
     if not same_bag(got, _rollup_on_host(plain)):
         raise AssertionError(f"surface: rollup: card {sorted(got, key=repr)}"
                              f" != host rollup of the plain GROUP BY")
@@ -2132,28 +2145,18 @@ def _dist_run(coord, sql):
                         ex.spooled_exchange_rows - rows0)
 
 
-def phase_dist(dev, cluster: "DistCluster", oracles=None) -> dict:
+def phase_dist(dev, cluster: "DistCluster", oracles: dict,
+               oracle_future) -> dict:
     """The distributed path (see the module docstring), then its replay
     part (_dist_replay) and its legacy part (_dist_legacy). The sqlite
-    oracles of both parts load in a child process from the start of the
-    phase; ``oracles`` (a dict) keeps them by SF for the mesh phase."""
-    import concurrent.futures
-    import multiprocessing
-
-    pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        oracle_future = pool.submit(_replay_oracles, REPLAY_SF)
-        launches = _dist_rungs(dev, cluster)
-        replay = _dist_replay(dev, cluster, oracle_future)
-        oracle = oracle_future.result()
-        if oracles is not None:
-            oracles[REPLAY_SF] = oracle
-        legacy = _dist_legacy(dev, cluster, oracle)
-        return {k: launches[k] + replay[k] + legacy[k]
-                for k in KERNEL_NAMES}
-    finally:
-        pool.shutdown(cancel_futures=True)
+    oracles of both parts load in a child process (main() starts it
+    after `check`: ``oracle_future``); ``oracles`` (a dict) keeps them by
+    SF for the mesh phase."""
+    launches = _dist_rungs(dev, cluster)
+    replay = _dist_replay(dev, cluster, oracle_future)
+    oracle = oracles[REPLAY_SF] = oracle_future.result()
+    legacy = _dist_legacy(dev, cluster, oracle)
+    return {k: launches[k] + replay[k] + legacy[k] for k in KERNEL_NAMES}
 
 
 def _dist_rungs(dev, cluster: "DistCluster") -> dict:
@@ -2941,7 +2944,7 @@ def _plain_wall(runner, text) -> tuple:
 
 def _analyze_case(label, runner, text, card, eager: bool) -> dict:
     """EXPLAIN ANALYZE of one query with the drain off and on (one
-    warm-up, median of 3 each), beside its plain wall."""
+    warm-up, median of TIMED_RUNS each), beside its plain wall."""
     from presto_tpu_torch.runner import explain_text
 
     rows, _ = _plain_wall(runner, text)  # warm-up: graph captures
@@ -4987,6 +4990,97 @@ def phase_stream(dev) -> dict:
     return launches
 
 
+CHAOS_SF = 1.0
+CHAOS_ITERATIONS = 8
+CHAOS_WORKERS = 2
+# 2^16, not the harness's 2^13: Q5 SF 1 through the DAG ran 14.6-38.3 s
+# a query at 2^13 on an H100 (PERF.md section 4)
+CHAOS_PAGE_ROWS = 1 << 16
+CHAOS_QUERIES = ("q3", "q5", "dag")
+# the first six iterations' faults; the seeded draws pick the last two
+CHAOS_COVER = ("delay", "drop", "kill", "submit-drop", "kill-nonleaf",
+               "corrupt")
+CHAOS_SESSION = {"stage_scheduler": "true"}
+CHAOS_LOGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_chaos_logs")
+
+
+def phase_chaos(dev) -> dict:
+    """tools/chaos_torch.py's two runs on the card (the chaos line of the
+    docstring's phase list). The harness prints each iteration's query,
+    fault and wall; each child's stderr lands under CHAOS_LOGS. Returns
+    the K1-K4 launches of this process (the oracle and the coordinator's
+    root fragments)."""
+    from presto_tpu_torch import cuda
+    from tools import chaos_torch as CHAOS
+
+    card = card_line()
+    # the workers and coordinators load the libraries this build made:
+    # a library's path is keyed by its source, so none rebuilds
+    cuda.build()
+    fresh_memory(dev)
+    free0, total = torch.cuda.mem_get_info(dev)
+    log(f"chaos: card memory free {free0:,} of {total:,} bytes before")
+    common = ["--scale", str(CHAOS_SF), "--workers", str(CHAOS_WORKERS),
+              "--page-rows", str(CHAOS_PAGE_ROWS), "--device", dev.type,
+              "--sanitize", "--log-dir", CHAOS_LOGS]
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    rep_a = CHAOS.run_faults(
+        CHAOS.parse_args(["--seed", "0", "--iterations",
+                          str(CHAOS_ITERATIONS)] + common),
+        names=CHAOS_QUERIES, cover=CHAOS_COVER, session=CHAOS_SESSION)
+    wall_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_b = CHAOS.run_kill_coordinator(CHAOS.parse_args(
+        ["--mode", "kill-coordinator", "--iterations", "1"] + common))
+    wall_b = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: cuda.launches.get(k, 0) for k in KERNEL_NAMES}
+    # this process's own cache goes too: what stays is what a child left
+    fresh_memory(dev)
+    free1, _ = torch.cuda.mem_get_info(dev)
+    log(f"chaos: card memory free {free1:,} of {total:,} bytes after")
+    by_mode = collections.defaultdict(list)
+    for it in rep_a["iterations"] + rep_b["iterations"]:
+        by_mode[it["mode"]].append(round(it["wall_s"], 4))
+    workers = {k: rep_a["worker_kernel_launches"].get(k, 0)
+               + rep_b["worker_kernel_launches"].get(k, 0)
+               for k in KERNEL_NAMES}
+    log(f"chaos: (a) {wall_a:.1f} s, (b) {wall_b:.1f} s; walls by mode "
+        f"{json.dumps(by_mode)}; worker boots "
+        f"{[round(x, 2) for x in rep_a['worker_boot_s'] + rep_b['worker_boot_s']]}"
+        f" s, reboots {[round(x, 2) for x in rep_a['worker_reboot_s']]} "
+        f"s; re-attach {[round(x, 4) for x in rep_b['reattach_s']]} s; "
+        f"task_retries {rep_a['task_retries']}, nonleaf_replays "
+        f"{rep_a['nonleaf_replays']}, workers_excluded "
+        f"{rep_a['workers_excluded']}, coordinator_reattaches "
+        f"{rep_b['coordinator_reattaches']}; sanitizer violations "
+        f"{rep_a['violations'] + rep_b['violations']}; launches here "
+        f"{launches}, in the workers {workers}; {card}")
+    problems = []
+    if rep_a["failures"] or rep_b["failures"]:
+        problems.append(f"{rep_a['failures']} + {rep_b['failures']} "
+                        f"failed iterations or violations")
+    seen = {it["mode"] for it in rep_a["iterations"]}
+    if not set(CHAOS_COVER) <= seen:
+        problems.append(f"faults not visited: {set(CHAOS_COVER) - seen}")
+    if rep_a["nonleaf_replays"] < 1:
+        problems.append("no nonleaf_replays in (a)")
+    if rep_b["coordinator_reattaches"] < 1:
+        problems.append("no coordinator_reattaches in (b)")
+    if rep_a["violations"] or rep_b["violations"]:
+        problems.append("sanitizer violations")
+    if workers["part_ids"] < 1:
+        problems.append("the workers launched no K4")
+    if launches["segsum"] < 1:
+        problems.append("this process launched no K1")
+    if problems:
+        raise AssertionError(f"chaos: {'; '.join(problems)} (logs under "
+                             f"{CHAOS_LOGS})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -5011,7 +5105,6 @@ def main() -> int:
 
     walls = {}
     cluster = None
-
     def timed(name, fn, *a):
         """Run one phase and log its wall."""
         t = time.perf_counter()
@@ -5038,6 +5131,24 @@ def main() -> int:
     cpu_dispatch = {}  # the kernels the CPU runs dispatched, per query
     if "check" in phases:
         cpu_dispatch.update(timed("check", phase_check, dev))
+    # the sqlite oracles of dist and surface load in two child processes
+    # from here on, beside the card's phases (each took 85-100 s of host
+    # time that its phase waited for): beside `fused` and `scale`, whose
+    # readings share the host with them (PERF.md section 4); started
+    # after `scale`, they kept `dist` waiting on a slow host
+    oracle_children = None
+    if phases & {"dist", "surface"}:
+        import concurrent.futures
+        import multiprocessing
+
+        oracle_children = concurrent.futures.ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+        oracle_futures = {
+            name: oracle_children.submit(fn, sf)
+            for name, fn, sf in (
+                ("dist", _replay_oracles, REPLAY_SF),
+                ("surface", _surface_oracles, SURFACE_ORACLE_SF))
+            if name in phases}
     # launches: the sum over the main paths that ran (the single-process
     # scale runs, the distributed runs, the governed and the OOM-ladder
     # runs), each counted from 0
@@ -5054,11 +5165,13 @@ def main() -> int:
             launches = timed("scale", phase_scale, dev, cpu_dispatch)
         oracles = {}  # sqlite's answers by SF, the dist phase's for mesh
         if "dist" in phases:
-            dist = timed("dist", phase_dist, dev, cluster, oracles)
+            dist = timed("dist", phase_dist, dev, cluster, oracles,
+                         oracle_futures["dist"])
             launches = {k: (launches[k] or 0) + dist[k]
                         for k in KERNEL_NAMES}
         if "surface" in phases:
-            sur = timed("surface", phase_surface, dev, cluster)
+            sur = timed("surface", phase_surface, dev, cluster,
+                        oracle_futures["surface"])
             launches = {k: (launches[k] or 0) + sur[k]
                         for k in KERNEL_NAMES}
         if "statements" in phases:
@@ -5093,11 +5206,17 @@ def main() -> int:
             stm = timed("stream", phase_stream, dev)
             launches = {k: (launches[k] or 0) + stm[k]
                         for k in KERNEL_NAMES}
+        if "chaos" in phases:
+            cha = timed("chaos", phase_chaos, dev)
+            launches = {k: (launches[k] or 0) + cha[k]
+                        for k in KERNEL_NAMES}
         if "profile" in phases:
             timed("profile", phase_profile, dev, cluster)
     finally:
         if cluster is not None:
             cluster.stop()
+        if oracle_children is not None:
+            oracle_children.shutdown(cancel_futures=True)
 
     replaces = {
         "segsum": "presto_tpu/ops/pallas_agg.py:71",

@@ -173,11 +173,8 @@ class ManifestStore:
         self._header_check = header_check
         self.compact_threshold = int(compact_threshold)
         self._lock = make_lock("cache.persist.ManifestStore._lock")
-        self._entries: Dict[str, Dict] = {}
         self._pending: List[Dict] = []
         self._io_busy = False
-        self._gen = 0
-        self._gen_records = 0
         self._claimed: set = set()
         # load outcome, settled at construction (single-threaded: the
         # instance is not shared until the constructor returns); the
@@ -185,7 +182,7 @@ class ManifestStore:
         self.broken_reasons: List[str] = []
         self.broken_count = 0
         os.makedirs(directory, exist_ok=True)
-        self._load()
+        self._entries, self._gen, self._gen_records = self._load()
         register_owner(self)
 
     # ------------------------------------------------------------ load
@@ -236,7 +233,9 @@ class ManifestStore:
                 entries[key] = rec["v"]
         return entries, nrec, torn
 
-    def _load(self) -> None:
+    def _load(self) -> Tuple[Dict[str, Dict], int, int]:
+        """(entries, generation, its record count) of the newest usable
+        generation; the constructor installs them."""
         files = manifest_files(self.directory, self.stem)
         for gen, path in files:
             try:
@@ -248,9 +247,6 @@ class ManifestStore:
                     f"{os.path.basename(path)}: {e}")
                 self.broken_count += self._drop_weight(e)
                 continue
-            self._entries = entries
-            self._gen = gen
-            self._gen_records = nrec
             if torn:
                 self.broken_reasons.append(
                     f"{os.path.basename(path)}: torn trailing "
@@ -261,13 +257,12 @@ class ManifestStore:
                 # record would be lost on the NEXT load — force the
                 # first flush to compact into a fresh generation
                 # (atomic tmp+rename) instead of appending
-                self._gen_records = self.compact_threshold
-            return
-        if files:
-            # every generation was unreadable: start a fresh one ABOVE
-            # the corpses so their stale content can never win a
-            # newest-generation race later
-            self._gen = files[0][0] + 1
+                nrec = self.compact_threshold
+            return entries, gen, nrec
+        # every generation was unreadable: start a fresh one ABOVE the
+        # corpses so their stale content can never win a
+        # newest-generation race later
+        return {}, (files[0][0] + 1 if files else 0), 0
 
     @staticmethod
     def _drop_weight(e: BaseException) -> int:

@@ -65,11 +65,7 @@ from presto_tpu_torch.connectors.memory import (
     _round_up,
 )
 from presto_tpu_torch.exec import xfer as XF
-from presto_tpu_torch.obs.sanitizer import (
-    make_condition,
-    make_lock,
-    register_owner,
-)
+from presto_tpu_torch.obs.sanitizer import make_condition, register_owner
 from presto_tpu_torch.page import Block, Dictionary, Page, _decode_block
 
 
@@ -322,8 +318,8 @@ class StreamConnector(Connector):
         # tailing long-poller (per-table conditions would make the lock
         # registry grow per CREATE, for no contention win at this
         # fan-in)
-        self._cv = make_condition(lock=make_lock(
-            "connectors.stream.StreamConnector._cv"))
+        self._cv = make_condition(
+            "connectors.stream.StreamConnector._cv")
         register_owner(self, lock_attrs=("_cv",))
 
     # ------------------------------------------------------------ write

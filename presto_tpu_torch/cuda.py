@@ -116,6 +116,21 @@ def capturing():
         _capture.counter = prev
 
 
+def launch_counts() -> Dict[str, int]:
+    """A copy of ``launches`` (worker threads launch meanwhile)."""
+    with _count_lock:
+        return dict(launches)
+
+
+def load_all() -> None:
+    """Build what is not built yet (in parallel), then load every
+    library: a process that serves the card fails at its start, not at
+    its first query, when a kernel cannot load."""
+    build()
+    for lib in LIBRARIES:
+        library(lib)
+
+
 def reset_counts() -> None:
     with _count_lock:
         launches.clear()
@@ -178,6 +193,7 @@ def library(lib: str) -> ctypes.CDLL:
     with _lock:
         handle = _loaded.get(lib)
         if handle is None:
+            # concheck: blocking-ok - single-flight build: every caller needs this library, and function() skips the lock once loaded
             build([lib])
             handle = ctypes.CDLL(_target(lib))
             for sym, argtypes in LIBRARIES[lib][1].items():

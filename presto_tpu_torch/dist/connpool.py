@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 from urllib.parse import urlsplit
 
 from presto_tpu_torch.exec import xfer as XF
-from presto_tpu_torch.obs.sanitizer import make_lock
+from presto_tpu_torch.obs.sanitizer import make_lock, register_owner
 
 _LOG = logging.getLogger("presto_tpu_torch.dist.connpool")
 
@@ -94,10 +94,15 @@ class _PooledResponse:
 class ConnectionPool:
     """Per-destination keep-alive connection free-lists."""
 
+    # the free-lists are mutated in place under _lock by every thread
+    # that takes or returns a connection
+    _shared_attrs = ("_conns",)
+
     def __init__(self, max_per_dest: int = 4):
         self.max_per_dest = max_per_dest
         self._conns: Dict[Tuple[str, str], List] = {}
         self._lock = make_lock("dist.connpool.ConnectionPool._lock")
+        register_owner(self, lock_attrs=("_lock",))
 
     def _take(self, key):
         with self._lock:

@@ -383,6 +383,10 @@ class DcnRunner:
                             page = serde.deserialize_page(body)
                             st.hasher.update(body)
                             st.next_token += 1
+                            # the retries bound one token's failures,
+                            # not the stream's: a frame decoded, so the
+                            # next token starts with all of them
+                            attempt = 0
                             yield page
                         break
                 except serde.PageWireError as e:

@@ -712,10 +712,12 @@ class DistExecutor(Executor):
             local_build_cap = builds[0].capacity
 
         if node.join_type in ("semi", "anti"):
+            built = [{} for _ in builds]  # each shard's build half, once
             for page in self.pages(node.left):
                 yield ShardedPage(tuple(
-                    _semi_join_page(node.left_keys, node.right_keys, s, b)
-                    for s, b in zip(page.shards, builds)))
+                    _semi_join_page(node.left_keys, node.right_keys, s, b,
+                                    h)
+                    for s, b, h in zip(page.shards, builds, built)))
             return
 
         matched_acc = None

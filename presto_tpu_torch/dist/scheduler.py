@@ -81,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 import time
 import urllib.error
 from typing import Dict, List, Optional
@@ -548,10 +549,7 @@ class StageScheduler:
                     self._checkpoint_stage(ckpt, f.fid)
             if ckpt is not None:
                 self._checkpoint_root(ckpt)
-            if self.coord._root_hook is not None:
-                # the window between the last stage barrier and the
-                # root's drain, every producer spool live
-                self.coord._root_hook(self)
+            self._pre_root_hook()
             # coordinator-side root fragment over the final stages
             for fid in dag.root_inputs:
                 ex.remote_sources[stage_key(fid)] = \
@@ -611,6 +609,18 @@ class StageScheduler:
             logging.getLogger("presto_tpu_torch.dist").warning(
                 "root checkpoint blob dropped: %r", e)
         ckpt.record_root(blob, list(self.dag.root_inputs))
+
+    def _pre_root_hook(self) -> None:
+        """The window between the last stage barrier and the root's
+        drain, every producer spool live: FAULT_COORD_STALL_MS parks
+        the coordinator here (the chaos harness SIGKILLs it mid-stall),
+        and a test-installed coord._root_hook can park or kill
+        synchronously."""
+        stall = os.environ.get("FAULT_COORD_STALL_MS")
+        if stall:
+            time.sleep(int(stall) / 1000.0)
+        if self.coord._root_hook is not None:
+            self.coord._root_hook(self)
 
     # ------------------------------------------------------- stages
     def _probe_key(self, t: _SchedTask, frag) -> Optional[str]:

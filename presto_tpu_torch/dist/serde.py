@@ -410,14 +410,21 @@ def deserialize_page(buf: bytes) -> Page:
 
     blocks = []
     for bh in block_headers:
-        arrays = [take(np.dtype(d)) for d in bh["dtypes"]]
-        nulls = take(np.dtype(np.bool_)) if bh["has_nulls"] else None
-        dic = (Dictionary([_dic_value_from_json(v)
-                           for v in bh["dictionary"]])
-               if bh["dictionary"] is not None else None)
-        data = tuple(arrays) if bh["nwords"] > 1 else arrays[0]
-        blocks.append(Block(data=data, type=T.parse_type(bh["type"]),
-                            nulls=nulls, dictionary=dic))
+        try:
+            arrays = [take(np.dtype(d)) for d in bh["dtypes"]]
+            nulls = take(np.dtype(np.bool_)) if bh["has_nulls"] else None
+            dic = (Dictionary([_dic_value_from_json(v)
+                               for v in bh["dictionary"]])
+                   if bh["dictionary"] is not None else None)
+            data = tuple(arrays) if bh["nwords"] > 1 else arrays[0]
+            sql_type = T.parse_type(bh["type"])
+        except PageWireError:
+            raise
+        except (KeyError, TypeError, ValueError, IndexError) as e:
+            # a flipped header byte that still parses as JSON
+            _fail(f"malformed block header: {e!r}")
+        blocks.append(Block(data=data, type=sql_type, nulls=nulls,
+                            dictionary=dic))
     valid = take(np.dtype(np.bool_))
     if pos != len(payload):
         _fail(f"{len(payload) - pos} trailing payload bytes after the "

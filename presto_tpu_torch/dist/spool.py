@@ -435,6 +435,9 @@ def fetch_spool_blobs(uri: str, task_id: str, part: int, *,
                     for body in iter_response_frames(r):
                         item = body if decode is None else decode(body)
                         token += 1
+                        # the retries bound one token's failures, not
+                        # the stream's: the next token gets all of them
+                        attempt = 0
                         yield item
                     break
             except PageWireError:

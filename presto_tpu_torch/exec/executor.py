@@ -414,13 +414,15 @@ class Executor:
         # device-OOM ladder: a device memory fault re-enters the query
         # under a halved budget, up to device_oom_attempts times;
         # inject_device_oom raises a synthetic fault on the next N
-        # attempts (tests, the chip check)
+        # attempts (tests and the chip check set it; FAULT_DEVICE_OOM
+        # seeds it in worker and coordinator processes)
         self.device_oom_attempts = 2
         self.device_oom_retries = 0
         # the type of each fault the ladder absorbed, in order
         self.device_oom_faults: List[type] = []
         self._oom_divisor = 1
-        self.inject_device_oom = 0
+        self.inject_device_oom = int(
+            os.environ.get("FAULT_DEVICE_OOM", "0") or 0)
         # late materialization (late_materialization_enabled): "auto"
         # is on a CUDA executor; a raw Executor defaults to on, as the
         # reference's does. gathers_deferred: per-page column gathers
@@ -3036,9 +3038,10 @@ class Executor:
         probed in position slices. Semi and anti joins emit each probe
         page with its match column (_semi_join_page)."""
         if node.join_type in ("semi", "anti"):
+            built: Dict = {}  # the build half, made once per pass
             for page in probe_pages:
                 yield _semi_join_page(node.left_keys, node.right_keys, page,
-                                      build)
+                                      build, built)
             return
         use_radix = self._radix_join_eligible(node, build)
         if use_radix:
@@ -3333,15 +3336,27 @@ def _generated_join_window_page(left_key_ch, extra_pairs, join_type, inv,
             multi.any())
 
 
-def _semi_join_page(left_keys, right_keys, page: Page, build: Page) -> Page:
+def _semi_join_page(left_keys, right_keys, page: Page, build: Page,
+                    built: Dict) -> Page:
     """Semi/anti join page: the probe page plus a BOOLEAN match column
     whose NULLs carry SQL three-valued IN semantics; the planner's
-    filter above keeps (semi) or drops (anti) the matched rows."""
+    filter above keeps (semi) or drops (anti) the matched rows.
+    ``built`` (a dict a pass keeps across its probe pages) holds the
+    build half (J.semi_join_build) for the probe keys' dictionaries it
+    was made under: the build's canonical keys depend on them, and pages
+    of one scan share them, so the build's hash and sort run once per
+    pass, not once per probe page."""
+    lblocks = [page.block(c) for c in left_keys]
     lcols, lnulls, rcols, rnulls = _canonical_join_cols(
-        [page.block(c) for c in left_keys],
-        [build.block(c) for c in right_keys])
-    has_match, null_result = J.semi_join_mask(
-        rcols, rnulls, build.valid, lcols, lnulls, page.valid)
+        lblocks, [build.block(c) for c in right_keys])
+    dicts = [b.dictionary for b in lblocks]
+    made = built.get("dicts")
+    if made is None or any(a is not b and a != b
+                           for a, b in zip(made, dicts)):
+        built["dicts"] = dicts
+        built["half"] = J.semi_join_build(rcols, rnulls, build.valid)
+    has_match, null_result = J.semi_join_probe(
+        built["half"], lcols, lnulls, page.valid)
     match = Block(data=has_match, type=T.BOOLEAN, nulls=null_result)
     return Page(blocks=page.blocks + (match,), valid=page.valid)
 

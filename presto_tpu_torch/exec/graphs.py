@@ -51,7 +51,7 @@ import torch
 
 from presto_tpu_torch import cuda
 from presto_tpu_torch.exec import xfer as XF
-from presto_tpu_torch.obs.sanitizer import make_lock
+from presto_tpu_torch.obs.sanitizer import make_lock, register_owner
 from presto_tpu_torch.page import Block, Page
 
 MAX_PROGRAMS = 64
@@ -140,7 +140,21 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 class Program:
     """One fused program: ``fn(starts, counts)`` over ``batch`` splits,
-    captured into a CUDA graph on its first call on a CUDA device."""
+    captured into a CUDA graph on its first call on a CUDA device.
+
+    Every call runs under ``_lock``, the capture and the host-to-device
+    copies included, and that blocking is deliberate: the graph replays
+    into ONE set of static input and output buffers, so two replays (or
+    a replay and the capture) of one program cannot overlap; a caller
+    that arrives during the capture needs the graph it makes; and ``fn``
+    is a closure over one chain, written to run one call at a time. The
+    lock is the program's own: calls of other programs, and the cache's
+    lookups (``_programs_lock``), never wait on it."""
+
+    # the graph, its static buffers and the call record, written only
+    # under _lock (by __call__ and its *_locked helpers)
+    _shared_attrs = ("_graph", "_starts", "_counts", "_outputs", "_spec",
+                     "_launches", "capture_s", "calls", "last_call")
 
     def __init__(self, fn: Callable, batch: int, device: torch.device):
         self.fn = fn
@@ -157,6 +171,7 @@ class Program:
         # calls made, and the inputs of the latest (a check replays it)
         self.calls = 0
         self.last_call = None
+        register_owner(self)
 
     def _inputs(self, values: Sequence[int]) -> torch.Tensor:
         if len(values) != self.batch:
@@ -175,14 +190,19 @@ class Program:
             self.calls += 1
             self.last_call = (list(starts), list(counts))
             if self.device.type != "cuda":
+                # concheck: blocking-ok - fn runs one call at a time
                 return self.eager(starts, counts)
             if self._graph is None:
-                return self._capture(starts, counts)
-            return self._replay(starts, counts)
+                # concheck: blocking-ok - the static buffers' one writer
+                return self._capture_locked(starts, counts)
+            # concheck: blocking-ok - the static buffers' one writer
+            return self._replay_locked(starts, counts)
 
-    def _capture(self, starts, counts):
+    def _capture_locked(self, starts, counts):
         t0 = time.perf_counter()
+        # concheck: blocking-ok - the capture's static inputs (class doc)
         self._starts = self._inputs(starts)
+        # concheck: blocking-ok - the capture's static inputs (class doc)
         self._counts = self._inputs(counts)
         current = torch.cuda.current_stream(self.device)
         side = _side_stream(self.device)
@@ -215,9 +235,11 @@ class Program:
             stats["capture_s"] += self.capture_s
         return out
 
-    def _replay(self, starts, counts):
+    def _replay_locked(self, starts, counts):
+        # concheck: blocking-ok - the replay's static inputs (class doc)
         XF.stage_into(self._starts, np.asarray(starts, dtype=np.int64),
                       "batch-starts")
+        # concheck: blocking-ok - the replay's static inputs (class doc)
         XF.stage_into(self._counts, np.asarray(counts, dtype=np.int64),
                       "batch-starts")
         self._graph.replay()
@@ -234,11 +256,20 @@ _programs_lock = make_lock("exec.graphs._programs_lock")
 
 def program(key: tuple, build: Callable[[], Callable], batch: int,
             device: torch.device) -> Program:
-    """The cached Program of ``key``, made from ``build()`` on a miss."""
+    """The cached Program of ``key``, made from ``build()`` on a miss.
+    ``build()`` runs off the cache's lock, so one query's miss never
+    stalls another's lookup; of two racing misses the first to insert
+    wins and the other's build is dropped."""
+    with _programs_lock:
+        prog = _programs.get(key)
+        if prog is not None:
+            _programs.move_to_end(key)
+            return prog
+    fn = build()
     with _programs_lock:
         prog = _programs.get(key)
         if prog is None:
-            prog = _programs[key] = Program(build(), batch, device)
+            prog = _programs[key] = Program(fn, batch, device)
             while len(_programs) > MAX_PROGRAMS:
                 _programs.popitem(last=False)
         else:

@@ -158,7 +158,7 @@ TRANSFER_REGISTRY: Dict[str, Tuple[str, str, str]] = {
         "h2d", "data",
         "a fused program run op by op stages its B int64 split starts "
         "and counts per launch (not page data)"),
-    "exec.graphs.Program._replay": (
+    "exec.graphs.Program._replay_locked": (
         "h2d", "data",
         "a captured graph's replay copies its B split starts and "
         "counts into the graph's static input buffers per launch"),

@@ -222,17 +222,34 @@ def semi_join_mask(
 
     Reference: presto_tpu/ops/join.py semi_join_mask;
     operator/HashSemiJoinOperator.java + SetBuilderOperator."""
+    return semi_join_probe(
+        semi_join_build(build_cols, build_nulls, build_valid),
+        probe_cols, probe_nulls, probe_valid)
+
+
+def semi_join_build(build_cols: Sequence[torch.Tensor],
+                    build_nulls: Sequence[Optional[torch.Tensor]],
+                    build_valid: torch.Tensor) -> tuple:
+    """The build half of semi_join_mask — the folded key columns, the
+    valid mask, whether the build holds a NULL key, and the hash order —
+    made once per build and probed page by page (semi_join_probe)."""
     bcols, b_null = _fold_nulls(build_cols, build_nulls, False)
-    pcols, p_null = _fold_nulls(probe_cols, probe_nulls, False)
     bvalid = build_valid & ~b_null
     build_has_null = (build_valid & b_null).any()
-
-    none_nulls = [None] * len(bcols)
-    bhash = H.hash_columns(bcols, none_nulls)
-    phash = H.hash_columns(pcols, none_nulls)
+    bhash = H.hash_columns(bcols, [None] * len(bcols))
     poisoned = torch.where(bvalid, bhash, u64.POISON)
     perm = torch.argsort(u64.order(poisoned), stable=True)
-    sorted_hash = poisoned[perm]
+    return bcols, bvalid, build_has_null, perm, poisoned[perm]
+
+
+def semi_join_probe(build: tuple,
+                    probe_cols: Sequence[torch.Tensor],
+                    probe_nulls: Sequence[Optional[torch.Tensor]],
+                    probe_valid: torch.Tensor) -> tuple:
+    """semi_join_mask's probe half over a semi_join_build result."""
+    bcols, bvalid, build_has_null, perm, sorted_hash = build
+    pcols, p_null = _fold_nulls(probe_cols, probe_nulls, False)
+    phash = H.hash_columns(pcols, [None] * len(pcols))
     lo = searchsorted_u64(sorted_hash, phash, "left")
     hi = searchsorted_u64(sorted_hash, phash, "right")
 

@@ -224,8 +224,8 @@ class TailCursor:
         # statement through submit()'s gate; close releases it)
         self.resource_group = None
         self._rg_manager = None
-        self._cv = make_condition(lock=make_lock(
-            "server.http_server.TailCursor._cv"))
+        self._cv = make_condition(
+            "server.http_server.TailCursor._cv")
         register_owner(self, lock_attrs=("_cv",))
 
     def _delta_shape(self, plan) -> bool:
@@ -429,8 +429,8 @@ class MemoryArbiter:
         self.total = int(total_bytes)
         self.used = 0
         self.active = 0
-        self._cv = make_condition(lock=make_lock(
-            "server.http_server.MemoryArbiter._cv"))
+        self._cv = make_condition(
+            "server.http_server.MemoryArbiter._cv")
         register_owner(self, lock_attrs=("_cv",))
 
     def acquire(self, est: int, should_abort=None) -> bool:
@@ -496,7 +496,8 @@ class QueryManager:
     _shared_attrs = ("_queries", "_seq", "completed_by_state",
                      "rows_returned_total", "query_wall_ms_total",
                      "cache_admission_bypasses",
-                     "exec_counter_totals", "queued_now", "peak_queued")
+                     "exec_counter_totals", "queued_now", "peak_queued",
+                     "journal")
 
     # launch/batch counters accumulated across the concurrent path's
     # per-query executors at completion: those executors are discarded
@@ -716,6 +717,7 @@ class QueryManager:
     def _run_admitted(self, q: _Query, runner=None) -> None:
         if self.memory is None:
             with self._exec_lock:
+                # concheck: blocking-ok - the serial path: one query at a time on the bootstrap runner is this lock's purpose
                 self._execute(q)
             return
         # concurrent path: admission by estimated footprint replaces the
@@ -1852,6 +1854,10 @@ def main(argv=None) -> int:  # pragma: no cover - subprocess entry
         worker_uris=[u for u in args.workers.split(",") if u],
         checkpoint_dir=args.checkpoint_dir, device=args.device,
     )
+    if srv.device.type == "cuda":
+        from presto_tpu_torch import cuda
+
+        cuda.load_all()
     port = srv.start()
     print(json.dumps({"port": port}), flush=True)
     try:

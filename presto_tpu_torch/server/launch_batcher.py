@@ -49,11 +49,7 @@ import contextlib
 import time
 from typing import Dict, List, Optional, Tuple
 
-from presto_tpu_torch.obs.sanitizer import (
-    make_condition,
-    make_lock,
-    register_owner,
-)
+from presto_tpu_torch.obs.sanitizer import make_condition, register_owner
 
 # hard ceiling on how long a follower waits for its leader to publish
 # before giving up and running solo (the leader may be wedged in a
@@ -94,8 +90,8 @@ class LaunchBatcher:
 
     def __init__(self, wait_ms: int = 25):
         self.wait_ms = wait_ms
-        self._cv = make_condition(lock=make_lock(
-            "server.launch_batcher.LaunchBatcher._cv"))
+        self._cv = make_condition(
+            "server.launch_batcher.LaunchBatcher._cv")
         self._pending: Dict = {}
         self._inflight: Dict = {}  # key -> executing batch count
         # optional server-wide active-query count (set once at server

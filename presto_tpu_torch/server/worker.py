@@ -73,6 +73,7 @@ from __future__ import annotations
 import json
 import os
 import socket
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -81,6 +82,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from presto_tpu_torch import cuda
 from presto_tpu_torch import obs as OBS
 from presto_tpu_torch import resolve_device
 from presto_tpu_torch.connectors.split_filter import (
@@ -91,7 +93,8 @@ from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec import shapes as SH
 from presto_tpu_torch.exec import xfer as XF
 from presto_tpu_torch.exec.pagestore import PageStore, page_bytes
-from presto_tpu_torch.obs.sanitizer import make_lock
+from presto_tpu_torch.obs import sanitizer as SAN
+from presto_tpu_torch.obs.sanitizer import make_lock, register_owner
 from presto_tpu_torch.page import Page
 
 
@@ -241,6 +244,12 @@ class _Task:
     execution thread and the fetch/status/cancel handlers under
     ``lock``."""
 
+    # written under self.lock by TaskRuntime and the route handlers: the
+    # contract is the task's, and the runtime sanitizer checks it per
+    # instance
+    _shared_attrs = ("pages", "spool", "done", "error", "cancelled",
+                     "spans", "boost_retries", "skew_preempted")
+
     def __init__(self, task_id: str):
         self.task_id = task_id
         # a legacy-cut task's output: serialized host pages, published
@@ -261,6 +270,7 @@ class _Task:
         self.created_mono = time.monotonic()
         self.created_wall = time.time()
         self.spans: Optional[List[Dict]] = None
+        register_owner(self, lock_attrs=("lock",))
 
     def part_count(self, part: int) -> int:
         if self.spool is None:
@@ -492,6 +502,22 @@ def largest_table(node: P.PhysicalNode, catalogs) -> Optional[str]:
 # Task-plane routing. A response is (status, headers_list, content_type,
 # body_bytes); None means "not a task-plane path".
 
+# the prefix of a hard-exiting worker process's last stderr line, whose
+# rest is its process_counts() as JSON (TaskRuntime._kill)
+EXIT_RECORD = "presto-tpu-exit-counts "
+
+
+def process_counts() -> dict:
+    """This process's kernel launches by kernel (cuda.py: what its tasks
+    ran on the card) and, while the sanitizer is armed, its violation
+    count. A worker process has no other reporting plane: /v1/info
+    carries them, and the exit record of a kill fault."""
+    counts = {"kernelLaunches": cuda.launch_counts()}
+    if SAN.is_armed():
+        counts["sanitizerViolations"] = SAN.violation_count()
+    return counts
+
+
 _JSON_CT = "application/json"
 _PAGES_CT = "application/x-presto-pages"
 _RELEASED = "spool partition {} released (already acked)"
@@ -709,7 +735,10 @@ class _WorkerHandler(BaseHTTPRequestHandler):
         split = urlsplit(self.path)
         if split.path.startswith("/v1/info"):
             info = {"nodeId": self.app.node_id, "state": "ACTIVE",
-                    "tasks": self.app.task_count()}
+                    "uptime_s": round(
+                        time.monotonic() - self.app.started_mono, 1),
+                    "tasks": self.app.task_count(),
+                    **process_counts()}
             # the fleet-cache advertisement: a bloom summary of this
             # process's cached fragment keys rides every heartbeat poll,
             # so the coordinator's RemoteCacheIndex stays fresh with no
@@ -744,6 +773,13 @@ class TaskRuntime:
     MAX_RETAINED_TASKS = 32
     MAX_RETAINED_SPOOLED = 256
 
+    # the task registry is mutated by handler threads (create/cancel)
+    # while status/fetch handlers and expiry sweeps read it, under
+    # _tasks_lock; the fault overlay and its call counters under
+    # _fault_lock
+    _shared_attrs = ("tasks", "fault_config", "_results_calls",
+                     "_submit_calls", "_corrupt_calls")
+
     def __init__(self, catalogs, *, node_id: str = "w0",
                  default_catalog: Optional[str] = None,
                  page_rows: int = 1 << 16, device=None):
@@ -754,6 +790,7 @@ class TaskRuntime:
         self.device = resolve_device(device)
         self.tasks: Dict[str, _Task] = {}
         self._tasks_lock = make_lock("server.worker.TaskRuntime._tasks_lock")
+        self.started_mono = time.monotonic()
         # the runtime fault overlay (POST /v1/fault) and its call
         # counters, under _fault_lock
         self._fault_lock = make_lock("server.worker.TaskRuntime._fault_lock")
@@ -761,6 +798,7 @@ class TaskRuntime:
         self._results_calls = 0
         self._submit_calls = 0
         self._corrupt_calls = 0
+        register_owner(self, lock_attrs=("_tasks_lock", "_fault_lock"))
 
     def get_task(self, task_id: str) -> Optional[_Task]:
         with self._tasks_lock:
@@ -839,7 +877,12 @@ class TaskRuntime:
     def _kill(self) -> None:
         """FAULT_KILL_AFTER_FETCHES: a worker in its own process
         hard-exits, bypassing every finally and atexit, like an OOM
-        kill or the loss of its host."""
+        kill or the loss of its host. Its counts since the last
+        /v1/info poll would die with it, so its last stderr line is the
+        exit record (EXIT_RECORD) the chaos harness reads back."""
+        sys.stderr.write(
+            f"{EXIT_RECORD}{json.dumps(process_counts(), sort_keys=True)}\n")
+        sys.stderr.flush()
         os._exit(137)
 
     def maybe_inject_fault(self) -> bool:
@@ -1100,6 +1143,9 @@ class _TrackingHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     allow_reuse_address = True
     request_queue_size = 128
+    # the connection set is mutated in place under _conns_lock (handler
+    # threads add and drop theirs, stop() closes them all)
+    _shared_attrs = ("_conns",)
 
     def __init__(self, *a, **kw):
         self._conns: set = set()
@@ -1220,6 +1266,8 @@ def main(argv=None) -> int:  # pragma: no cover - subprocess entry
                        default_catalog=args.suite,
                        page_rows=args.page_rows, device=args.device)
     srv.owns_process = True
+    if srv.device.type == "cuda":
+        cuda.load_all()
     port = srv.start()
     print(json.dumps({"port": port, "nodeId": args.node_id}), flush=True)
     try:

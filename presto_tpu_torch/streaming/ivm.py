@@ -258,8 +258,8 @@ class MaterializedView:
         self.refreshes = 0
         self.full_recomputes = 0
         self._refreshing = False
-        self._cv = make_condition(lock=make_lock(
-            "streaming.ivm.MaterializedView._cv"))
+        self._cv = make_condition(
+            "streaming.ivm.MaterializedView._cv")
         register_owner(self, lock_attrs=("_cv",))
 
     def settled_offset(self) -> int:

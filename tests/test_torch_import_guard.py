@@ -1,6 +1,7 @@
-"""presto_tpu_torch stands alone: importing every one of its modules (and
-chip_smoke.py) in a fresh interpreter loads neither jax nor any
-presto_tpu module."""
+"""presto_tpu_torch stands alone: importing every one of its modules,
+chip_smoke.py and the port's tools (the chaos harness, the linter, the
+concurrency pass, the plan audit) in a fresh interpreter loads neither
+jax nor any presto_tpu module."""
 
 import os
 import pathlib
@@ -8,6 +9,9 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_TOOLS = ("tools.chaos_torch", "tools.lint_torch",
+              "tools.lint_torch.__main__", "tools.concheck_torch",
+              "tools.plan_audit_torch")
 
 
 def _port_modules():
@@ -19,7 +23,7 @@ def _port_modules():
 
 
 def test_port_imports_neither_jax_nor_presto_tpu():
-    mods = list(_port_modules()) + ["chip_smoke"]
+    mods = list(_port_modules()) + ["chip_smoke"] + list(PORT_TOOLS)
     assert "presto_tpu_torch.exec.executor" in mods
     code = (
         "import importlib, sys\n"

@@ -295,8 +295,10 @@ def test_result_cache_locks_are_instrumented_under_pytest():
 
 # --------------------------------------------------- the registries
 def _sites():
-    """(make_lock names, threading.Lock/RLock/Condition creations
-    outside the sanitizer, thread targets) over the port's source."""
+    """(make_lock / make_condition site names, threading.Lock/RLock/
+    Condition creations outside the sanitizer, thread targets) over the
+    port's source. A Condition named by its site (make_condition(name))
+    makes its own backing lock under that name."""
     names, raw, targets = set(), [], set()
     for dp, _dn, fns in os.walk(PKG_ROOT):
         for fn in fns:
@@ -310,7 +312,7 @@ def _sites():
                 f = n.func
                 fname = (f.attr if isinstance(f, ast.Attribute)
                          else f.id if isinstance(f, ast.Name) else "")
-                if (fname == "make_lock" and n.args
+                if (fname in ("make_lock", "make_condition") and n.args
                         and isinstance(n.args[0], ast.Constant)):
                     names.add(n.args[0].value)
                 if (isinstance(f, ast.Attribute)

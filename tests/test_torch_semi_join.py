@@ -18,6 +18,7 @@ from presto_tpu.exec.executor import Executor as RefExecutor
 from presto_tpu.ops import join as RJ
 from presto_tpu.runner import LocalRunner as RefRunner
 from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.dist.executor import make_mesh
 from presto_tpu_torch.exec import plan as P
 from presto_tpu_torch.exec.executor import Executor
 from presto_tpu_torch.ops import join as J
@@ -207,3 +208,40 @@ def test_semi_anti_sql_matches_sqlite_and_reference(name, conns, db):
     assert got == [tuple(r) for r in db.execute(oracle).fetchall()]
     want = RefRunner({"tpch": ref_conn}, page_rows=1 << 12).execute(sql).rows
     assert got == want
+
+
+def test_semi_build_half_runs_once_per_pass(conns, monkeypatch):
+    """A semi join's build half (hash and sort of the whole build) is
+    made once per pass and probed page by page, not once per probe
+    page, on one device and on each shard of a mesh; the rows equal a
+    one-page run's and the reference's."""
+    from tests.tpch_queries import QUERIES
+
+    ref_conn, conn = conns
+    builds = []
+    real = J.semi_join_build
+    monkeypatch.setattr(J, "semi_join_build",
+                        lambda *a: builds.append(1) or real(*a))
+    sql = QUERIES[4]  # EXISTS over lineitem: one semi join
+    many = LocalRunner({"tpch": conn}, page_rows=1 << 9,
+                       device="cpu").execute(sql).rows
+    probe_pages = len(builds)
+    builds.clear()
+    one = LocalRunner({"tpch": conn}, page_rows=1 << 16,
+                      device="cpu").execute(sql).rows
+    assert probe_pages == len(builds) == 1
+    # the mesh path: one build half per shard per pass, whatever the
+    # number of probe pages
+    D = 2
+    builds.clear()
+    mesh_many = LocalRunner({"tpch": conn}, page_rows=1 << 9, device="cpu",
+                            mesh=make_mesh(D, device="cpu")).execute(
+        sql).rows
+    assert len(builds) == D
+    builds.clear()
+    mesh_one = LocalRunner({"tpch": conn}, page_rows=1 << 16, device="cpu",
+                           mesh=make_mesh(D, device="cpu")).execute(sql).rows
+    assert len(builds) == D
+    want = RefRunner({"tpch": ref_conn}, page_rows=1 << 16).execute(
+        sql).rows
+    assert many == one == mesh_many == mesh_one == want
